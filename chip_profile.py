@@ -3,13 +3,16 @@
 
     python3 chip_profile.py [--reps 3]
 
-Two workloads, each run `--reps` times untraced and then once under
+Three workloads, each run `--reps` times untraced and then once under
 torch.profiler:
   config 2   `dist -k 31 -S 16 -M -b -O ... -o ...` through the CLI entry on
              the 100 synthetic 5 Mbp genomes of chip_smoke.py (same seed),
              with the DASHING_TPU_METRICS buckets of every untraced run;
   n1024      all_pairs_condensed over the 1024-sketch p=14 bank of
-             chip_smoke.py's K3 phase (one 1024 x 1024 tile, Mash, MLE).
+             chip_smoke.py's K3 phase (one 1024 x 1024 tile, Mash, MLE);
+  j1000      the same engine with the joint MLE (-J) over the 1000-sketch
+             p=14 bank of chip_smoke.py's K4 phase (one 1000 x 1000 tile,
+             Mash): kernels K4 and K5.
 For the traced run it prints the profiler's table (top ops by self device
 time) and the device busy share of that one run: the union of the device
 activity intervals in the trace over the run's wall clock.  The profiler
@@ -28,7 +31,7 @@ import sys
 import tempfile
 import time
 
-os.environ["DASHING_TPU_METRICS"] = "1"   # read when dashing_tpu.metrics loads
+os.environ["DASHING_TPU_METRICS"] = "1"   # read when dashing_tpu_torch.metrics loads
 
 import numpy as np  # noqa: E402
 
@@ -80,7 +83,7 @@ def traced(label: str, fn) -> None:
 
 
 def buckets() -> str:
-    from dashing_tpu import metrics
+    from dashing_tpu_torch import metrics
     out = ", ".join(f"{k} {v:.3f}s" for k, v in sorted(metrics._totals.items()))
     metrics._totals.clear()
     metrics._counts.clear()
@@ -145,6 +148,33 @@ def n1024(dev, reps: int) -> None:
     traced("n1024", run)
 
 
+def j1000(dev, reps: int) -> None:
+    import torch
+    import chip_smoke
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    p, n = 14, 1000
+    bank, _ = chip_smoke._k3_bank(dev, p, n)
+    sketches = [HLL.from_numpy(r, p, est.ERTL_MLE, est.ERTL_JOINT_MLE)
+                for r in bank.cpu().numpy()]
+
+    def run():
+        pw.all_pairs_condensed(sketches, pw.MASH_DIST, 31, est.ERTL_MLE,
+                               est.ERTL_JOINT_MLE, dev)
+
+    run()
+    for r in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"[j1000] rep {r} compare -J {dt:.4f}s, "
+            f"{n * (n - 1) / 2 / dt:.0f} pairs/s")
+    traced("j1000", run)
+
+
 def main() -> int:
     global _log_fp
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -167,6 +197,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     config2(dev, args.reps)
     n1024(dev, args.reps)
+    j1000(dev, args.reps)
     _log_fp.close()
     return 0
 

@@ -5,26 +5,42 @@
 
 Phases, each printing its own lines with seconds:
   1. device   the card's name and power limit (nvidia-smi); fails without CUDA
-  2. build    both CUDA kernels from dashing_tpu_torch/csrc (nvcc, sm_90a)
+  2. build    every CUDA kernel from dashing_tpu_torch/csrc (nvcc, sm_90a,
+              one nvcc per source, all started together), with ptxas's
+              registers, stack frame and spills per kernel
   3. K1       fused encode/hash/register-max kernel vs its plain PyTorch
               version on the card, one 256-row chunk, k=31 p=14 and k=21
               p=16: registers must be bitwise equal
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE, rtol=2e-4 atol=5e-2
               on triples; the row-estimate kernel (marginals) at rtol=1e-5
-  5. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
+  5. K4, K5   joint pair statistics (K4) vs their plain version, bitwise
+              equal, on a same-bank 1000 x 2^14 bank and a distinct ragged
+              600 x 1000 pair of banks with a window kmin > 0; the joint MLE
+              (K5) vs its plain version on 256 x 1000 pairs of the same-bank
+              statistics, rtol=2e-4 atol=5e-2 on triples, atol=2e-6 on
+              Jaccard, non-finite entries in the same places
+  6. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
               (a) 4 genomes, dist -k 21 -S 14 -M -T
               (b) 100 synthetic 5 Mbp genomes (20 ancestors x 5 copies at
-                  planted substitution rates), dist -k 31 -S 16 -M -b -O -o;
-              every kernel must have launched, the matrix must be finite
-              and of length n(n-1)/2, every planted pair's Mash distance
-              within 0.25 d + 0.001 of d, and two genomes' registers equal
-              to the plain version's on the card.  Then K3 and the
-              row-estimate kernel are held against their plain versions at
-              the shapes config 2 gives them (one 100 x 100 tile at p=16;
-              the -o histograms).
-The line before the last is the per-kernel JSON record; the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
+                  planted substitution rates), dist -k 31 -S 16 -M -b -O -o
+              (c) the same 100 genomes, dist -k 31 -S 16 -J -M -b (joint MLE)
+              (d) 1000 p=14 sketches of the K4 bank written as .hll files,
+                  dist -H -J -M -b (all 499,500 pairs), its wall time and
+                  pairs/s, and the largest Jaccard difference from -m
+              In (b) and (c) every kernel of the path must have launched
+              (counts set to 0 just before the run, read just after), the
+              matrix must be finite and of length n(n-1)/2, and every
+              planted pair's Mash distance within 0.25 d + 0.001 of d; two
+              genomes' registers must equal the plain version's on the card.
+              Then K3, the row-estimate kernel, K4 and K5 are held against
+              their plain versions at the shapes config 2 gives them (one
+              100 x 100 tile at p=16; the -o histograms).
+The line before the last is the per-kernel JSON record (launches from the
+run of the kernel's path, times as CUDA-event means, each kernel's bound
+and, where one PyTorch call computes the same function, that call's time);
+the last line is {"ok": true, "device": {...}}.  Any failure exits
+non-zero with no result.
 """
 from __future__ import annotations
 
@@ -42,9 +58,23 @@ import numpy as np
 SEED = 20260
 K3_RTOL, K3_ATOL = 2e-4, 5e-2
 EST_RTOL = 1e-5            # row estimates (cardinalities) vs plain
+JI_ATOL = 2e-6             # Jaccard of the K5 triples vs plain
 K3_SRC = "dashing_tpu_torch/csrc/union_mle.cu"
 K3_REPLACES = "dashing_tpu/ops/pallas_mle.py:77"
+K4_SRC = "dashing_tpu_torch/csrc/joint_stats.cu"
+K4_REPLACES = "dashing_tpu/ops/pallas_stats.py:112"
+K5_SRC = "dashing_tpu_torch/csrc/joint_mle.cu"
+K5_REPLACES = "dashing_tpu/ops/pallas_jmle.py:86"
 RATES = (0.001, 0.01, 0.03, 0.001, 0.01)   # per-copy substitution rates
+
+# Peak rates of one H100 SXM for the bounds (NVIDIA's H100 datasheet):
+# HBM bytes/s, float32 outside the tensor cores, int8 tensor cores.  The
+# int32 rate is not in the datasheet: it is the float32 rate's clock and SM
+# count with 64 int32 lanes per SM instead of 128 float32 FMA lanes.
+HBM_BPS = 3.35e12
+FP32_OPS = 67e12
+INT8_TC_OPS = 1979e12
+INT32_OPS = 67e12 / 4
 
 
 def log(msg: str) -> None:
@@ -71,6 +101,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def record(records, name, source, replaces, counter, max_abs_err, ms,
+           plain_ms, nbytes, ops, op_rate, library_ms=None):
+    """One kernel entry of the JSON line; the bound is the larger of the
+    bytes the function must move (each input read once, each output
+    written once) over HBM_BPS and its operations over their peak rate."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / op_rate * 1e3
+    records.append(dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        counter=counter, max_abs_err=float(max_abs_err), ms=ms,
+        plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms))
+
+
+# Operation counts per pair (or row), from the kernels' sources: float32
+# arithmetic operations, each transcendental (exp, log, expm1) counted as
+# one, so the bound they give is a floor.
+def k3_ops(K: int, method: int, iters: int = 12) -> int:
+    """csrc/union_mle.cu: histogram difference and mass (2 per level), the
+    estimator, and the triple (~10); MLE adds the improved start (2 per
+    level) and per Newton step 13 per level plus ~15."""
+    if method == 0:
+        return 2 * K + 3 * K + 10
+    if method == 1:
+        return 2 * K + 2 * K + 150 + 10
+    return 2 * K + 2 * K + 150 + iters * (13 * K + 15) + 10
+
+
+def k5_ops(K: int, iters: int) -> int:
+    """csrc/joint_mle.cu: per Newton step ~200 per level (chains, four
+    marginal terms, the equal-level term and its nine sums) plus ~120
+    (exponentials, seeds, 3x3 solve, step); two likelihood passes of ~63
+    per level; loads and the union start 4 per level."""
+    return 4 * K + iters * (200 * K + 120) + 2 * (63 * K + 30) + 20
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -92,13 +159,25 @@ def phase_device():
 
 
 def phase_build():
-    from dashing_tpu_torch.ops import _build, encode_hash, union_mle
+    """Build every kernel library at once (one nvcc each, in parallel),
+    then print ptxas's report for each kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dashing_tpu_torch.ops import (_build, encode_hash, joint_mle,
+                                       joint_stats, union_mle)
     t0 = time.perf_counter()
-    encode_hash._lib()
-    union_mle._lib()
+    mods = (encode_hash, union_mle, joint_stats, joint_mle)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        for f in [ex.submit(m._lib) for m in mods]:
+            f.result()
     log(f"[build] nvcc {_build.nvcc()}: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in _build.build_seconds.items())
         + f" (phase {time.perf_counter() - t0:.1f}s)")
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            line = line.strip()
+            if "Compiling entry" in line or "registers" in line \
+                    or "stack frame" in line:
+                log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
 
 
 def _random_chunk(rng, rows: int, C: int) -> np.ndarray:
@@ -143,12 +222,15 @@ def phase_k1(dev, records):
         log(f"[K1] k={k} p={p} chunk {tile.shape}: registers bitwise equal "
             f"({nz} nonzero); kernel {ms:.4f} ms ({bases / ms / 1e6:.2f} "
             f"Gbase/s), plain {plain_ms:.4f} ms")
-        records.append(dict(
-            name=f"encode_hash_regs k={k} p={p}", route="cuda",
-            source="dashing_tpu_torch/csrc/encode_hash.cu",
-            replaces="dashing_tpu/ops/pallas_encode.py:99",
-            counter="encode_hash", max_abs_err=0.0, ms=ms,
-            plain_ms=plain_ms))
+        # bytes: codes and validity bits in, registers read and written;
+        # ops: ~100 int32 operations per base (rolling k-mer pair, WangHash
+        # on 64 bits, bucket, rank, register compare), counted from the
+        # source, over the int32 rate
+        record(records, f"encode_hash_regs k={k} p={p}",
+               "dashing_tpu_torch/csrc/encode_hash.cu",
+               "dashing_tpu/ops/pallas_encode.py:99", "encode_hash", 0.0, ms,
+               plain_ms, packed.nbytes + vbits.nbytes + 2 * 4 * (1 << p),
+               100 * bases, INT32_OPS)
 
 
 def _k3_bank(dev, p: int, n: int):
@@ -224,10 +306,10 @@ def _check_estimates(hist, p, kmin, method, iters, what, shape, records):
         hist, p=p, kmin=kmin, method=method, iters=iters), 3)
     log(f"[est] {what}, {shape}: within rtol={EST_RTOL}, max abs err "
         f"{max_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    records.append(dict(
-        name=f"estimate_rows {what} ({shape})", route="cuda", source=K3_SRC,
-        replaces=K3_REPLACES, counter="estimate_rows", max_abs_err=max_err,
-        ms=ms, plain_ms=plain_ms))
+    n, K = hist.shape
+    record(records, f"estimate_rows {what} ({shape})", K3_SRC, K3_REPLACES,
+           "estimate_rows", max_err, ms, plain_ms, 4 * n * K + 4 * n,
+           n * k3_ops(K, method, iters), FP32_OPS)
     return got
 
 
@@ -258,10 +340,134 @@ def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
     log(f"[K3] {name} {shape}: within rtol={K3_RTOL} atol={K3_ATOL}, max "
         f"abs err {max_err:.3g}; kernel {ms:.4f} ms "
         f"({na * nb / ms / 1e3:.1f} M pairs/s), plain {plain_ms:.4f} ms")
-    records.append(dict(
-        name=f"union_triples {name} ({shape})", route="cuda", source=K3_SRC,
-        replaces=K3_REPLACES, counter="union_triples", max_abs_err=max_err,
-        ms=ms, plain_ms=plain_ms))
+    K = cumT.shape[0]
+    record(records, f"union_triples {name} ({shape})", K3_SRC, K3_REPLACES,
+           "union_triples", max_err, ms, plain_ms,
+           4 * (K * na * nb + na + nb + 3 * na * nb),
+           na * nb * k3_ops(K, method), FP32_OPS)
+
+
+def _indicator_bmm(a, b, kmin: int, kmax: int):
+    """The library yardstick for K4: X, Y and Z of every level as ONE
+    batched float32 matmul (TF32 off) of stacked 0/1 indicators; the port
+    never calls it."""
+    import torch
+    ks = torch.arange(kmin, kmax + 1, device=a.device, dtype=torch.int8)
+    ka = torch.cat([ks, ks, ks - 1])          # X: (k, k), Y: (k, k-1),
+    kb = torch.cat([ks, ks - 1, ks])          # Z: (k-1, k)
+    A = (a[None] <= ka[:, None, None]).to(torch.float32)
+    B = (b[None] <= kb[:, None, None]).to(torch.float32).transpose(1, 2)
+    return lambda: torch.bmm(A, B)
+
+
+def check_k4(a, b, kmin, kmax, same, what, records, reps=5):
+    """K4 vs its plain version, bitwise, then kernel, plain and library
+    times.  Returns the kernel's statistics."""
+    import torch
+    from dashing_tpu_torch.ops import joint_stats as js
+    (na, m), nb = a.shape, b.shape[0]
+    K = kmax - kmin + 1
+    got = js.joint_pair_stats(a, b, kmin=kmin, kmax=kmax, same=same)
+    want = js.joint_pair_stats_plain(a, b, kmin=kmin, kmax=kmax, same=same)
+    torch.cuda.synchronize()
+    for key in want:
+        if not torch.equal(got[key], want[key]):
+            diff = int((got[key] != want[key]).sum())
+            fail(f"K4 {what}: {key} differs from the plain version in "
+                 f"{diff} entries")
+    ms = cuda_ms(lambda: js.joint_pair_stats(a, b, kmin=kmin, kmax=kmax,
+                                             same=same), reps)
+    plain_ms = cuda_ms(lambda: js.joint_pair_stats_plain(
+        a, b, kmin=kmin, kmax=kmax, same=same), 2)
+    del want
+    bmm = _indicator_bmm(a, b, kmin, kmax)
+    lib_ms = cuda_ms(bmm, 2)
+    del bmm
+    torch.cuda.empty_cache()
+    npairs = na * nb
+    log(f"[K4] {what}: {na}x{nb} pairs, m={m}, kmin={kmin} K={K}: bitwise "
+        f"equal; kernel {ms:.4f} ms ({npairs / ms / 1e3:.1f} M pairs/s), "
+        f"plain {plain_ms:.4f} ms, one fp32 bmm of the indicators "
+        f"{lib_ms:.4f} ms")
+    # bytes: registers in, four (K, na, nb) float32 out; operations: three
+    # binary MACs (2 ops each) per pair, level and register, at the int8
+    # tensor-core rate
+    record(records, f"joint_pair_stats {what} ({na}x{nb} m={m} K={K})",
+           K4_SRC, K4_REPLACES, "joint_pair_stats", 0.0, ms, plain_ms,
+           (na + nb) * m + 16 * K * npairs, 2 * 3 * K * npairs * m,
+           INT8_TC_OPS, lib_ms)
+    return got
+
+
+def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
+    """K5 vs its plain version on the K-first statistics `st` restricted to
+    row slice `rows`: rtol=K3_RTOL atol=K3_ATOL on triples, JI_ATOL on
+    Jaccard, non-finite entries alike."""
+    import torch
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.sketch import estimators as est
+    args = [st[key][:, rows].contiguous() for key in ("eq", "gt_a", "gt_b")]
+    args += [ha[:, rows].contiguous(), hb, c_a[rows].contiguous(), c_b]
+    K, na, nb = args[0].shape
+    got = jm.joint_triples(*args, p=p, kmin=kmin)
+    want = jm.joint_triples_plain(*args, p=p, kmin=kmin)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not (torch.equal(fin, torch.isfinite(got))
+            and torch.equal(torch.isnan(want), torch.isnan(got))):
+        fail(f"K5 {what}: non-finite entries differ")
+    err = (got - want).abs()[fin]
+    max_err = float(err.max()) if err.numel() else 0.0
+    bad = int((err > K3_ATOL + K3_RTOL * want.abs()[fin]).sum())
+    ji = [t[2] / t.sum(0).clamp(min=1e-30) for t in (got, want)]
+    ok = torch.isfinite(ji[1])
+    ji_err = float((ji[0] - ji[1]).abs()[ok].max())
+    if bad or ji_err > JI_ATOL:
+        fail(f"K5 {what}: {bad} triples outside rtol={K3_RTOL} "
+             f"atol={K3_ATOL} (max abs err {max_err}), Jaccard max err "
+             f"{ji_err}")
+    ms = cuda_ms(lambda: jm.joint_triples(*args, p=p, kmin=kmin), reps)
+    plain_ms = cuda_ms(lambda: jm.joint_triples_plain(*args, p=p, kmin=kmin),
+                       1)
+    iters = est.jmle_iters(p)
+    log(f"[K5] {what}: {na}x{nb} pairs p={p} kmin={kmin} K={K} ({iters} "
+        f"Newton steps): within rtol={K3_RTOL} atol={K3_ATOL}, max abs err "
+        f"{max_err:.3g}, Jaccard max err {ji_err:.3g}; kernel {ms:.4f} ms "
+        f"({na * nb / ms / 1e3:.1f} M pairs/s), plain {plain_ms:.4f} ms")
+    # bytes: three (K, na, nb) stacks, the marginals and cardinalities in,
+    # (3, na, nb) out; operations: k5_ops per pair at the float32 rate
+    record(records, f"joint_triples {what} ({na}x{nb} p={p} K={K})", K5_SRC,
+           K5_REPLACES, "joint_triples", max_err, ms, plain_ms,
+           4 * (3 * K * na * nb + K * (na + nb) + na + nb + 3 * na * nb),
+           na * nb * k5_ops(K, iters), FP32_OPS)
+
+
+def phase_k4_k5(dev, records):
+    """K4 on a same-bank 1000 x 2^14 bank and on a ragged 600 x 1000 pair
+    of distinct banks with kmin > 0; K5 on 256 x 1000 pairs of the
+    same-bank statistics.  Returns the bank (e2e (d) sketches it)."""
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
+    p, n = 14, 1000
+    t0 = time.perf_counter()
+    bank, _ = _k3_bank(dev, p, n)
+    regs = bank.cpu().numpy().astype(np.int32)
+    mm = pw._block_minmax(regs, n, n)
+    kmax, kmin = pw._pair_window(mm[0], mm[0], 64 - p)
+    log(f"[K4] bank {n} x 2^{p} from K1, window kmin={kmin} K={kmax - kmin + 1}"
+        f" ({time.perf_counter() - t0:.2f}s)")
+    st = check_k4(bank, bank, kmin, kmax, True, "same bank", records)
+    other, _ = _k3_bank(dev, p, 607)       # other ranges of the pool
+    lo = int(min(regs.min(), other.min().item()))
+    check_k4(other[:600], bank, lo + 2, kmax, False,
+             "distinct ragged, kmin>0", records)
+    del other
+    hist = pw.marginal_histograms(bank, kmin, kmax - kmin + 1)
+    c = um.estimate_rows(hist, p=p, kmin=kmin, method=est.ERTL_MLE)
+    check_k5(st, slice(0, 256), hist.T, hist.T.contiguous(), c, c, p, kmin,
+             "p=14 bank", records)
+    return bank
 
 
 def _write_genomes(root: str, n_anc: int, length: int, rng):
@@ -314,11 +520,13 @@ def _cond_index(n: int, i: int, j: int) -> int:
     return i * (2 * n - i - 1) // 2 + j - i - 1
 
 
-def phase_e2e(dev, counts, records):
+def phase_e2e(dev, bank, counts, records):
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.cli.main import main
     from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import joint_stats as js
     from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch.hll import HLL
     rng = np.random.default_rng(SEED + 1)
@@ -365,25 +573,31 @@ def phase_e2e(dev, counts, records):
             f"row estimates {um.estimate_launches}")
         if min(counts.values()) == 0:
             fail(f"a kernel of the main path was not launched: {counts}")
-        n, cond = _read_condensed(out_b)
-        if n != len(paths) or cond.shape != (n * (n - 1) // 2,):
-            fail(f"e2e (b): matrix n={n} len={cond.shape}")
-        if not np.isfinite(cond).all():
-            fail("e2e (b): non-finite distances")
-        worst = 0.0
-        for i in range(n):
-            for j in range(i + 1, n):
-                if genomes[i][1] != genomes[j][1]:
-                    continue
-                d = _expected_d(RATES[genomes[i][2]], RATES[genomes[j][2]])
-                got = float(cond[_cond_index(n, i, j)])
-                worst = max(worst, abs(got - d) / (0.25 * d + 0.001))
-                if abs(got - d) > 0.25 * d + 0.001:
-                    fail(f"planted pair {i},{j}: Mash {got:.5f} vs d={d:.5f}")
-        log(f"[e2e b] 100 genomes k31 S16 -M -b: {n * (n - 1) // 2} finite "
-            f"distances, 200 planted pairs within 0.25d+0.001 (worst at "
-            f"{worst:.2f} of the bound); wall {wall:.2f}s, "
-            f"{total_bases / wall / 1e6:.1f} M bases/s end to end")
+        _check_planted(out_b, genomes, "(b)", wall, total_bases)
+
+        # (c) config 2 with the joint MLE: K1, the row estimates, K4, K5
+        out_c = os.path.join(tmp, "c.bin")
+        eh.launches = um.launches = um.estimate_launches = 0
+        js.launches = jm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if main(["dist", "-k", "31", "-S", "16", "-J", "-M", "-b", "-O",
+                 out_c, "-o", os.path.join(tmp, "c.sizes"),
+                 "--avoid-sorting"] + paths) != 0:
+            fail("e2e (c) returned nonzero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        joint = {"encode_hash": eh.launches, "estimate_rows":
+                 um.estimate_launches, "joint_pair_stats": js.launches,
+                 "joint_triples": jm.launches}
+        log(f"[e2e c] launches: K1 {eh.launches}, row estimates "
+            f"{um.estimate_launches}, K4 {js.launches}, K5 {jm.launches}, "
+            f"K3 {um.launches}")
+        if min(joint.values()) == 0:
+            fail(f"a kernel of the -J path was not launched: {joint}")
+        counts["joint_pair_stats"] = js.launches
+        counts["joint_triples"] = jm.launches
+        _check_planted(out_c, genomes, "(c) -J", wall, total_bases)
 
         # registers of two genomes through the CLI vs the plain version
         out_s = os.path.join(tmp, "two.hll")
@@ -409,8 +623,77 @@ def phase_e2e(dev, counts, records):
             "version on the card")
         sketches = _phase_times(dev, paths, total_bases)
         _config2_kernels(dev, sketches, records)
+        _e2e_joint_bank(bank, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _check_planted(path, genomes, what, wall, total_bases):
+    """The `dist -M -b` matrix of config 2: finite, n(n-1)/2 long, every
+    planted pair's Mash distance within 0.25 d + 0.001 of d."""
+    n, cond = _read_condensed(path)
+    if n != len(genomes) or cond.shape != (n * (n - 1) // 2,):
+        fail(f"e2e {what}: matrix n={n} len={cond.shape}")
+    if not np.isfinite(cond).all():
+        fail(f"e2e {what}: non-finite distances")
+    worst, planted = 0.0, 0
+    for i in range(n):
+        for j in range(i + 1, n):
+            if genomes[i][1] != genomes[j][1]:
+                continue
+            d = _expected_d(RATES[genomes[i][2]], RATES[genomes[j][2]])
+            got = float(cond[_cond_index(n, i, j)])
+            worst = max(worst, abs(got - d) / (0.25 * d + 0.001))
+            planted += 1
+            if abs(got - d) > 0.25 * d + 0.001:
+                fail(f"e2e {what}: planted pair {i},{j}: Mash {got:.5f} vs "
+                     f"d={d:.5f}")
+    log(f"[e2e {what}] {n} genomes k31 S16 -M -b: {n * (n - 1) // 2} finite "
+        f"distances, {planted} planted pairs within 0.25d+0.001 (worst at "
+        f"{worst:.2f} of the bound); wall {wall:.2f}s, "
+        f"{total_bases / wall / 1e6:.1f} M bases/s end to end")
+
+
+def _e2e_joint_bank(bank, tmp):
+    """(d) the 1k-genome -J compare: the 1000 p=14 sketches of the K4 bank
+    as .hll files, `dist -H -J -M -b` over all 499,500 pairs; then one
+    -J-less run for the largest Jaccard difference between the two."""
+    import torch
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    regs = bank.cpu().numpy().astype(np.uint8)
+    n, p = regs.shape[0], 14
+    hdir = os.path.join(tmp, "bank")
+    os.makedirs(hdir)
+    hlls = []
+    for i in range(n):
+        hlls.append(os.path.join(hdir, f"s{i:04d}.hll"))
+        HLL(p, est.ERTL_MLE, est.ERTL_JOINT_MLE, regs[i]).write(hlls[-1])
+    out = {}
+    for tag, extra in (("J", ["-J"]), ("m", [])):
+        path = os.path.join(tmp, f"d_{tag}.bin")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if main(["dist", "-k", "31", "-H", "-M", "-b", "-O", path, "-o",
+                 path + ".sizes"] + extra + hlls) != 0:
+            fail(f"e2e (d) -{tag} returned nonzero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m_, cond = _read_condensed(path)
+        if m_ != n or cond.shape != (n * (n - 1) // 2,):
+            fail(f"e2e (d): matrix n={m_} len={cond.shape}")
+        if not np.isfinite(cond).all():
+            fail(f"e2e (d) -{tag}: non-finite distances")
+        out[tag] = cond
+        log(f"[e2e d] dist -H {' '.join(extra + ['-M', '-b'])} over {n} p={p}"
+            f" sketches: {cond.size} finite distances, wall {wall:.3f}s "
+            f"({cond.size / wall:.0f} pairs/s, sketch load and -o included)")
+    # Mash d = -ln(2J / (1 + J)) / k  =>  J = r / (2 - r), r = exp(-k d)
+    ji = {t: (lambda r: r / (2.0 - r))(np.exp(-31.0 * c.astype(np.float64)))
+          for t, c in out.items()}
+    log(f"[e2e d] largest |JI(-J) - JI(-m)| over the pairs: "
+        f"{float(np.abs(ji['J'] - ji['m']).max()):.6f}")
 
 
 def _phase_times(dev, paths, total_bases):
@@ -440,9 +723,10 @@ def _phase_times(dev, paths, total_bases):
 
 
 def _config2_kernels(dev, sketches, records):
-    """K3 and the row-estimate kernel against their plain versions on the
-    inputs config 2's `dist` gives them: the one 100 x 100 tile, built the
-    way all_pairs_condensed builds it, and the -o full histograms."""
+    """K3, the row-estimate kernel, K4 and K5 against their plain versions
+    on the inputs config 2's `dist` gives them: the one 100 x 100 tile,
+    built the way all_pairs_condensed builds it, and the -o full
+    histograms."""
     import torch
     from dashing_tpu_torch.ops import pairwise as pw
     from dashing_tpu_torch.sketch import estimators as est
@@ -463,6 +747,10 @@ def _config2_kernels(dev, sketches, records):
     _check_estimates(hists.to(dev), p, 0, est.ERTL_MLE, est.FULL_MLE_ITERS,
                      "-o sizes MLE config 2", f"{n} rows p={p} K={64 - p + 2}",
                      records)
+    st = check_k4(regs_d, regs_d, kmin, kmax, True, "config 2", records)
+    ha = stats["hist_a"].T
+    check_k5(st, slice(None), ha, ha.contiguous(), c_a, c_a, p, kmin,
+             "config 2", records)
 
 
 def main() -> int:
@@ -486,12 +774,13 @@ def main() -> int:
     counts: dict = {}
     phase_k1(dev, records)
     phase_k3(dev, records)
-    phase_e2e(dev, counts, records)
+    bank = phase_k4_k5(dev, records)
+    phase_e2e(dev, bank, counts, records)
     for r in records:
         r["launches"] = counts[r["counter"]]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,14 @@ layout so each module has an obvious counterpart:
                  all-pairs comparison
   sketch      -- HLL container and the Ertl estimator family
   pipeline    -- files -> packed tiles -> device registers
+  io, native  -- FASTA/FASTQ parsing, sketch names, distance-matrix files
+                 (its own copies of the JAX package's host modules and
+                 C++ loader, built at first use)
+  metrics     -- DASHING_TPU_METRICS phase timings
   cli         -- `python -m dashing_tpu_torch.cli sketch|dist ...`
 
-It never imports jax.  It reuses the jax-free host modules of the JAX
-package (`dashing_tpu.io.*`, `dashing_tpu.metrics`) instead of copying them.
+It imports neither jax nor anything of the `dashing_tpu` package, not even
+the modules there that do not import jax.
 """
 
 __version__ = "0.1.0"

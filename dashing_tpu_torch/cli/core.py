@@ -15,10 +15,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from dashing_tpu import metrics
-from dashing_tpu.io import paths
-
-from .. import pipeline
+from .. import metrics, pipeline
+from ..io import paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
 from ..sketch.hll import HLL, batch_reports
@@ -61,7 +59,6 @@ def hll_p_from_S(S: int) -> int:
 
 # Options of the JAX CLI that the slice refuses, with the name to report.
 _REFUSED = {
-    "-J": "the joint MLE (-J)", "--ertl-joint-mle": "the joint MLE (-J)",
     "-y": "--countmin", "--countmin": "--countmin", "-c": "--countmin (-c)",
     "--min-count": "--countmin (--min-count)",
     "-q": "the count-min sketch (-q)", "--nhashes": "the count-min sketch",
@@ -111,6 +108,9 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         setattr(opts, name, v)
         if name == "estim":
             opts.jestim = v
+        return True
+    if flag in ("-J", "--ertl-joint-mle"):
+        opts.jestim = est.ERTL_JOINT_MLE
         return True
     if flag in _REFUSED:
         raise NotPorted(_REFUSED[flag])

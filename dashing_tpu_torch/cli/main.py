@@ -5,9 +5,10 @@
 
 Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
 slice covers: HLL sketches of contiguous k-mers, symmetric measures, the
-ORIGINAL/IMPROVED/MLE estimators.  Everything else is refused with a
-"not yet ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
-(default "cuda"); asking for CUDA without a card raises.
+ORIGINAL/IMPROVED/MLE estimators and the joint MLE (-J).  Everything else
+is refused with a "not yet ported" error.  The device comes from
+DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a card
+raises.
 """
 from __future__ import annotations
 
@@ -17,10 +18,8 @@ import os
 import sys
 from typing import List, Optional
 
-from dashing_tpu import metrics
-from dashing_tpu.io import cache, distmat, paths
-
-from .. import __version__, device as devmod
+from .. import __version__, device as devmod, metrics
+from ..io import cache, distmat, paths
 from ..ops import pairwise as pw
 from ..sketch.hll import HLL
 from . import core
@@ -270,8 +269,9 @@ def _dist_usage():
         "--symmetric-containment-*\n"
         "  -b binary, -U phylip, -T full TSV (default upper-triangular TSV)\n"
         "  -E/-I/-m                estimator: original/improved/MLE\n"
+        "  -J/--ertl-joint-mle     set comparisons by the joint MLE\n"
         "  -C no canonicalization, -H presketched inputs, -e scientific\n"
-        "Not yet ported (see ROADMAP.md): -J, -Q and asymmetric measures, "
+        "Not yet ported (see ROADMAP.md): -Q and asymmetric measures, "
         "-s, -w > k, --countmin, -N, nthash/cyclic, non-HLL sketches\n")
 
 

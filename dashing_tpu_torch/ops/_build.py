@@ -3,19 +3,24 @@
 Each kernel file is compiled once per checkout, at first use, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
+         [flags] -Xptxas -v -Xcompiler -fPIC \
+         -o csrc/build/lib<name>-<hash>.so csrc/<name>.cu
 
 into a directory that .gitignore lists, and loaded with ctypes.  <hash>
-covers the source and the full nvcc command line, so a change to either
-builds a new library instead of reusing one made another way.  The C
-entry points take raw device pointers and the CUDA stream as `void*` and
-return `cudaGetLastError()` after the launch; `check` raises on anything
-but 0.  Nothing is built or imported when this module is imported.
+covers the source, every shared header (csrc/*.cuh) and the full nvcc
+command line, so a change to any of them builds a new library instead of
+reusing one made another way.  ptxas's report (-Xptxas -v) of each
+kernel's registers, stack frame and spills is kept in `build_logs[name]`
+when the library is built in this process.  The C entry points take raw
+device pointers and the CUDA stream as `void*` and return
+`cudaGetLastError()` after the launch; `check` raises on anything but 0.
+Nothing is built or imported when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -29,9 +34,11 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(CSRC, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()                 # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}
+build_logs: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -50,17 +57,20 @@ def load(name: str, signatures: Dict[str, tuple],
          flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile csrc/<name>.cu (with extra nvcc `flags`) if needed and return
     the loaded library, with `signatures` ({function: (argtypes, restype)})
-    declared."""
+    declared.  Different kernels may build at once from several threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = os.path.join(CSRC, f"{name}.cu")
         opts = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", *flags,
-                "-Xcompiler", "-fPIC"]
+                "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
         key = hashlib.sha256()
-        with open(src, "rb") as fp:
-            key.update(fp.read())
+        for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(path, "rb") as fp:
+                key.update(fp.read())
         key.update("\0".join(opts).encode())
         so = os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -78,6 +88,7 @@ def load(name: str, signatures: Dict[str, tuple],
                                            f"{res.stdout}{res.stderr}")
                     os.replace(tmp, so)
                     build_seconds[name] = time.perf_counter() - t0
+                    build_logs[name] = res.stdout + res.stderr
             finally:
                 fcntl.flock(lk, fcntl.LOCK_UN)
         lib = ctypes.CDLL(so)

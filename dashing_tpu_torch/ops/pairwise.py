@@ -1,24 +1,27 @@
-"""All-pairs HLL comparison (port of dashing_tpu/ops/pairwise.py, non-joint).
+"""All-pairs HLL comparison (port of dashing_tpu/ops/pairwise.py).
 
-Every statistic the union estimate needs is a dot product over the
-register axis:
+Every statistic the estimators need is a dot product over the register
+axis:
 
     cum_union[i, j, l] = #(max(a_i, b_j) <= kmin + l) = [a_i <= k] . [b_j <= k]
 
-so a tile of pairs is K indicator matmuls (left to torch.matmul, as the JAX
-package left it to XLA), then kernel K3 (ops/union_mle.py) turns the
-cumulative counts into set triples, and `measure_from_triples` into the
-requested measure.
+so a tile of pairs on the main path is K indicator matmuls (left to
+torch.matmul, as the JAX package left it to XLA), then kernel K3
+(ops/union_mle.py) turns the cumulative counts into set triples, and
+`measure_from_triples` into the requested measure.
 
 The matmuls run in float32 on 0/1 indicators with TF32 off: every count is
-an integer below 2^24, so the result is exact.  (A bf16/fp16 matmul would
-RETURN bf16/fp16 and round counts above 256/2048.)  The CLI turns TF32 off
+an integer below 2^24, so the result is exact.  The CLI turns TF32 off
 where it resolves the device (device.from_env); a caller that turned it on
 gets an error here rather than rounded counts.
 
-Not ported yet: the joint (-J) statistics and triples, rectangular and
-nearest-neighbour compares, and the TPU kernel-probe machinery (which
-exists only because Mosaic compiles crash).
+The joint MLE (-J, jestim = ERTL_JOINT_MLE) takes the other route: kernel
+K4 (ops/joint_stats.py) counts the joint statistics eq, gt_a, gt_b (and
+cum_union) of a tile, and kernel K5 (ops/joint_mle.py) solves each pair's
+joint likelihood.
+
+Not ported yet: rectangular and nearest-neighbour compares, and the TPU
+kernel-probe machinery (which exists only because Mosaic compiles crash).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import numpy as np
 import torch
 
 from ..sketch import estimators as est
+from .joint_mle import joint_triples
+from .joint_stats import indicator_dot, joint_pair_stats
 from .union_mle import estimate_rows, union_triples
 
 MASH_DIST = 0
@@ -40,15 +45,6 @@ CONTAINMENT_INDEX = 5
 CONTAINMENT_DIST = 6
 SYMMETRIC_CONTAINMENT_INDEX = 7
 SYMMETRIC_CONTAINMENT_DIST = 8
-
-def _indicator_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """(na, m) . (nb, m)^T of 0/1 indicators, exact in float32."""
-    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("exact indicator counts need full float32 "
-                           "matmuls: torch.backends.cuda.matmul.allow_tf32 "
-                           "is True")
-    return torch.matmul(x.to(torch.float32), y.to(torch.float32).T)
-
 
 def marginal_histograms(regs: torch.Tensor, kmin: int, K: int
                         ) -> torch.Tensor:
@@ -63,18 +59,24 @@ def marginal_histograms(regs: torch.Tensor, kmin: int, K: int
 
 
 def pair_stats(a: torch.Tensor, b: torch.Tensor, kmax: int, kmin: int = 0,
-               same: bool = False) -> Dict[str, torch.Tensor]:
-    """Non-joint pairwise statistics: cum_union (na, nb, K) float32 plus the
-    marginal histograms hist_a (na, K), hist_b (nb, K) over levels
-    kmin..kmax.  same=True asserts a and b are the same bank (diagonal
-    tiles): the diagonal of cum_union is then each row's cumulative
-    histogram, and differencing it gives the marginals exactly."""
+               same: bool = False, joint: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """Pairwise statistics over levels kmin..kmax: cum_union (na, nb, K)
+    float32 plus the marginal histograms hist_a (na, K), hist_b (nb, K);
+    with `joint`, also eq, gt_a, gt_b (na, nb, K) from kernel K4 (views of
+    its K-first output).  same=True asserts a and b are the same bank
+    (diagonal tiles): the diagonal of cum_union is then each row's
+    cumulative histogram, and differencing it gives the marginals exactly."""
     K = kmax - kmin + 1
-    cum = torch.stack([_indicator_dot(a <= k, b <= k)
-                       for k in range(kmin, kmax + 1)], dim=-1)
-    out = {"cum_union": cum}
+    if joint:
+        st = joint_pair_stats(a, b, kmin=kmin, kmax=kmax, same=same)
+        out = {key: t.permute(1, 2, 0) for key, t in st.items()}
+    else:
+        out = {"cum_union": torch.stack([indicator_dot(a <= k, b <= k)
+                                         for k in range(kmin, kmax + 1)],
+                                        dim=-1)}
     if same:
-        d = torch.diagonal(cum, dim1=0, dim2=1).T          # (na, K)
+        d = torch.diagonal(out["cum_union"], dim1=0, dim2=1).T   # (na, K)
         out["hist_a"] = torch.cat([d[:, :1], d[:, 1:] - d[:, :-1]], dim=-1)
         out["hist_b"] = out["hist_a"]
     else:
@@ -87,7 +89,18 @@ def triples_from_stats(stats: Dict[str, torch.Tensor], p: int, estim: int,
                        jestim: int, kmin: int = 0) -> torch.Tensor:
     """(na, nb, 3) set triples (onlyA, onlyB, shared) for every pair."""
     if jestim == est.ERTL_JOINT_MLE:
-        raise NotImplementedError("joint MLE (-J) is not yet ported, see ROADMAP")
+        # the joint start takes MLE marginals whatever the estimator
+        c_a = estimate_rows(stats["hist_a"], p=p, kmin=kmin,
+                            method=est.ERTL_MLE)
+        c_b = (c_a if stats["hist_b"] is stats["hist_a"] else
+               estimate_rows(stats["hist_b"], p=p, kmin=kmin,
+                             method=est.ERTL_MLE))
+        kfirst = {key: stats[key].permute(2, 0, 1)
+                  for key in ("eq", "gt_a", "gt_b")}
+        tri = joint_triples(kfirst["eq"], kfirst["gt_a"], kfirst["gt_b"],
+                            stats["hist_a"].T, stats["hist_b"].T, c_a, c_b,
+                            p=p, kmin=kmin)
+        return tri.permute(1, 2, 0)
     c_a = estimate_rows(stats["hist_a"], p=p, kmin=kmin, method=estim)
     c_b = (c_a if stats["hist_b"] is stats["hist_a"] else
            estimate_rows(stats["hist_b"], p=p, kmin=kmin, method=estim))
@@ -187,7 +200,8 @@ def compare_tile(regs_a: torch.Tensor, regs_b: torch.Tensor, p: int,
                  kmax: int, kmin: int, same: bool = False) -> torch.Tensor:
     """One (na, nb) tile of the measure matrix, left on the registers'
     device (the work is queued on its stream; nothing synchronises)."""
-    stats = pair_stats(regs_a, regs_b, kmax, kmin, same)
+    stats = pair_stats(regs_a, regs_b, kmax, kmin, same,
+                       joint=jestim == est.ERTL_JOINT_MLE)
     tri = triples_from_stats(stats, p, estim, jestim, kmin)
     return measure_from_triples(tri, result_type, ksinv)
 

@@ -4,7 +4,7 @@ dashing_tpu/pipeline.py, HLL with contiguous k-mers).
 A file's records are joined with invalid separators, cut into rows of
 CONTENT bases plus a (k-1)-base halo (width padded to a multiple of 8),
 packed on the host to 2 bits per base plus a validity bit
-(dashing_tpu.io.native.pack2bit), uploaded, and folded into the registers
+(io/native.pack2bit), uploaded, and folded into the registers
 by kernel K1 (ops/encode_hash.py).  One device, no mesh: the TPU banks and
 sharded steps are not ported.
 """
@@ -17,10 +17,9 @@ from typing import Iterable, List
 import numpy as np
 import torch
 
-from dashing_tpu import metrics
-from dashing_tpu.io import fasta, native
-from dashing_tpu.io.paths import split_subpaths
-
+from . import metrics
+from .io import fasta, native
+from .io.paths import split_subpaths
 from .ops.encode import Spacer, join_records, parse_spacing, tile_sequence
 from .ops.encode_hash import packed_to_registers
 

@@ -18,7 +18,11 @@ tensor` is a reciprocal and a multiply).  Union estimates of millions
 then agree to the last bits, which matters because the set triples
 difference them.
 
-The joint MLE (-J) is not ported yet.
+The joint MLE (-J, `joint_mle_core`) is the plain version of the joint-MLE
+kernel (csrc/joint_mle.cu, ops/joint_mle.py).  It takes the statistics
+K-FIRST, (K, *batch), as the JAX package's fused kernel does, and runs in
+the kernel's operation order: every level sum runs from the top level
+down, as the complement chains are walked.
 """
 from __future__ import annotations
 
@@ -191,3 +195,251 @@ def estimate(C: torch.Tensor, p: int, method: int = ERTL_MLE) -> torch.Tensor:
     if method == ERTL_MLE:
         return mle_estimate(C, p)
     raise ValueError(f"estimator {method} is not ported (joint MLE: see ROADMAP)")
+
+
+# ---------------------------------------------------------------------------
+# Joint MLE over register pairs (K-first; the -J path).
+#
+# Ertl's 3-parameter joint maximum likelihood on (la, lb, lx) = (|A\B|,
+# |B\A|, |A&B|): a damped Newton solve in theta = log lambda with the
+# analytic gradient and Hessian (autodiff of the likelihood is NaN), from an
+# inclusion-exclusion start, guarded at the end by one likelihood
+# comparison against that start.  Every e^{-x z_k} comes from one expm1
+# seed per chain (_compl_chain); levels are walked from the top down.
+# ---------------------------------------------------------------------------
+
+def jmle_iters(p: int) -> int:
+    """Newton iterations of the joint MLE at precision p (the JAX
+    package's measured choice: converged at 8 for p >= 12, 10 below)."""
+    return 8 if p >= 12 else 10
+
+
+def _compl_chain(x: torch.Tensor, c_lo: int, c_hi: int) -> dict:
+    """{k: 1 - exp(-x 2^-k)} for k = c_lo..c_hi from ONE expm1 seed at the
+    deepest level, walked down by c[k-1] = c[k] (2 - c[k])."""
+    c = {c_hi: torch.clamp(-torch.expm1(-(x * (2.0 ** -c_hi))), min=1e-30)}
+    for k in range(c_hi - 1, c_lo - 1, -1):
+        ck = c[k + 1]
+        c[k] = ck * (2.0 - ck)
+    return c
+
+
+def _comb(c1, c2):
+    """Complement of a product of two exponentials: c1 + c2 - c1 c2."""
+    return c1 + c2 - c1 * c2
+
+
+def _chain_T_P(cu, cv, cx, k: int, q: int):
+    """(T1, T2, T3, T4, P) of the equal-level probability at level k from
+    the complement chains, P in the cancellation-free form
+    T1 (cA cB + T1 cx) (P = T1 at level 0; the top level q+1 has T1 = 1)."""
+    if k == 0:
+        t1 = (1.0 - cu[0]) * (1.0 - cv[0]) * (1.0 - cx[0])
+        zero = torch.zeros_like(t1)
+        return t1, zero, zero, zero, t1
+    kk = q if k == q + 1 else k
+    u, v, xh = 1.0 - cu[kk], 1.0 - cv[kk], 1.0 - cx[kk]
+    cA = _comb(cu[kk], cx[kk])
+    cB = _comb(cv[kk], cx[kk])
+    if k == q + 1:
+        g = u * v * xh
+        return (torch.ones_like(g), u * xh, v * xh, g,
+                cA * cB + g * cx[kk])
+    u1, v1, x1 = 1.0 - cu[k - 1], 1.0 - cv[k - 1], 1.0 - cx[k - 1]
+    t1 = u * v * xh
+    vx1 = v1 * x1
+    return (t1, (u1 * x1) * v, vx1 * u, u1 * vx1,
+            t1 * (cA * cB + t1 * cx[k]))
+
+
+def _levels(K: int, kmin: int, q: int):
+    kmax = kmin + K - 1
+    return kmax, max(kmin, 1), min(kmax, q), max(kmin - 1, 0)
+
+
+def _marginal_d1_d2(h, kmin: int, q: int, cs, ps):
+    """(d1, d2) of one single-sketch likelihood in x = lambda/m from the
+    chains: w_k = z_k * prod(ps) / comb(cs), summed from the top level."""
+    K = h.shape[0]
+    kmax, lo, hi, _ = _levels(K, kmin, q)
+
+    def c_at(k):
+        return cs[0][k] if len(cs) == 1 else _comb(cs[0][k], cs[1][k])
+
+    def p_at(k):
+        return ps[0][k] if len(ps) == 1 else ps[0][k] * ps[1][k]
+
+    d1 = torch.zeros_like(h[0])
+    d2 = torch.zeros_like(h[0])
+    for k in range(hi, lo - 1, -1):
+        z = 2.0 ** -k
+        w = z * (p_at(k) / c_at(k))
+        hm = h[k - kmin]
+        d1 = d1 + hm * (w - z)
+        d2 = d2 + hm * (-(w * w + z * w))
+    if kmin == 0:
+        d1 = d1 - h[0]
+    if kmax == q + 1:
+        zq = 2.0 ** -q
+        wq = zq * ps[0][q]
+        if len(ps) == 2:
+            wq = wq * ps[1][q]
+        wq = wq / c_at(q)
+        d1 = d1 + h[K - 1] * wq
+        d2 = d2 + h[K - 1] * (-(wq * wq + zq * wq))
+    return d1, d2
+
+
+def _chains(theta, m: float, kmin: int, hi: int):
+    la, lb, lx = torch.exp(theta[0]), torch.exp(theta[1]), torch.exp(theta[2])
+    c_lo = max(kmin - 1, 0)
+    return ((la, lb, lx), _compl_chain(la / m, c_lo, hi),
+            _compl_chain(lb / m, c_lo, hi), _compl_chain(lx / m, c_lo, hi))
+
+
+def _joint_grad_hess_chain(theta, stats, m: float, q: int, kmin: int):
+    """Analytic (gradient, Hessian) of the joint log-likelihood at theta =
+    log lambda: three expm1 per pair, the rest algebra on the chains."""
+    K = stats["eq"].shape[0]
+    kmax, lo, hi, _ = _levels(K, kmin, q)
+    (la, lb, lx), cu, cv, cx = _chains(theta, m, kmin, hi)
+    u = {k: 1.0 - c for k, c in cu.items()}
+    v = {k: 1.0 - c for k, c in cv.items()}
+    xh = {k: 1.0 - c for k, c in cx.items()}
+
+    gA, hA = _marginal_d1_d2(stats["gt_a"], kmin, q, (cu,), (u,))
+    gB, hB = _marginal_d1_d2(stats["gt_b"], kmin, q, (cv,), (v,))
+    gAB, hAB = _marginal_d1_d2(stats["lt_b"], kmin, q, (cv, cx), (v, xh))
+    gBA, hBA = _marginal_d1_d2(stats["lt_a"], kmin, q, (cu, cx), (u, xh))
+
+    # equal-level (diagonal) terms, from the top level down
+    zero = torch.zeros_like(gA)
+    sga = sgb = sgx = zero
+    sHaa = sHbb = sHxx = sHab = sHax = sHbx = zero
+    for k in range(kmax, kmin - 1, -1):
+        zk = 2.0 ** -k if k <= q else 0.0
+        zk1 = 2.0 ** -(k - 1) if k >= 1 else 0.0
+        T1, T2, T3, T4, P = _chain_T_P(cu, cv, cx, k, q)
+        P = torch.clamp(P, min=1e-30)
+        w = stats["eq"][k - kmin]
+        wpos = w > 0
+        Sa = -T1 * zk + T2 * zk1 + T3 * zk - T4 * zk1
+        Sb = -T1 * zk + T2 * zk + T3 * zk1 - T4 * zk1
+        Sx = -T1 * zk + T2 * zk1 + T3 * zk1 - T4 * zk1
+        wp = torch.where(wpos, w / P, 0.0)
+        wp2 = torch.where(wpos, wp / P, 0.0)
+        z2, z12, zz1 = zk * zk, zk1 * zk1, zk * zk1
+        sga = sga + wp * Sa
+        sgb = sgb + wp * Sb
+        sgx = sgx + wp * Sx
+        sHaa = sHaa + (wp * (T1 * z2 - T2 * z12 - T3 * z2 + T4 * z12)
+                       - wp2 * Sa * Sa)
+        sHbb = sHbb + (wp * (T1 * z2 - T2 * z2 - T3 * z12 + T4 * z12)
+                       - wp2 * Sb * Sb)
+        sHxx = sHxx + (wp * (T1 * z2 - T2 * z12 - T3 * z12 + T4 * z12)
+                       - wp2 * Sx * Sx)
+        sHab = sHab + (wp * (T1 * z2 - T2 * zz1 - T3 * zz1 + T4 * z12)
+                       - wp2 * Sa * Sb)
+        sHax = sHax + (wp * (T1 * z2 - T2 * z12 - T3 * zz1 + T4 * z12)
+                       - wp2 * Sa * Sx)
+        sHbx = sHbx + (wp * (T1 * z2 - T2 * zz1 - T3 * z12 + T4 * z12)
+                       - wp2 * Sb * Sx)
+    g = ((gA + gBA) + sga, (gB + gAB) + sgb, (gAB + gBA) + sgx)
+    H = {(0, 0): (hA + hBA) + sHaa, (1, 1): (hB + hAB) + sHbb,
+         (2, 2): (hAB + hBA) + sHxx, (0, 1): sHab, (0, 2): hBA + sHax,
+         (1, 2): hAB + sHbx}
+    lam = (la, lb, lx)
+    grad = [lam[i] * (g[i] / m) for i in range(3)]
+    hess = {}
+    for (i, j), Hij in H.items():
+        hij = (lam[i] * lam[j] / (m * m)) * Hij
+        hess[i, j] = hij + grad[i] if i == j else hij
+    return grad, hess
+
+
+def _joint_logl_chain(theta, stats, m: float, q: int, kmin: int):
+    """Joint log-likelihood at theta by the same chains (the final guard)."""
+    K = stats["eq"].shape[0]
+    kmax, lo, hi, _ = _levels(K, kmin, q)
+    (la, lb, lx), cu, cv, cx = _chains(theta, m, kmin, hi)
+
+    def log_f(h, x, cs):
+        L = torch.zeros_like(h[0])
+        for k in range(hi, lo - 1, -1):
+            c = cs[0][k] if len(cs) == 1 else _comb(cs[0][k], cs[1][k])
+            L = L + h[k - kmin] * (-(x * (2.0 ** -k)) + torch.log(c))
+        if kmin == 0:
+            L = L + h[0] * (-x)
+        if kmax == q + 1:
+            c = cs[0][q] if len(cs) == 1 else _comb(cs[0][q], cs[1][q])
+            L = L + h[K - 1] * torch.log(c)
+        return L
+
+    L = log_f(stats["gt_a"], la / m, (cu,))
+    L = L + log_f(stats["lt_b"], (lb + lx) / m, (cv, cx))
+    L = L + log_f(stats["gt_b"], lb / m, (cv,))
+    L = L + log_f(stats["lt_a"], (la + lx) / m, (cu, cx))
+    Ld = torch.zeros_like(L)
+    for k in range(kmax, kmin - 1, -1):
+        P = torch.clamp(_chain_T_P(cu, cv, cx, k, q)[4], min=1e-30)
+        w = stats["eq"][k - kmin]
+        Ld = Ld + torch.where(w > 0, w * torch.log(P), 0.0)
+    return L + Ld
+
+
+def _solve3_sym(H, g):
+    """Closed-form symmetric 3x3 solve by adjugate, with tiny determinants
+    floored to +-1e-30 (sign kept)."""
+    a, b, c = H[0, 0], H[0, 1], H[0, 2]
+    d, e, f = H[1, 1], H[1, 2], H[2, 2]
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    det = a * A + b * B + c * C
+    det = torch.where(det.abs() < 1e-30,
+                      torch.where(det < 0, -1e-30, 1e-30), det)
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    return ((A * g[0] + B * g[1] + C * g[2]) / det,
+            (B * g[0] + D * g[1] + E * g[2]) / det,
+            (C * g[0] + E * g[1] + F * g[2]) / det)
+
+
+def joint_mle_core(stats, cards, m: float, q: int, kmin: int, iters: int):
+    """The joint-MLE Newton solve on K-first statistics.
+
+    stats: eq, gt_a, gt_b, lt_a, lt_b, each (K, *batch) float32 over levels
+    kmin..kmin+K-1; cards: (c_a, c_b, c_u) broadcastable to batch.  Returns
+    (la, lb, lx) = (|A\\B|, |B\\A|, |A&B|), zero for empty sketches."""
+    c_a, c_b, c_u = cards
+    tiny = 1e-3
+    theta0 = torch.stack(torch.broadcast_tensors(
+        torch.log(torch.clamp(c_u - c_b, min=tiny)),
+        torch.log(torch.clamp(c_u - c_a, min=tiny)),
+        torch.log(torch.clamp(c_a + c_b - c_u, min=tiny))))
+    theta = theta0
+    for _ in range(iters):
+        g, H = _joint_grad_hess_chain(theta, stats, m, q, kmin)
+        Hd = {(0, 0): H[0, 0] - 1e-4, (1, 1): H[1, 1] - 1e-4,
+              (2, 2): H[2, 2] - 1e-4, (0, 1): H[0, 1], (0, 2): H[0, 2],
+              (1, 2): H[1, 2]}
+        Hd[1, 0], Hd[2, 0], Hd[2, 1] = Hd[0, 1], Hd[0, 2], Hd[1, 2]
+        step = [torch.where(torch.isfinite(s), s, 0.0)
+                for s in _solve3_sym(Hd, g)]
+        norm = torch.sqrt(step[0] * step[0] + step[1] * step[1]
+                          + step[2] * step[2])
+        scale = torch.clamp(_rdiv(2.0, torch.clamp(norm, min=1e-9)), max=1.0)
+        new = torch.stack([theta[i] - step[i] * scale for i in range(3)])
+        theta = torch.where(torch.isfinite(new).all(0), new, theta)
+    final_val = _joint_logl_chain(theta, stats, m, q, kmin)
+    init_val = _joint_logl_chain(theta0, stats, m, q, kmin)
+    theta = torch.where(torch.isfinite(final_val) & (final_val >= init_val),
+                        theta, theta0)
+    la, lb, lx = torch.exp(theta[0]), torch.exp(theta[1]), torch.exp(theta[2])
+    a_empty = c_a <= 0.0
+    b_empty = c_b <= 0.0
+    la = torch.where(a_empty, 0.0, la)
+    lx = torch.where(a_empty | b_empty, 0.0, lx)
+    lb = torch.where(b_empty, 0.0, lb)
+    return la, lb, lx

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at edge shapes the smoke run does not reach (k = 1 and 32,
-p = 2 and 25, ragged rows and pair blocks, windows reaching q+1, empty
-histograms).  Marked `cuda`: they skip without a card.  Run them on one:
+p = 2 to 25, ragged rows and pair blocks, registers at 0 and at q+1,
+windows reaching q+1, empty histograms and sketches, the widest joint
+window).  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -11,6 +12,8 @@ import torch
 
 from dashing_tpu_torch import pipeline
 from dashing_tpu_torch.ops import encode_hash as eh
+from dashing_tpu_torch.ops import joint_mle as jm
+from dashing_tpu_torch.ops import joint_stats as js
 from dashing_tpu_torch.ops import pairwise as pw
 from dashing_tpu_torch.ops import union_mle as um
 from dashing_tpu_torch.sketch import estimators as est
@@ -136,3 +139,93 @@ def test_union_kernel_empty_histograms(cuda):
     tri = um.union_triples(cum, *z, p=10, kmin=0, method=est.ERTL_MLE)
     torch.cuda.synchronize()
     assert torch.equal(tri.cpu(), torch.zeros((3, 3, 5)))
+
+
+@pytest.mark.parametrize("p,na,nb,kmin,K", [
+    (4, 5, 70, 0, 62),       # 16 registers, the window 0..q+1
+    (18, 65, 130, 0, 48),    # 2^18 registers, registers at 0 and q+1 = 47
+    (12, 100, 37, 6, 16),    # kmin > 0 with registers below the window
+    (14, 1, 1, 3, 8),        # one pair
+])
+def test_joint_stats_kernel_matches_plain(rng, cuda, p, na, nb, kmin, K):
+    kmax = kmin + K - 1
+    q = 64 - p
+    a = np.minimum(rng.geometric(0.5, size=(na, 1 << p)) + kmin, q + 1)
+    b = np.minimum(rng.geometric(0.5, size=(nb, 1 << p)) + kmin, q + 1)
+    a[0, :3] = 0
+    b[-1, :5] = 0
+    a[-1, -4:] = q + 1
+    b[0, :2] = q + 1
+    ta = torch.from_numpy(a).to(cuda, torch.int8)
+    tb = torch.from_numpy(b).to(cuda, torch.int8)
+    before = js.launches
+    got = js.joint_pair_stats(ta, tb, kmin=kmin, kmax=kmax)
+    assert js.launches == before + 1
+    want = js.joint_pair_stats_plain(ta, tb, kmin=kmin, kmax=kmax)
+    torch.cuda.synchronize()
+    for key in want:
+        assert got[key].shape == (K, na, nb)
+        assert torch.equal(got[key], want[key]), key
+    # a same-bank tile, as the diagonal tiles of dist are
+    got = js.joint_pair_stats(ta, ta, kmin=kmin, kmax=kmax, same=True)
+    want = js.joint_pair_stats_plain(ta, ta, kmin=kmin, kmax=kmax, same=True)
+    torch.cuda.synchronize()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("p,kmin,K", [
+    (10, 0, 8),      # narrowest bucket, 10 Newton steps, empty sketches
+    (14, 5, 24),     # interior window, 8 Newton steps
+    (4, 0, 62),      # the widest window a kernel takes: 0..q+1 at p=4
+    (12, 38, 16),    # window reaching q+1 = 53, saturated registers
+])
+def test_joint_mle_kernel_matches_plain(rng, cuda, p, kmin, K):
+    """66 levels (the widest bucket) cannot occur: a window ends at q+1 =
+    65 - p <= 61, so the widest is 62 levels at p=4."""
+    kmax = kmin + K - 1
+    m = 1 << p
+    shared = rng.geometric(0.5, size=m) - 1 + kmin
+    a = np.maximum(rng.geometric(0.5, size=(19, m)) - 3 + kmin, shared)
+    b = np.maximum(rng.geometric(0.5, size=(150, m)) - 3 + kmin, shared)
+    a, b = np.clip(a, kmin, kmax), np.clip(b, kmin, kmax)
+    a[0] = kmin                       # empty sketch when kmin = 0
+    b[1] = kmin
+    if kmax == 64 - p + 1:
+        b[2] = kmax                   # fully saturated
+    ta = torch.from_numpy(a).to(cuda, torch.int8)
+    tb = torch.from_numpy(b).to(cuda, torch.int8)
+    st = pw.pair_stats(ta, tb, kmax, kmin, joint=True)
+    ca = um.estimate_rows(st["hist_a"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    cb = um.estimate_rows(st["hist_b"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    args = [st[key].permute(2, 0, 1) for key in ("eq", "gt_a", "gt_b")]
+    args += [st["hist_a"].T, st["hist_b"].T, ca, cb]
+    before = jm.launches
+    got = jm.joint_triples(*args, p=p, kmin=kmin)
+    assert jm.launches == before + 1
+    want = jm.joint_triples_plain(*args, p=p, kmin=kmin)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-4, atol=5e-2)
+    with np.errstate(invalid="ignore"):
+        ji_g = got[2] / np.maximum(got.sum(0), 1e-30)
+        ji_w = want[2] / np.maximum(want.sum(0), 1e-30)
+    ok = np.isfinite(ji_w)
+    np.testing.assert_allclose(ji_g[ok], ji_w[ok], atol=2e-6)
+    if kmin == 0:
+        assert (got[[0, 2], 0] == 0).all()       # A empty: la = lx = 0
+
+
+def test_joint_dist_through_the_kernels(cuda, rng):
+    """compare_tile on the -J path launches K4 and K5 once each."""
+    a = torch.from_numpy(np.minimum(rng.geometric(0.5, size=(70, 1 << 12))
+                                    + 2, 30)).to(cuda, torch.int8)
+    b4, b5 = js.launches, jm.launches
+    tile = pw.compare_tile(a, a, 12, pw.MASH_DIST, 1 / 21, est.ERTL_MLE,
+                           est.ERTL_JOINT_MLE, 31, 0, same=True)
+    torch.cuda.synchronize()
+    assert (js.launches, jm.launches) == (b4 + 1, b5 + 1)
+    assert tile.shape == (70, 70) and torch.isfinite(tile).all()

@@ -91,7 +91,12 @@ def test_all_pairs_condensed_matches_jax(rng, estim, result_type):
 
 
 def test_joint_mle_is_refused(rng):
+    """The joint path runs now (tests/test_torch_joint_*.py); what it
+    refuses is a level window wider than its kernels hold."""
     regs = torch.zeros((2, 1 << 10), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
+    tile = pw.compare_tile(regs, regs, 10, pw.JI, 1 / 21, est.ERTL_MLE,
+                           est.ERTL_JOINT_MLE, 7, 0)
+    assert tile.shape == (2, 2)
+    with pytest.raises(ValueError):
         pw.compare_tile(regs, regs, 10, pw.JI, 1 / 21, est.ERTL_MLE,
-                        est.ERTL_JOINT_MLE, 8, 0)
+                        est.ERTL_JOINT_MLE, 66, 0)

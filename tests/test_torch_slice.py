@@ -1,7 +1,8 @@
 """The port's CLI slice end to end on the CPU, against the JAX CLI:
-`sketch` files equal record for record, `dist -M -b` matrices and `-o`
-sizes within stated tolerances, JAX-written sketches read back by the
-port, no jax import anywhere in the port, and no silent CPU fallback."""
+`sketch` files equal record for record (with -J too), `dist -M -b`
+matrices and `-o` sizes within stated tolerances (with the joint MLE too),
+JAX-written sketches read back by the port, no import of jax or of the JAX
+package anywhere in the port, and no silent CPU fallback."""
 import gzip
 import os
 import subprocess
@@ -140,22 +141,82 @@ def test_jax_sketches_load_into_port(genomes, tmp_path, cpu_env):
                                   distmat.read_binary(own)[1])
 
 
+def test_sketch_joint_files_identical(genomes, tmp_path, cpu_env):
+    """`sketch -J` writes jestim = 3 into the DTPUHLL1 header, byte for
+    byte as the JAX CLI does."""
+    for d in ("jax", "port"):
+        (tmp_path / d).mkdir()
+    args = ["sketch", "-k", str(K), "-S", str(S), "-J"]
+    assert jmain.main(args + ["-P", str(tmp_path / "jax")] + genomes) == 0
+    assert tmain.main(args + ["-P", str(tmp_path / "port")] + genomes) == 0
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 6
+    for nm in names:
+        want = _records(tmp_path / "jax" / nm)
+        assert _records(tmp_path / "port" / nm) == want, nm
+        assert want[8:11] == bytes([S, 2, 3])        # p, estim, jestim
+
+
+def test_dist_joint_matches_jax_cli(genomes, tmp_path, cpu_env):
+    """`dist -J`: the joint MLE through both CLIs; the -o sizes stay on
+    the MLE estimator."""
+    args = ["dist", "-k", str(K), "-S", str(S), "-J", "-M", "-b"]
+    outs = {}
+    for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+        dists, sizes = str(tmp_path / f"{tag}.bin"), str(tmp_path / f"{tag}.txt")
+        assert fn(args + ["-O", dists, "-o", sizes] + genomes) == 0
+        outs[tag] = distmat.read_binary(dists), _sizes(sizes)
+    (nj, mj), (names_j, sj) = outs["jax"]
+    (nt, mt), (names_t, st) = outs["port"]
+    assert nj == nt == 6 and names_t == names_j
+    assert np.isfinite(mt).all() and (mt > 0).all()
+    np.testing.assert_allclose(mt, mj, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(st, sj, rtol=1e-5, atol=1.0)
+    plain = str(tmp_path / "plain.bin")
+    assert tmain.main(["dist", "-k", str(K), "-S", str(S), "-M", "-b",
+                       "-O", plain] + genomes) == 0
+    assert not np.array_equal(distmat.read_binary(plain)[1], mt)
+
+
+def test_jax_joint_sketches_load_into_port(genomes, tmp_path, cpu_env):
+    """`sketch -J` files of the JAX package load into the port unchanged:
+    `dist -H -J` on them equals the port's own `dist -J` on the FASTAs."""
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    assert jmain.main(["sketch", "-k", str(K), "-S", str(S), "-J", "-P",
+                       str(jdir), "--avoid-sorting"] + genomes) == 0
+    hlls = [str(jdir / (os.path.basename(g) + f".w.{K}.spacing.{S}.hll"))
+            for g in genomes]
+    assert HLL.read(hlls[0]).jestim == 3
+    pre, own = str(tmp_path / "pre.bin"), str(tmp_path / "own.bin")
+    assert tmain.main(["dist", "-k", str(K), "-J", "-M", "-b", "-O", pre,
+                       "-H"] + hlls) == 0
+    assert tmain.main(["dist", "-k", str(K), "-S", str(S), "-J", "-M", "-b",
+                       "-O", own, "--avoid-sorting"] + genomes) == 0
+    np.testing.assert_array_equal(distmat.read_binary(pre)[1],
+                                  distmat.read_binary(own)[1])
+
+
 _BLOCKED_RUN = r"""
 import importlib.abc, sys
-for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+BLOCKED = ("jax", "jaxlib", "dashing_tpu")   # dashing_tpu_torch stays
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"jax import blocked: {name}")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"import blocked: {name}")
         return None
 
 sys.meta_path.insert(0, NoJax())
 from dashing_tpu_torch.cli.main import main
 rc = main(["dist", "-k", "15", "-S", "10", "-M", "-o", sys.argv[1],
            "-O", sys.argv[2]] + sys.argv[3:])
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+rc |= main(["dist", "-k", "15", "-S", "10", "-J", "-O", sys.argv[2] + ".J"]
+           + sys.argv[3:])
+import chip_smoke, chip_profile  # noqa: F401  (import-time only)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert rc == 0 and not leaked, (rc, leaked)
 print("NOJAX-OK")
 """
@@ -171,6 +232,7 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NOJAX-OK" in res.stdout
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
+    assert (tmp_path / "d.txt.J").read_text().count("\n") == 4
 
 
 def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
@@ -194,7 +256,7 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-J"], ["-Q", "queries.txt"], ["--containment-index"], ["-s", "1x3"],
+    ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-s", "1x3"],
     ["-w", "40"], ["--countmin"], ["-c", "3"], ["-N"], ["--use-nthash"],
     ["--use-bb-minhash"], ["-g"], ["--nearest-neighbors", "3"],
 ])
