@@ -11,6 +11,12 @@ Phases, each printing its own lines with seconds:
   3. K1       fused encode/hash/register-max kernel vs its plain PyTorch
               version on the card, one 256-row chunk, k=31 p=14 and k=21
               p=16: registers must be bitwise equal
+     K2       the same tail on raw ASCII: one 256 x 8222 chunk at k=31 p=14
+              and one 256 x 8212 chunk at k=21 p=16 (N runs, lowercase,
+              IUPAC, 0x00 and bytes >= 0x80): fused registers and keys
+              bitwise equal to the plain versions; beside it K1 on the
+              packed form of the same chunk, with the host 2-bit pack and
+              the upload of each form timed
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE, rtol=2e-4 atol=5e-2
               on triples; the row-estimate kernel (marginals) at rtol=1e-5
@@ -20,7 +26,11 @@ Phases, each printing its own lines with seconds:
               (K5) vs its plain version on 256 x 1000 pairs of the same-bank
               statistics, rtol=2e-4 atol=5e-2 on triples, atol=2e-6 on
               Jaccard, non-finite entries in the same places
-  6. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
+  6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
+              process at its full geometry, its JSON line printed; K2 must
+              launch 30 times per run and the registers equal the plain
+              fold of the same chunks on the card
+  7. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
               (a) 4 genomes, dist -k 21 -S 14 -M -T
               (b) 100 synthetic 5 Mbp genomes (20 ancestors x 5 copies at
                   planted substitution rates), dist -k 31 -S 16 -M -b -O -o
@@ -36,6 +46,12 @@ Phases, each printing its own lines with seconds:
               Then K3, the row-estimate kernel, K4 and K5 are held against
               their plain versions at the shapes config 2 gives them (one
               100 x 100 tile at p=16; the -o histograms).
+              (e) the ASCII-tile route: the same genomes through `dist -k 31
+                  -S 16 -M -b` with -s 1x4, with -w 50, with -g -w 50, and
+                  with --use-nthash -k 41: each matrix finite and
+                  n(n-1)/2 long, -s and ntHash planted pairs within
+                  0.25 d + 0.001, and two genomes' registers on the card
+                  bitwise equal to a CPU run of the same port code
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path, times as CUDA-event means, each kernel's bound
 and, where one PyTorch call computes the same function, that call's time);
@@ -59,6 +75,8 @@ SEED = 20260
 K3_RTOL, K3_ATOL = 2e-4, 5e-2
 EST_RTOL = 1e-5            # row estimates (cardinalities) vs plain
 JI_ATOL = 2e-6             # Jaccard of the K5 triples vs plain
+K1_SRC = "dashing_tpu_torch/csrc/encode_hash.cu"
+K2_REPLACES = "dashing_tpu/ops/pallas_encode.py:54"
 K3_SRC = "dashing_tpu_torch/csrc/union_mle.cu"
 K3_REPLACES = "dashing_tpu/ops/pallas_mle.py:77"
 K4_SRC = "dashing_tpu_torch/csrc/joint_stats.cu"
@@ -226,11 +244,92 @@ def phase_k1(dev, records):
         # ops: ~100 int32 operations per base (rolling k-mer pair, WangHash
         # on 64 bits, bucket, rank, register compare), counted from the
         # source, over the int32 rate
-        record(records, f"encode_hash_regs k={k} p={p}",
-               "dashing_tpu_torch/csrc/encode_hash.cu",
+        record(records, f"encode_hash_regs k={k} p={p}", K1_SRC,
                "dashing_tpu/ops/pallas_encode.py:99", "encode_hash", 0.0, ms,
                plain_ms, packed.nbytes + vbits.nbytes + 2 * 4 * (1 << p),
                100 * bases, INT32_OPS)
+
+
+def _wall_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call, each call synchronized (uploads)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_k2(dev, records):
+    """K2 (ASCII -> registers, ASCII -> keys) vs its plain versions,
+    bitwise, at the benchmark's chunk (k31 p14, 256 x 8222) and at k21 p16
+    (256 x 8212); then the packed route on the same chunk for comparison:
+    host pack, upload of each form, K1."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    rng = np.random.default_rng(SEED + 2)
+    for k, p in ((31, 14), (21, 16)):
+        C = pipeline.CONTENT + k - 1
+        tile = _random_chunk(rng, pipeline.MAX_ROWS, C)
+        tile[rng.random(tile.shape) < 1e-4] = 0          # separators
+        tile[rng.random(tile.shape) < 1e-4] = 0xC1       # high bytes
+        t = torch.from_numpy(tile).to(dev)
+        regs_k = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+        regs_p = torch.zeros_like(regs_k)
+        eh.ascii_to_registers(t, regs_k, k=k, p=p)
+        eh.ascii_to_registers_plain(t, regs_p, k=k, p=p, canon=True)
+        keys_k = eh.encode_hash_keys(t, k=k, p=p)
+        keys_p = eh.encode_hash_keys_plain(t, k=k, p=p)
+        torch.cuda.synchronize()
+        nz = int((regs_p > 0).sum())
+        if not torch.equal(regs_k, regs_p) or nz == 0:
+            fail(f"K2 k={k} p={p}: {int((regs_k != regs_p).sum())} registers "
+                 f"differ from the plain version ({nz} nonzero)")
+        if not torch.equal(keys_k, keys_p):
+            fail(f"K2 keys k={k} p={p}: {int((keys_k != keys_p).sum())} of "
+                 f"{keys_p.numel()} keys differ from the plain version")
+        zero = int(((keys_p & 63) == 0).sum())
+        ms = cuda_ms(lambda: eh.ascii_to_registers(t, regs_k.zero_(), k=k,
+                                                   p=p), 50)
+        plain_ms = cuda_ms(lambda: eh.ascii_to_registers_plain(
+            t, regs_p.zero_(), k=k, p=p, canon=True), 10)
+        keys_ms = cuda_ms(lambda: eh.encode_hash_keys(t, k=k, p=p), 50)
+        keys_plain_ms = cuda_ms(lambda: eh.encode_hash_keys_plain(
+            t, k=k, p=p), 10)
+        bases = tile.size
+        log(f"[K2] k={k} p={p} chunk {tile.shape}: registers and keys bitwise "
+            f"equal ({nz} nonzero registers, {zero} rank-0 keys); registers "
+            f"kernel {ms:.4f} ms ({bases / ms / 1e6:.2f} Gbase/s), plain "
+            f"{plain_ms:.4f} ms; keys kernel {keys_ms:.4f} ms, plain "
+            f"{keys_plain_ms:.4f} ms")
+        # bytes: the ASCII chunk in, the registers read and written; ops:
+        # ~100 int32 operations per base, as for K1
+        record(records, f"ascii_hash_regs k={k} p={p} ({tile.shape[0]}x{C})",
+               K1_SRC, K2_REPLACES, "ascii_hash_regs", 0.0, ms, plain_ms,
+               tile.nbytes + 2 * 4 * (1 << p), 100 * bases, INT32_OPS)
+        # the packed route on the same chunk: host pack, two uploads, K1
+        # (the pack needs C % 8 == 0: pad with N, as the pipeline does)
+        padded = pipeline._pad8(tile)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            packed, vbits = pipeline._pack_tile_host(padded)
+        pack_ms = (time.perf_counter() - t0) / 5 * 1e3
+        up_ascii = _wall_ms(lambda: torch.from_numpy(tile).to(dev), 20)
+        up_packed = _wall_ms(lambda: (torch.from_numpy(packed).to(dev),
+                                      torch.from_numpy(vbits).to(dev)), 20)
+        pk = torch.from_numpy(packed).to(dev)
+        vb = torch.from_numpy(vbits).to(dev)
+        k1_ms = cuda_ms(lambda: eh.packed_to_registers(pk, vb, regs_k.zero_(),
+                                                       k=k, p=p), 50)
+        log(f"[K2 vs K1] k={k} p={p}, one chunk: ASCII route upload "
+            f"{up_ascii:.4f} ms ({tile.nbytes} B) + K2 {ms:.4f} ms = "
+            f"{up_ascii + ms:.4f} ms; packed route host pack2bit "
+            f"{pack_ms:.4f} ms + upload {up_packed:.4f} ms "
+            f"({packed.nbytes + vbits.nbytes} B) + K1 {k1_ms:.4f} ms = "
+            f"{pack_ms + up_packed + k1_ms:.4f} ms")
 
 
 def _k3_bank(dev, p: int, n: int):
@@ -470,6 +569,89 @@ def phase_k4_k5(dev, records):
     return bank
 
 
+def phase_bench(dev, counts):
+    """The port's benchmark in process at its full geometry: K2 over 30
+    device-resident 256 x 8222 chunks, one warm-up and three timed runs.
+    Prints its JSON line; the registers must equal the plain fold."""
+    import torch
+    from dashing_tpu_torch import bench
+    from dashing_tpu_torch.ops import encode_hash as eh
+    torch.cuda.synchronize()
+    eh.ascii_launches = 0
+    t0 = time.perf_counter()
+    rec, regs = bench.run(dev)
+    torch.cuda.synchronize()
+    counts["ascii_hash_regs"] = eh.ascii_launches
+    log(f"[bench] {json.dumps(rec)}")
+    runs = 4                                   # warm-up + best of 3
+    if eh.ascii_launches != bench.ITERS * runs:
+        fail(f"bench: K2 launched {eh.ascii_launches} times, expected "
+             f"{bench.ITERS} per run x {runs} runs")
+    chunks = torch.from_numpy(bench.make_chunks()).to(dev)
+    plain = torch.zeros_like(regs)
+    for i in range(chunks.shape[0]):
+        eh.ascii_to_registers_plain(chunks[i], plain, k=bench.K, p=bench.P,
+                                    canon=True)
+    torch.cuda.synchronize()
+    if not torch.equal(regs, plain):
+        fail("bench: registers differ from the plain fold of its chunks")
+    log(f"[bench] K2 launches {eh.ascii_launches} ({bench.ITERS} per run), "
+        f"registers bitwise equal to the plain fold; "
+        f"{rec['value'] / 1e9:.3f} G k-mers/s "
+        f"({time.perf_counter() - t0:.1f}s with the host baseline)")
+    _bench_device_time(dev, chunks)
+
+
+def _bench_device_time(dev, chunks):
+    """Is the benchmark's k-mers/s the kernel's or the host's launch rate?
+    One run as the benchmark times it (host wall, CUDA events around the
+    30 launches), then the same 30 launches queued behind a spin kernel,
+    so the card runs them back to back: the events then span kernel time
+    alone.  (After the launch count was read; these launches do not
+    count.)"""
+    import torch
+    from dashing_tpu_torch import bench
+    from dashing_tpu_torch.ops import encode_hash as eh
+    regs = torch.zeros(1 << bench.P, dtype=torch.int32, device=dev)
+
+    def run():
+        for i in range(chunks.shape[0]):
+            eh.ascii_to_registers(chunks[i], regs, k=bench.K, p=bench.P)
+
+    ev =[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for _ in range(2):                            # the second is reported
+        regs.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        run()
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        regs.zero_()
+        torch.cuda.synchronize()
+        ev[2].record()
+        torch.cuda._sleep(50_000_000)             # ~25 ms at 2 GHz
+        t1 = time.perf_counter()
+        ev[3].record()
+        run()
+        enqueue = (time.perf_counter() - t1) * 1e3
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+    sleep_ms = ev[2].elapsed_time(ev[3])
+    paced, queued = ev[0].elapsed_time(ev[1]), ev[3].elapsed_time(end)
+    if enqueue >= sleep_ms:
+        fail(f"bench: the spin ({sleep_ms:.3f} ms) ended before the 30 "
+             f"launches were queued ({enqueue:.3f} ms)")
+    n = chunks.shape[0]
+    log(f"[bench] one run of {n} K2 launches: host wall {wall:.4f} ms, "
+        f"events as launched {paced:.4f} ms; queued behind a spin "
+        f"{queued:.4f} ms ({queued / n:.4f} ms per launch; host enqueue "
+        f"{enqueue:.4f} ms) -> "
+        f"{'dispatch' if paced > 1.2 * queued else 'kernel'}-bound")
+
+
 def _write_genomes(root: str, n_anc: int, length: int, rng):
     """n_anc ancestors x len(RATES) mutated copies, each a multi-record
     FASTA with N runs and one lowercase record.  Returns (paths, family,
@@ -621,11 +803,95 @@ def phase_e2e(dev, bank, counts, records):
                      "the plain version")
         log("[e2e] two genomes' CLI registers bitwise equal to the plain "
             "version on the card")
+        _e2e_encodings(dev, genomes, total_bases, tmp, counts)
         sketches = _phase_times(dev, paths, total_bases)
         _config2_kernels(dev, sketches, records)
         _e2e_joint_bank(bank, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# e2e (e): (tag, dist options, planted check, SketchParams of the CPU run)
+ENCODING_RUNS = (
+    ("-s 1x4", ["-k", "31", "-s", "1x4"], True,
+     dict(k=31, spacing="1x4")),
+    ("-w 50", ["-k", "31", "-w", "50"], False, dict(k=31, w=50)),
+    ("-g -w 50", ["-k", "31", "-g", "-w", "50"], False,
+     dict(k=31, w=50, entropy=True)),
+    ("--use-nthash -k 41", ["-k", "41", "--use-nthash"], True,
+     dict(k=41, encoding="nthash")),
+)
+
+
+def _e2e_encodings(dev, genomes, total_bases, tmp, counts):
+    """(e) The ASCII-tile route through the CLI: config 2's genomes under
+    -s, -w, -g -w and ntHash.  Each run: wall time, a finite n(n-1)/2
+    matrix, the compare kernels launched; -s and ntHash: every planted pair
+    within 0.25 d + 0.001.  Then two genomes' registers from the CLI on the
+    card against a CPU run of the same port code.  -w and -g run on the
+    first 20 genomes if the first two runs took over 60 s."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch.hll import HLL
+    paths = [g[0] for g in genomes]
+    spent = 0.0
+    for tag, opts, planted, kw in ENCODING_RUNS:
+        use = genomes
+        if not planted and spent > 60.0:
+            use = genomes[:20]
+        out = os.path.join(tmp, "e.bin")
+        eh.launches = eh.ascii_launches = 0
+        um.launches = um.estimate_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if main(["dist", "-S", "16", "-M", "-b", "-O", out, "-o",
+                 out + ".sizes", "--avoid-sorting"] + opts
+                + [g[0] for g in use]) != 0:
+            fail(f"e2e (e) {tag} returned nonzero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spent += wall
+        log(f"[e2e e] {tag}: launches K1 {eh.launches}, K2 "
+            f"{eh.ascii_launches}, K3 {um.launches}, row estimates "
+            f"{um.estimate_launches}")
+        if um.launches == 0 or um.estimate_launches == 0:
+            fail(f"e2e (e) {tag}: the compare kernels were not launched")
+        n, cond = _read_condensed(out)
+        if n != len(use) or cond.shape != (n * (n - 1) // 2,):
+            fail(f"e2e (e) {tag}: matrix n={n} len={cond.shape}")
+        if not np.isfinite(cond).all():
+            fail(f"e2e (e) {tag}: non-finite distances")
+        bases = sum(os.path.getsize(g[0]) for g in use)
+        if planted:
+            _check_planted(out, use, f"(e) {tag}", wall, bases)
+        else:
+            log(f"[e2e (e) {tag}] {n} genomes: {cond.size} finite distances;"
+                f" wall {wall:.2f}s, {bases / wall / 1e6:.1f} M bases/s end "
+                f"to end")
+        # two genomes through `sketch` on the card vs the port on the CPU
+        two = (paths[0], paths[7])
+        out_s = os.path.join(tmp, "e.hll")
+        if main(["sketch", "-S", "16", "-o", out_s, "--avoid-sorting"]
+                + [o if o != "-g" else "--by-entropy" for o in opts]
+                + list(two)) != 0:
+            fail(f"e2e (e) {tag}: sketch returned nonzero")
+        with gzip.open(out_s, "rb") as fp:
+            got = [HLL.read_record(fp).regs for _ in range(2)]
+        params = pipeline.SketchParams(**kw)
+        t0 = time.perf_counter()
+        for path, regs in zip(two, got):
+            cpu = pipeline.sketch_file_hll(path, params, 16,
+                                           torch.device("cpu"))
+            if not np.array_equal(cpu, regs):
+                fail(f"e2e (e) {tag}: {os.path.basename(path)}: "
+                     f"{int((cpu != regs).sum())} registers on the card differ"
+                     " from the CPU run")
+        log(f"[e2e (e) {tag}] two genomes' registers on the card bitwise "
+            f"equal to the CPU run ({time.perf_counter() - t0:.1f}s on the "
+            "CPU)")
 
 
 def _check_planted(path, genomes, what, wall, total_bases):
@@ -648,7 +914,7 @@ def _check_planted(path, genomes, what, wall, total_bases):
             if abs(got - d) > 0.25 * d + 0.001:
                 fail(f"e2e {what}: planted pair {i},{j}: Mash {got:.5f} vs "
                      f"d={d:.5f}")
-    log(f"[e2e {what}] {n} genomes k31 S16 -M -b: {n * (n - 1) // 2} finite "
+    log(f"[e2e {what}] {n} genomes S16 -M -b: {n * (n - 1) // 2} finite "
         f"distances, {planted} planted pairs within 0.25d+0.001 (worst at "
         f"{worst:.2f} of the bound); wall {wall:.2f}s, "
         f"{total_bases / wall / 1e6:.1f} M bases/s end to end")
@@ -773,8 +1039,10 @@ def main() -> int:
     records: list = []
     counts: dict = {}
     phase_k1(dev, records)
+    phase_k2(dev, records)
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)
+    phase_bench(dev, counts)
     phase_e2e(dev, bank, counts, records)
     for r in records:
         r["launches"] = counts[r["counter"]]

@@ -43,6 +43,7 @@ class CommonOpts:
     spacing: str = ""
     sketch_size: int = 10          # -S, log2 bytes (HLL: p == S)
     canon: bool = True
+    encoding: str = "bonsai"       # bonsai | nthash | cyclic
     estim: int = est.ERTL_MLE
     jestim: int = est.ERTL_MLE
     nthreads: int = 1
@@ -51,6 +52,7 @@ class CommonOpts:
     suffix: str = ""
     presketched: bool = False
     avoid_sorting: bool = False
+    entropy_min: bool = False
 
 
 def hll_p_from_S(S: int) -> int:
@@ -64,10 +66,7 @@ _REFUSED = {
     "-q": "the count-min sketch (-q)", "--nhashes": "the count-min sketch",
     "-t": "the count-min sketch (-t)", "--cm-sketch-size": "the count-min sketch",
     "-R": "the count-min seed (-R)", "--seed": "the count-min seed",
-    "-g": "entropy minimizers (-g)", "--by-entropy": "entropy minimizers",
     "-N": "-N/--sketch-by-fname", "--sketch-by-fname": "-N/--sketch-by-fname",
-    "--use-nthash": "the nthash encoding",
-    "--use-cyclic-hash": "the cyclic-hash encoding",
     "-W": "sketch caching (-W)", "--cache-sketches": "sketch caching (-W)",
     "--wj": "weighted Jaccard", "--wj-exact": "weighted Jaccard",
     "--wj-cm-sketch-size": "weighted Jaccard",
@@ -102,6 +101,9 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "-E": ("estim", est.ORIGINAL), "--original": ("estim", est.ORIGINAL),
         "-I": ("estim", est.ERTL_IMPROVED), "--improved": ("estim", est.ERTL_IMPROVED),
         "-m": ("estim", est.ERTL_MLE), "--ertl-mle": ("estim", est.ERTL_MLE),
+        "-g": ("entropy_min", True), "--by-entropy": ("entropy_min", True),
+        "--use-nthash": ("encoding", "nthash"),
+        "--use-cyclic-hash": ("encoding", "cyclic"),
     }
     if flag in flags:
         name, v = flags[flag]
@@ -119,16 +121,27 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
     return False
 
 
-def validate(opts: CommonOpts):
-    """k <= 32 (2-bit exact k-mers); -s and -w wider than k are refused
-    where sketching starts (pipeline.check_supported)."""
-    if opts.k > 32:
+def validate_k(opts: CommonOpts):
+    """The JAX CLI's checks of k against the encoding, word for word."""
+    if opts.k > 32 and opts.encoding == "bonsai":
         raise SystemExit("k must be <= 32 for non-rolling hashes.")
+    if opts.k > 32 and opts.spacing:
+        raise SystemExit("kmers must be unspaced for k > 32")
+    if opts.encoding != "bonsai":
+        # the rolling hashes consume contiguous windows; -w applies to
+        # their hash stream, spaced seeds and entropy scoring do not
+        if opts.spacing:
+            raise SystemExit("spaced seeds require the exact (bonsai) "
+                             "encoder; rolling hashes are contiguous")
+        if opts.entropy_min:
+            raise SystemExit("--by-entropy requires the exact (bonsai) "
+                             "encoder; rolling windows minimize by hash")
 
 
 def sketch_params(opts: CommonOpts) -> pipeline.SketchParams:
     return pipeline.SketchParams(k=opts.k, w=opts.wsz, spacing=opts.spacing,
-                                 canon=opts.canon)
+                                 canon=opts.canon, encoding=opts.encoding,
+                                 entropy=opts.entropy_min)
 
 
 def gather_inpaths(opts: CommonOpts, positional: List[str]) -> List[str]:

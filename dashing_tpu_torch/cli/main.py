@@ -4,7 +4,9 @@
     python -m dashing_tpu_torch.cli dist   [opts] genomes...
 
 Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
-slice covers: HLL sketches of contiguous k-mers, symmetric measures, the
+slice covers: HLL sketches of exact k-mers (contiguous or spaced, with or
+without minimizer windows, scored by value or by entropy) or of the
+ntHash and cyclic rolling hashes, symmetric measures, the
 ORIGINAL/IMPROVED/MLE estimators and the joint MLE (-J).  Everything else
 is refused with a "not yet ported" error.  The device comes from
 DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a card
@@ -115,7 +117,7 @@ def dist_main(argv: List[str], device) -> int:
             out_dists = val
         elif flag in ("-h", "-?", "--help"):
             _dist_usage()
-    core.validate(o)
+    core.validate_k(o)
     inpaths = core.gather_inpaths(o, positional)
     if not inpaths:
         eprint("No paths. See usage.")
@@ -219,7 +221,7 @@ def sketch_main(argv: List[str], device) -> int:
             continue
         if flag in ("-h", "-?", "--help"):
             _sketch_usage()
-    core.validate(o)
+    core.validate_k(o)
     inpaths = core.gather_inpaths(o, positional)
     if not inpaths:
         eprint("No paths. See usage.")
@@ -229,7 +231,8 @@ def sketch_main(argv: List[str], device) -> int:
     sp = core.sketch_params(o).spacer()
     p = core.hll_p_from_S(o.sketch_size)
     fnames = {i: cache.make_fname(path, p, sp.w, o.k, sp.c, o.spacing,
-                                  o.suffix, o.prefix, "bonsai", core.HLL_EXT)
+                                  o.suffix, o.prefix, o.encoding,
+                                  core.HLL_EXT)
               for i, path in enumerate(inpaths)}
     results: dict = {}
 
@@ -261,7 +264,12 @@ def sketch_main(argv: List[str], device) -> int:
 def _dist_usage():
     raise SystemExit(
         "Usage: dist <opts> [genomes... or -F paths.txt]\n"
-        "  -k/--kmer-length INT    k-mer size [31], max 32\n"
+        "  -k/--kmer-length INT    k-mer size [31], max 32 unless rolling\n"
+        "  -s/--spacing STR        spaced seed, e.g. 1x4 (gaps after "
+        "positions)\n"
+        "  -w/--window-size INT    minimizer window [k-mer span]\n"
+        "  -g/--by-entropy         minimizers by base-composition entropy\n"
+        "  --use-nthash, --use-cyclic-hash  rolling hashes (any k)\n"
         "  -S/--sketch-size INT    log2 bytes per sketch [10]\n"
         "  -F/--paths FILE         one input path per line\n"
         "  -o/-O FILE              cardinality / distance outputs\n"
@@ -272,7 +280,7 @@ def _dist_usage():
         "  -J/--ertl-joint-mle     set comparisons by the joint MLE\n"
         "  -C no canonicalization, -H presketched inputs, -e scientific\n"
         "Not yet ported (see ROADMAP.md): -Q and asymmetric measures, "
-        "-s, -w > k, --countmin, -N, nthash/cyclic, non-HLL sketches\n")
+        "--countmin, -N, -W, weighted Jaccard, non-HLL sketches\n")
 
 
 def _sketch_usage():

@@ -1,19 +1,42 @@
-"""Thomas Wang's 64-bit mixer on int64 tensors.
+"""Thomas Wang's 64-bit mixer on int64 tensors, and its numpy twin.
 
 Counterpart of dashing_tpu/hashes.py:wang_hash, which emulates uint64 on
 uint32 pairs for the TPU.  Here a uint64 value lives in an int64 tensor
 with the same bit pattern: additions and left shifts wrap identically in
 two's complement, and right shifts are made logical with a mask (torch has
-no CPU `>>` for uint64).
+no CPU `>>` for uint64).  `wang_hash_np` is the host version on uint64
+arrays (the rolling hashes' tables and the benchmark's host baseline).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def shr(x: torch.Tensor, s: int) -> torch.Tensor:
     """Logical right shift of int64 bit patterns by 0 < s < 64."""
     return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def rotl(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rotate int64 bit patterns left by n mod 64."""
+    n %= 64
+    return x if n == 0 else (x << n) | shr(x, 64 - n)
+
+
+def wang_hash_np(x: np.ndarray) -> np.ndarray:
+    """Host numpy WangHash (uint64 in and out); equal to `wang_hash` on
+    the int64 view."""
+    x = np.asarray(x, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        x = (~x) + (x << np.uint64(21))
+        x = x ^ (x >> np.uint64(24))
+        x = (x + (x << np.uint64(3))) + (x << np.uint64(8))
+        x = x ^ (x >> np.uint64(14))
+        x = (x + (x << np.uint64(2))) + (x << np.uint64(4))
+        x = x ^ (x >> np.uint64(28))
+        x = x + (x << np.uint64(31))
+    return x
 
 
 def wang_hash(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,21 @@
 """The sketching engine: files -> tiles -> device registers (port of
-dashing_tpu/pipeline.py, HLL with contiguous k-mers).
+dashing_tpu/pipeline.py, HLL sketches, one device).
 
 A file's records are joined with invalid separators, cut into rows of
-CONTENT bases plus a (k-1)-base halo (width padded to a multiple of 8),
-packed on the host to 2 bits per base plus a validity bit
-(io/native.pack2bit), uploaded, and folded into the registers
-by kernel K1 (ops/encode_hash.py).  One device, no mesh: the TPU banks and
-sharded steps are not ported.
+CONTENT bases plus a (w-1)-base halo (width padded to a multiple of 8 once
+per file), and folded into 2^p registers on the device by one of two
+routes, as the JAX package chooses them:
+  packed  the default exact encoding (contiguous canonical-or-not k-mers,
+          WangHash, no minimizer window): the host packs 2 bits per base
+          plus a validity bit (io/native.pack2bit), and kernel K1
+          (ops/encode_hash.packed_to_registers) folds the upload;
+  ASCII   everything else: spaced seeds (-s), minimizer windows (-w > k),
+          entropy minimizers (-g), the rolling hashes (ntHash, cyclic;
+          any k).  The raw tile is uploaded and `tile_to_registers`
+          encodes it on the device (ops/encode.encode_tile or
+          ops/rolling.rolling_hash_tile), WangHashes it and scatter-maxes
+          the ranks into the registers.
+No mesh: the TPU banks and sharded steps are not ported.
 """
 from __future__ import annotations
 
@@ -18,10 +27,14 @@ import numpy as np
 import torch
 
 from . import metrics
+from .hashes import wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
-from .ops.encode import Spacer, join_records, parse_spacing, tile_sequence
+from .ops import rolling
+from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
+                         tile_sequence)
 from .ops.encode_hash import packed_to_registers
+from .ops.hll_update import update_registers
 
 # Tile geometry: CONTENT bases of payload per row + halo; rows per upload.
 CONTENT = 8192
@@ -30,6 +43,8 @@ MAX_ROWS = 256
 # O(MAX_ROWS * CONTENT) host memory instead of being read whole.
 STREAM_THRESHOLD = 128 * 10 ** 6
 
+ENCODINGS = ("bonsai", "nthash", "cyclic")
+
 
 @dataclasses.dataclass(frozen=True)
 class SketchParams:
@@ -37,24 +52,59 @@ class SketchParams:
     w: int = 0                      # window size (-w); 0 -> k-mer span
     spacing: str = ""
     canon: bool = True
+    encoding: str = "bonsai"        # bonsai | nthash | cyclic
+    rehash: bool = True             # apply WangHash to the encoder output
+    entropy: bool = False           # -g/--by-entropy minimizer scoring
 
     def spacer(self) -> Spacer:
         return Spacer(self.k, self.w, parse_spacing(self.spacing, self.k))
 
 
 def check_supported(params: SketchParams) -> Spacer:
-    """The slice sketches contiguous k-mers (k <= 32) with no minimizer
-    window; anything else is refused, never computed some other way."""
+    """Validate the encoder parameters the way the JAX package's encoders
+    do (exact k-mers need k <= 32; the rolling hashes are contiguous) and
+    return the k-mer shape."""
+    if params.encoding not in ENCODINGS:
+        raise ValueError(f"unknown encoding {params.encoding!r}")
     sp = params.spacer()
-    if sp.spaced:
-        raise NotImplementedError("spaced seeds (-s) are not yet ported, "
-                                  "see ROADMAP")
-    if sp.w != sp.c:
-        raise NotImplementedError("windows wider than k (-w) are not yet "
-                                  "ported, see ROADMAP")
-    if not 1 <= params.k <= 32:
+    if params.encoding == "bonsai" and not 1 <= params.k <= 32:
         raise ValueError(f"k must be in [1, 32], got {params.k}")
+    if params.encoding != "bonsai" and (sp.spaced or params.entropy):
+        raise ValueError("spaced seeds and entropy minimizers need the "
+                         "exact (bonsai) encoder")
     return sp
+
+
+def _encode_kw(params: SketchParams, sp: Spacer) -> dict:
+    """The encoder arguments of every sketch path, from one place."""
+    return dict(k=sp.k, w=sp.w, positions=tuple(sp.positions), span=sp.c,
+                canon=params.canon, encoding=params.encoding,
+                rehash=params.rehash, entropy=params.entropy)
+
+
+def packed_ok(params: SketchParams, sp: Spacer, p: int) -> bool:
+    """Whether a tile takes the packed upload to K1: the exact encoding of
+    contiguous k-mers with WangHash and no window, 2 <= p <= 31 (K1's
+    range; the JAX package stops at p = 25, where its int32 keys end)."""
+    return (params.encoding == "bonsai" and not params.entropy
+            and params.rehash and sp.w == sp.c and not sp.spaced
+            and 2 <= p <= 31)
+
+
+def tile_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, k: int,
+                      w: int, positions, span: int, canon: bool,
+                      encoding: str, rehash: bool, p: int,
+                      entropy: bool = False) -> torch.Tensor:
+    """The ASCII route's device step (JAX `_tile_to_registers`): an
+    uploaded (R, C) uint8 tile -> k-mers or rolling hashes -> WangHash
+    when `rehash` -> register max into `regs` in place."""
+    if encoding == "bonsai":
+        km, valid = encode_tile(tile, k=k, w=w, positions=positions,
+                                span=span, canon=canon, entropy=entropy)
+    else:
+        km, valid = rolling.rolling_hash_tile(tile, k=k, kind=encoding,
+                                              canon=canon, w=w)
+    return update_registers(regs, wang_hash(km) if rehash else km, valid, p)
 
 
 def _pack_tile_host(tile: np.ndarray):
@@ -188,15 +238,23 @@ def _file_tiles(path: str, sp: Spacer) -> Iterable[np.ndarray]:
 def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
                         p: int, device: torch.device) -> torch.Tensor:
     """Fold a stream of (rows, C) ASCII tiles into (2^p,) int32 registers
-    on `device` (returned without synchronising)."""
+    on `device` (returned without synchronising): the packed upload to K1
+    where `packed_ok`, else the ASCII tile to `tile_to_registers`."""
     sp = check_supported(params)
     regs = torch.zeros(1 << p, dtype=torch.int32, device=device)
+    packed_route = packed_ok(params, sp, p)
+    kw = _encode_kw(params, sp)
     for tile in chunks:
-        packed, vbits = _pack_tile_host(tile)
-        with metrics.accum("sketch.dispatch", items=tile.nbytes):
-            packed_to_registers(torch.from_numpy(packed).to(device),
-                                torch.from_numpy(vbits).to(device), regs,
-                                k=sp.k, p=p, canon=params.canon)
+        if packed_route:
+            packed, vbits = _pack_tile_host(tile)
+            with metrics.accum("sketch.dispatch", items=tile.nbytes):
+                packed_to_registers(torch.from_numpy(packed).to(device),
+                                    torch.from_numpy(vbits).to(device), regs,
+                                    k=sp.k, p=p, canon=params.canon)
+        else:
+            with metrics.accum("sketch.dispatch", items=tile.nbytes):
+                tile_to_registers(torch.from_numpy(tile).to(device), regs,
+                                  **kw, p=p)
     return regs
 
 

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at edge shapes the smoke run does not reach (k = 1 and 32,
-p = 2 to 25, ragged rows and pair blocks, registers at 0 and at q+1,
-windows reaching q+1, empty histograms and sketches, the widest joint
-window).  Marked `cuda`: they skip without a card.  Run them on one:
+p = 2 to 25 for keys and 31 for registers, ragged rows, widths and pair
+blocks, more rows than one grid dimension holds, all-N rows and bytes
+>= 0x80 on the ASCII form, registers at 0 and at q+1, windows reaching
+q+1, empty histograms and sketches, the widest joint window).  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -72,6 +73,70 @@ def test_encode_hash_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         eh.packed_to_registers(pk, vb, torch.zeros(16, dtype=torch.int32),
                                k=3, p=4)
+
+
+def _ascii(rng, rows, C, dev):
+    """ASCII tile with N, IUPAC, 0x00 and high bytes (0xC1 is 'A' with bit
+    7 set); row 0 all N, row 1 all valid lowercase when there are rows."""
+    tile = rng.choice(np.frombuffer(b"ACGTacgtNR\x00\xc1", np.uint8),
+                      size=(rows, C), p=[0.2] * 4 + [0.03] * 4 + [0.02] * 4)
+    tile[0] = ord("N")
+    if rows > 1:
+        tile[1] = rng.choice(np.frombuffer(b"acgt", np.uint8), size=C)
+    return torch.from_numpy(tile).to(dev)
+
+
+@pytest.mark.parametrize("k,p,canon,rows,C", [
+    (1, 2, True, 3, 64),           # shortest k-mer, smallest p
+    (32, 25, False, 5, 1001),      # k = 32, widest key p, canon off
+    (31, 14, True, 256, 8222),     # the benchmark's chunk (C % 8 != 0)
+    (21, 16, True, 7, 8212),       # ragged strips at the row's end
+    (12, 10, True, 70000, 40),     # more rows than one grid dimension
+])
+def test_ascii_keys_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
+    t = _ascii(rng, rows, C, cuda)
+    before = eh.keys_launches
+    got = eh.encode_hash_keys(t, k=k, p=p, canon=canon)
+    assert eh.keys_launches == before + 1
+    want = eh.encode_hash_keys_plain(t, k=k, p=p, canon=canon)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, C - k + 1) and got.dtype == torch.int32
+    assert ((want & 63) == 0).any() and (want & 63).any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,p,canon,rows,C", [
+    (1, 2, True, 3, 64),
+    (32, 25, False, 5, 1001),
+    (31, 14, True, 256, 8222),
+    (21, 31, True, 9, 3000),       # p = 31: registers only (8 GB)
+    (12, 10, False, 70000, 40),
+])
+def test_ascii_regs_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
+    t = _ascii(rng, rows, C, cuda)
+    got = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    before = eh.ascii_launches
+    eh.ascii_to_registers(t, got, k=k, p=p, canon=canon)
+    assert eh.ascii_launches == before + 1
+    eh.ascii_to_registers_plain(t, want, k=k, p=p, canon=canon)
+    torch.cuda.synchronize()
+    assert int((want > 0).sum()) > 0
+    assert torch.equal(got, want)
+    # an all-N chunk and a chunk of high bytes change nothing
+    for fill in (ord("N"), 0xC1):
+        eh.ascii_to_registers(torch.full((4, 100), fill, dtype=torch.uint8,
+                                         device=cuda), got, k=k, p=p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+
+
+def test_ascii_kernel_rejects_mixed_devices(cuda):
+    t = torch.zeros((2, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        eh.ascii_to_registers(t, torch.zeros(16, dtype=torch.int32), k=3, p=4)
 
 
 @pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,

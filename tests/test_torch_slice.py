@@ -1,8 +1,10 @@
 """The port's CLI slice end to end on the CPU, against the JAX CLI:
-`sketch` files equal record for record (with -J too), `dist -M -b`
-matrices and `-o` sizes within stated tolerances (with the joint MLE too),
-JAX-written sketches read back by the port, no import of jax or of the JAX
-package anywhere in the port, and no silent CPU fallback."""
+`sketch` files equal record for record (with -J too, and under spaced
+seeds, minimizer windows, entropy minimizers, ntHash and the cyclic hash),
+`dist -M -b` matrices and `-o` sizes within stated tolerances (with the
+joint MLE and those encodings too), JAX-written sketches read back by the
+port, no import of jax or of the JAX package anywhere in the port, and no
+silent CPU fallback."""
 import gzip
 import os
 import subprocess
@@ -12,10 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from dashing_tpu import u64
 from dashing_tpu.cli import main as jmain
 from dashing_tpu.io import distmat
+from dashing_tpu.ops import encode as jenc
 from dashing_tpu_torch import device as devmod
 from dashing_tpu_torch.cli import main as tmain
+from dashing_tpu_torch.ops.encode import entropy_table
 from dashing_tpu_torch.sketch.hll import HLL
 
 torch.set_num_threads(1)
@@ -197,6 +205,131 @@ def test_jax_joint_sketches_load_into_port(genomes, tmp_path, cpu_env):
                                   distmat.read_binary(own)[1])
 
 
+# the encodings of the ASCII-tile route, as `sketch` spells them (`dist`
+# takes -g for --by-entropy)
+ENCODINGS = [["-s", "1x4"], ["-w", "40"], ["--by-entropy", "-w", "40"],
+             ["--use-nthash", "-k", "40"], ["--use-cyclic-hash"]]
+
+
+@pytest.fixture()
+def jax_entropy_by_table(monkeypatch):
+    """The JAX package's entropy minimizer with its float32 score taken
+    from the port's table by base composition (the JAX formula evaluated
+    op by op; tests/test_torch_encodings.py holds the two equal), and
+    everything else (counts, window keys, sliding min, gather, emission)
+    the JAX package's own code.  Jitted, XLA rounds the formula
+    differently where it fuses it into the sliding min and can break
+    near-ties another way; with the score fixed the rest of the route is
+    held bitwise."""
+    def table_scored(km, wvalid, code, positions, win):
+        k = len(positions)
+        W = km[0].shape[-1]
+        counts = [jnp.zeros(km[0].shape, jnp.int32) for _ in range(3)]
+        for p in positions:
+            c_t = code[..., p:p + W]
+            for b in range(3):
+                counts[b] = counts[b] + (c_t == b).astype(jnp.int32)
+        idx = (counts[0] * (k + 1) + counts[1]) * (k + 1) + counts[2]
+        entq = jnp.asarray(entropy_table(k).astype(np.uint32))[idx]
+        offs = jax.lax.broadcasted_iota(jnp.uint32, km[0].shape,
+                                        km[0].ndim - 1)
+        key_hi = jnp.where(wvalid, entq, jnp.uint32(0xFFFFFFFF))
+        best = jenc.sliding_min((key_hi, offs), win)
+        sel = best[1].astype(jnp.int32)
+        hi = jnp.take_along_axis(km[0], sel, axis=-1)
+        lo = jnp.take_along_axis(km[1], sel, axis=-1)
+        bad = best[0] == jnp.uint32(0xFFFFFFFF)
+        sent = u64.full(hi.shape, jenc._SENTINEL)
+        return jnp.where(bad, sent[0], hi), jnp.where(bad, sent[1], lo)
+
+    monkeypatch.setattr(jenc, "_entropy_sliding_min", table_scored)
+    jax.clear_caches()
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("extra", ENCODINGS)
+def test_sketch_encodings_identical(genomes, tmp_path, cpu_env,
+                                   jax_entropy_by_table, extra):
+    """The ASCII-tile route: same file names (the -s spacing and the nt. /
+    cyclic. infixes included) and the same DTPUHLL1 bytes."""
+    for d in ("jax", "port"):
+        (tmp_path / d).mkdir()
+    args = ["sketch", "-k", str(K), "-S", str(S)] + extra
+    assert jmain.main(args + ["-P", str(tmp_path / "jax")] + genomes) == 0
+    assert tmain.main(args + ["-P", str(tmp_path / "port")] + genomes) == 0
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 6
+    infix = {"--use-nthash": ".nt.", "--use-cyclic-hash": ".cyclic.",
+             "-s": ".spacing1x4."}.get(extra[0], ".spacing.")
+    assert all(infix in nm for nm in names), names
+    for nm in names:
+        want = _records(tmp_path / "jax" / nm)
+        assert _records(tmp_path / "port" / nm) == want, nm
+
+
+@pytest.mark.parametrize("extra", ENCODINGS)
+def test_dist_encodings_match_jax_cli(genomes, tmp_path, cpu_env,
+                                      jax_entropy_by_table, extra):
+    extra = ["-g" if e == "--by-entropy" else e for e in extra]
+    args = ["dist", "-k", str(K), "-S", str(S), "-M", "-b"] + extra
+    mats = {}
+    for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+        dists = str(tmp_path / f"{tag}.bin")
+        assert fn(args + ["-O", dists] + genomes) == 0
+        mats[tag] = distmat.read_binary(dists)
+    (nj, mj), (nt, mt) = mats["jax"], mats["port"]
+    assert nj == nt == 6 and np.isfinite(mt).all() and (mt > 0).all()
+    np.testing.assert_allclose(mt, mj, rtol=1e-4, atol=1e-6)
+
+
+def test_entropy_near_unpatched_jax_cli(genomes, tmp_path, cpu_env):
+    """-g against the JAX CLI as it ships (jitted, its own float32 score):
+    the two break near-ties differently, and this bounds how far that
+    goes.  Same file names and headers; registers differ in at most 2 of
+    the 4096 places of a sketch, by at most 2 ranks; the Mash distances
+    then agree at rtol 2e-3 (a changed register moves an HLL estimate by
+    about 1/4096; these inputs give one changed register and 6.2e-4)."""
+    for d in ("jax", "port"):
+        (tmp_path / d).mkdir()
+    args = ["sketch", "-k", str(K), "-S", str(S), "--by-entropy", "-w", "40"]
+    assert jmain.main(args + ["-P", str(tmp_path / "jax")] + genomes) == 0
+    assert tmain.main(args + ["-P", str(tmp_path / "port")] + genomes) == 0
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 6
+    for nm in names:
+        want = np.frombuffer(_records(tmp_path / "jax" / nm), np.uint8)
+        got = np.frombuffer(_records(tmp_path / "port" / nm), np.uint8)
+        assert got.shape == want.shape == (16 + (1 << S),)
+        assert bytes(got[:16]) == bytes(want[:16]), nm
+        diff = np.abs(got[16:].astype(np.int32) - want[16:])
+        assert (diff > 0).sum() <= 2 and diff.max() <= 2, (nm, diff.max())
+    mats = {}
+    for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+        dists = str(tmp_path / f"{tag}.bin")
+        assert fn(["dist", "-k", str(K), "-S", str(S), "-M", "-b", "-g", "-w",
+                   "40", "-O", dists] + genomes) == 0
+        mats[tag] = distmat.read_binary(dists)
+    (nj, mj), (nt, mt) = mats["jax"], mats["port"]
+    assert nj == nt == 6 and np.isfinite(mt).all() and (mt > 0).all()
+    np.testing.assert_allclose(mt, mj, rtol=2e-3, atol=1e-6)
+
+
+def test_encoding_guards_match_jax_cli(genomes, cpu_env):
+    """The JAX CLI's refusals of k and encoding combinations, word for
+    word."""
+    for extra in (["-k", "33"], ["-k", "40", "-s", "1x2", "--use-nthash"],
+                  ["-s", "1x2", "--use-cyclic-hash"],
+                  ["-g", "--use-nthash"]):
+        msgs = []
+        for fn in (jmain.main, tmain.main):
+            with pytest.raises(SystemExit) as e:
+                fn(["dist"] + extra + genomes[:2])
+            msgs.append(str(e.value.code))
+        assert msgs[0] == msgs[1], msgs
+
+
 _BLOCKED_RUN = r"""
 import importlib.abc, sys
 BLOCKED = ("jax", "jaxlib", "dashing_tpu")   # dashing_tpu_torch stays
@@ -215,7 +348,12 @@ rc = main(["dist", "-k", "15", "-S", "10", "-M", "-o", sys.argv[1],
            "-O", sys.argv[2]] + sys.argv[3:])
 rc |= main(["dist", "-k", "15", "-S", "10", "-J", "-O", sys.argv[2] + ".J"]
            + sys.argv[3:])
+rc |= main(["dist", "-k", "15", "-S", "10", "-w", "30", "-O",
+            sys.argv[2] + ".w"] + sys.argv[3:])
+rc |= main(["dist", "-k", "40", "-S", "10", "--use-nthash", "-O",
+            sys.argv[2] + ".nt"] + sys.argv[3:])
 import chip_smoke, chip_profile  # noqa: F401  (import-time only)
+import dashing_tpu_torch.bench  # noqa: F401
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert rc == 0 and not leaked, (rc, leaked)
 print("NOJAX-OK")
@@ -232,7 +370,8 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NOJAX-OK" in res.stdout
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
-    assert (tmp_path / "d.txt.J").read_text().count("\n") == 4
+    for ext in ("J", "w", "nt"):
+        assert (tmp_path / f"d.txt.{ext}").read_text().count("\n") == 4
 
 
 def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
@@ -256,9 +395,9 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-s", "1x3"],
-    ["-w", "40"], ["--countmin"], ["-c", "3"], ["-N"], ["--use-nthash"],
-    ["--use-bb-minhash"], ["-g"], ["--nearest-neighbors", "3"],
+    ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-W"],
+    ["--use-range-minhash"], ["--countmin"], ["-c", "3"], ["-N"],
+    ["--wj-exact"], ["--use-bb-minhash"], ["-y"], ["--nearest-neighbors", "3"],
 ])
 def test_out_of_slice_flags_refused(genomes, cpu_env, extra):
     with pytest.raises(SystemExit, match="not yet ported"):
