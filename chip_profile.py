@@ -9,7 +9,8 @@ torch.profiler:
              the 100 synthetic 5 Mbp genomes of chip_smoke.py (same seed),
              with the DASHING_TPU_METRICS buckets of every untraced run;
   n1024      all_pairs_condensed over the 1024-sketch p=14 bank of
-             chip_smoke.py's K3 phase (one 1024 x 1024 tile, Mash, MLE);
+             chip_smoke.py's K3 phase (one 1024 x 1024 tile, Mash, MLE):
+             K4's X-only form (cum_union), the marginals and K3;
   j1000      the same engine with the joint MLE (-J) over the 1000-sketch
              p=14 bank of chip_smoke.py's K4 phase (one 1000 x 1000 tile,
              Mash): kernels K4 and K5.
@@ -125,6 +126,7 @@ def config2(dev, reps: int) -> None:
 def n1024(dev, reps: int) -> None:
     import torch
     import chip_smoke
+    from dashing_tpu_torch.ops import joint_stats as js
     from dashing_tpu_torch.ops import pairwise as pw
     from dashing_tpu_torch.sketch import estimators as est
     from dashing_tpu_torch.sketch.hll import HLL
@@ -138,13 +140,15 @@ def n1024(dev, reps: int) -> None:
 
     run()
     for r in range(reps):
+        js.cum_union_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         log(f"[n1024] rep {r} compare {dt:.4f}s, "
-            f"{n * (n - 1) / 2 / dt:.0f} pairs/s")
+            f"{n * (n - 1) / 2 / dt:.0f} pairs/s, K4 X-only launches "
+            f"{js.cum_union_launches}")
     traced("n1024", run)
 
 

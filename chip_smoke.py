@@ -7,7 +7,11 @@ Phases, each printing its own lines with seconds:
   1. device   the card's name and power limit (nvidia-smi); fails without CUDA
   2. build    every CUDA kernel from dashing_tpu_torch/csrc (nvcc, sm_90a,
               one nvcc per source, all started together), with ptxas's
-              registers, stack frame and spills per kernel
+              registers, stack frame and spills per kernel; then the rates
+              of the binary tensor-core MMAs (mma.sync, which K4 runs, and
+              wgmma), measured by the loops of b1_peak.cu beside this
+              script (the data sheet gives none); K4's bounds are reckoned
+              against the faster
   3. K1       fused encode/hash/register-max kernel vs its plain PyTorch
               version on the card, one 256-row chunk, k=31 p=14 and k=21
               p=16: registers must be bitwise equal
@@ -19,7 +23,9 @@ Phases, each printing its own lines with seconds:
               the upload of each form timed
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE, rtol=2e-4 atol=5e-2
-              on triples; the row-estimate kernel (marginals) at rtol=1e-5
+              on triples; the row-estimate kernel (marginals) at rtol=1e-5;
+              K4's X-only form (cum_union of the main path) bitwise equal to
+              its plain version on that same-bank 1024 x 2^14 bank
   5. K4, K5   joint pair statistics (K4) vs their plain version, bitwise
               equal, on a same-bank 1000 x 2^14 bank and a distinct ragged
               600 x 1000 pair of banks with a window kmin > 0; the joint MLE
@@ -37,15 +43,17 @@ Phases, each printing its own lines with seconds:
               (c) the same 100 genomes, dist -k 31 -S 16 -J -M -b (joint MLE)
               (d) 1000 p=14 sketches of the K4 bank written as .hll files,
                   dist -H -J -M -b (all 499,500 pairs), its wall time and
-                  pairs/s, and the largest Jaccard difference from -m
+                  pairs/s, and the largest Jaccard difference from the same
+                  run without -J; K4's joint form must launch in the first,
+                  its X-only form in the second
               In (b) and (c) every kernel of the path must have launched
               (counts set to 0 just before the run, read just after), the
               matrix must be finite and of length n(n-1)/2, and every
               planted pair's Mash distance within 0.25 d + 0.001 of d; two
               genomes' registers must equal the plain version's on the card.
-              Then K3, the row-estimate kernel, K4 and K5 are held against
-              their plain versions at the shapes config 2 gives them (one
-              100 x 100 tile at p=16; the -o histograms).
+              Then K3, the row-estimate kernel, both forms of K4 and K5 are
+              held against their plain versions at the shapes config 2
+              gives them (one 100 x 100 tile at p=16; the -o histograms).
               (e) the ASCII-tile route: the same genomes through `dist -k 31
                   -S 16 -M -b` with -s 1x4, with -w 50, with -g -w 50, and
                   with --use-nthash -k 41: each matrix finite and
@@ -54,7 +62,9 @@ Phases, each printing its own lines with seconds:
                   bitwise equal to a CPU run of the same port code
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path, times as CUDA-event means, each kernel's bound
-and, where one PyTorch call computes the same function, that call's time);
+and, where one PyTorch call computes the same function, that call's time:
+for K4 one float32 bmm of the stacked indicators; the log line beside it
+also times torch._int_mm per level product, int8 in, int32 out);
 the last line is {"ok": true, "device": {...}}.  Any failure exits
 non-zero with no result.
 """
@@ -93,6 +103,9 @@ HBM_BPS = 3.35e12
 FP32_OPS = 67e12
 INT8_TC_OPS = 1979e12
 INT32_OPS = 67e12 / 4
+# one-bit multiply-adds a second of the faster binary MMA (.b1 .and.popc,
+# mma.sync or wgmma), measured in this run by phase_b1_peak
+B1_MACS = {"rate": None}
 
 
 def log(msg: str) -> None:
@@ -183,9 +196,10 @@ def phase_build():
     from dashing_tpu_torch.ops import (_build, encode_hash, joint_mle,
                                        joint_stats, union_mle)
     t0 = time.perf_counter()
-    mods = (encode_hash, union_mle, joint_stats, joint_mle)
-    with ThreadPoolExecutor(len(mods)) as ex:
-        for f in [ex.submit(m._lib) for m in mods]:
+    builds = [m._lib for m in (encode_hash, union_mle, joint_stats,
+                               joint_mle)] + [_b1_lib]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        for f in [ex.submit(b) for b in builds]:
             f.result()
     log(f"[build] nvcc {_build.nvcc()}: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in _build.build_seconds.items())
@@ -194,8 +208,56 @@ def phase_build():
         for line in text.splitlines():
             line = line.strip()
             if "Compiling entry" in line or "registers" in line \
-                    or "stack frame" in line:
+                    or "stack frame" in line or "Potential" in line:
                 log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
+
+
+def _b1_lib():
+    """The binary-MMA rate probe beside this script (b1_peak.cu)."""
+    import ctypes
+    from dashing_tpu_torch.ops import _build
+    ci, vp = ctypes.c_int, ctypes.c_void_p
+    sig = ([ci, ci, vp, vp], ci)
+    return _build.load("b1_peak", {"dtt_b1_peak": sig,
+                                   "dtt_b1_peak_wgmma": sig},
+                       src=os.path.join(os.path.dirname(
+                           os.path.abspath(__file__)), "b1_peak.cu"))
+
+
+def phase_b1_peak(dev):
+    """The binary MMAs' rates on this card: b1_peak.cu's register-operand
+    loops of mma.sync m16n8k256 (two 8-warp blocks per SM) and of wgmma
+    m64n128k256 (two warpgroups per SM), timed by CUDA events (best of
+    3).  K4's bounds take the faster."""
+    import torch
+    from dashing_tpu_torch.ops import _build
+    lib = _b1_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = torch.empty(2 * sms * 256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    # (entry, what, iters, one-bit multiply-adds per block and iteration)
+    for fn, what, iters, per in (
+            ("dtt_b1_peak", "mma.sync m16n8k256", 20000, 8 * 8 * 16 * 8 * 256),
+            ("dtt_b1_peak_wgmma", "wgmma m64n128k256", 2000,
+             8 * 64 * 128 * 256)):
+        blocks = 2 * sms
+        entry = getattr(lib, fn)
+
+        def run():
+            _build.check(entry(blocks, iters, scratch.data_ptr(), stream), fn,
+                         lib)
+
+        ms = min(cuda_ms(run, 1) for _ in range(3))
+        rates[what] = blocks * iters * per / ms * 1e3
+        log(f"[b1 peak] {what}: {blocks} blocks x {iters} iterations: "
+            f"{ms:.4f} ms, {rates[what] / 1e15:.3f}e15 one-bit multiply-adds/s"
+            f" ({2 * rates[what] / INT8_TC_OPS:.2f}x the int8 tensor cores' "
+            f"{INT8_TC_OPS / 1e12:.0f} TOP/s)")
+    best = max(rates, key=rates.get)
+    B1_MACS["rate"] = rates[best]
+    log(f"[b1 peak] K4's bounds take the {best} rate, "
+        f"{B1_MACS['rate'] / 1e15:.3f}e15/s")
 
 
 def _random_chunk(rng, rows: int, C: int) -> np.ndarray:
@@ -371,6 +433,8 @@ def phase_k3(dev, records):
     log(f"[K3] bank {n} x 2^{p} from K1 ({lens.min()}-{lens.max()} rows of "
         f"8192 bases each), window kmin={kmin} K={K} "
         f"({time.perf_counter() - t0:.2f}s)")
+    check_cum_union(bank, bank, kmin, kmax, True, "n1024 same bank",
+                    records)
     for method, name in ((est.ORIGINAL, "ORIGINAL"),
                          (est.ERTL_IMPROVED, "IMPROVED"),
                          (est.ERTL_MLE, "MLE")):
@@ -446,17 +510,61 @@ def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
            na * nb * k3_ops(K, method), FP32_OPS)
 
 
-def _indicator_bmm(a, b, kmin: int, kmax: int):
-    """The library yardstick for K4: X, Y and Z of every level as ONE
-    batched float32 matmul (TF32 off) of stacked 0/1 indicators; the port
-    never calls it."""
+def _indicators(a, b, kmin: int, kmax: int, joint: bool):
+    """Stacked 0/1 indicators of the yardsticks, one pair of planes per
+    product: X (k, k) for every level, and with `joint` also Y (k, k-1)
+    and Z (k-1, k)."""
     import torch
     ks = torch.arange(kmin, kmax + 1, device=a.device, dtype=torch.int8)
-    ka = torch.cat([ks, ks, ks - 1])          # X: (k, k), Y: (k, k-1),
-    kb = torch.cat([ks, ks - 1, ks])          # Z: (k-1, k)
-    A = (a[None] <= ka[:, None, None]).to(torch.float32)
-    B = (b[None] <= kb[:, None, None]).to(torch.float32).transpose(1, 2)
+    ka = torch.cat([ks, ks, ks - 1]) if joint else ks
+    kb = torch.cat([ks, ks - 1, ks]) if joint else ks
+    return a[None] <= ka[:, None, None], b[None] <= kb[:, None, None]
+
+
+def _indicator_bmm(a, b, kmin: int, kmax: int, joint: bool):
+    """The library yardstick for K4: every product as ONE batched float32
+    matmul (TF32 off) of the stacked indicators; the port never calls
+    it."""
+    import torch
+    ia, ib = _indicators(a, b, kmin, kmax, joint)
+    A = ia.to(torch.float32)
+    B = ib.to(torch.float32).transpose(1, 2)
     return lambda: torch.bmm(A, B)
+
+
+def _indicator_int_mm(a, b, kmin: int, kmax: int, joint: bool):
+    """The int8 yardstick: torch._int_mm (int8 in, int32 out, the JAX
+    package's `_dot`) once per product; rows padded with zeros to a
+    multiple of 8 and past 16, as its shape rules require.  The port
+    never calls it."""
+    import torch
+    ia, ib = _indicators(a, b, kmin, kmax, joint)
+    na, nb = a.shape[0], b.shape[0]
+    pa, pb = max(17, -(-na // 8) * 8), -(-nb // 8) * 8
+    A = torch.zeros((ia.shape[0], pa, a.shape[1]), dtype=torch.int8,
+                    device=a.device)
+    B = torch.zeros((ib.shape[0], pb, b.shape[1]), dtype=torch.int8,
+                    device=a.device)
+    A[:, :na] = ia
+    B[:, :nb] = ib
+    del ia, ib
+
+    def run():
+        for t in range(A.shape[0]):
+            torch._int_mm(A[t], B[t].T)
+    return run
+
+
+def _yardsticks(a, b, kmin, kmax, joint):
+    """(fp32 bmm ms, int8 _int_mm ms) for the same products."""
+    import torch
+    times = []
+    for make in (_indicator_bmm, _indicator_int_mm):
+        fn = make(a, b, kmin, kmax, joint)
+        times.append(cuda_ms(fn, 2))
+        del fn
+        torch.cuda.empty_cache()
+    return times
 
 
 def check_k4(a, b, kmin, kmax, same, what, records, reps=5):
@@ -479,23 +587,73 @@ def check_k4(a, b, kmin, kmax, same, what, records, reps=5):
     plain_ms = cuda_ms(lambda: js.joint_pair_stats_plain(
         a, b, kmin=kmin, kmax=kmax, same=same), 2)
     del want
-    bmm = _indicator_bmm(a, b, kmin, kmax)
-    lib_ms = cuda_ms(bmm, 2)
-    del bmm
-    torch.cuda.empty_cache()
+    lib_ms, int_ms = _yardsticks(a, b, kmin, kmax, True)
     npairs = na * nb
+    nbytes, macs = _k4_work(na, nb, m, K, same, joint=True)
     log(f"[K4] {what}: {na}x{nb} pairs, m={m}, kmin={kmin} K={K}: bitwise "
         f"equal; kernel {ms:.4f} ms ({npairs / ms / 1e3:.1f} M pairs/s), "
         f"plain {plain_ms:.4f} ms, one fp32 bmm of the indicators "
-        f"{lib_ms:.4f} ms")
-    # bytes: registers in, four (K, na, nb) float32 out; operations: three
-    # binary MACs (2 ops each) per pair, level and register, at the int8
-    # tensor-core rate
+        f"{lib_ms:.4f} ms, torch._int_mm per product {int_ms:.4f} ms; "
+        f"{_k4_bounds(nbytes, macs)}")
     record(records, f"joint_pair_stats {what} ({na}x{nb} m={m} K={K})",
            K4_SRC, K4_REPLACES, "joint_pair_stats", 0.0, ms, plain_ms,
-           (na + nb) * m + 16 * K * npairs, 2 * 3 * K * npairs * m,
-           INT8_TC_OPS, lib_ms)
+           nbytes, macs, B1_MACS["rate"], lib_ms)
     return got
+
+
+def _k4_work(na, nb, m, K, same, joint):
+    """(bytes, one-bit multiply-adds) that a K4 call needs.  Bytes: the
+    registers in (one bank read once when `same`), the float32 outputs
+    out (four (K, na, nb) stacks joint, one X-only).  Multiply-adds per
+    level and register: X over every pair, and joint also Y and Z; for
+    one bank X is symmetric (n (n + 1) / 2 pairs determine it) and Z is
+    Y^T, so it needs X over the unordered pairs and Y over all pairs."""
+    pairs = na * nb
+    x_pairs = na * (na + 1) // 2 if same else pairs
+    nbytes = (na if same else na + nb) * m + (16 if joint else 4) * K * pairs
+    if not joint:
+        return nbytes, K * x_pairs * m
+    return nbytes, K * (x_pairs + (1 if same else 2) * pairs) * m
+
+
+def _k4_bounds(nbytes, macs):
+    """The log's bound terms: bytes over HBM, the multiply-adds at the
+    binary MMAs' measured rate, and (for comparison) at the int8 tensor
+    cores' rate."""
+    return (f"bound terms: bytes {nbytes / HBM_BPS * 1e3:.4f} ms, one-bit "
+            f"MACs {macs / B1_MACS['rate'] * 1e3:.4f} ms (at the int8 rate "
+            f"{2 * macs / INT8_TC_OPS * 1e3:.4f} ms)")
+
+
+def check_cum_union(a, b, kmin, kmax, same, what, records, reps=5):
+    """K4's X-only form vs its plain version, bitwise, then kernel, plain
+    and library times.  `same`: a and b are one bank (for the bound)."""
+    import torch
+    from dashing_tpu_torch.ops import joint_stats as js
+    (na, m), nb = a.shape, b.shape[0]
+    K = kmax - kmin + 1
+    got = js.cum_union_counts(a, b, kmin=kmin, kmax=kmax)
+    want = js.cum_union_counts_plain(a, b, kmin=kmin, kmax=kmax)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"K4 X-only {what}: {int((got != want).sum())} counts differ "
+             "from the plain version")
+    del got, want
+    ms = cuda_ms(lambda: js.cum_union_counts(a, b, kmin=kmin, kmax=kmax),
+                 reps)
+    plain_ms = cuda_ms(lambda: js.cum_union_counts_plain(
+        a, b, kmin=kmin, kmax=kmax), 2)
+    lib_ms, int_ms = _yardsticks(a, b, kmin, kmax, False)
+    npairs = na * nb
+    nbytes, macs = _k4_work(na, nb, m, K, same, joint=False)
+    log(f"[K4 X-only] {what}: {na}x{nb} pairs, m={m}, kmin={kmin} K={K}: "
+        f"bitwise equal; kernel {ms:.4f} ms ({npairs / ms / 1e3:.1f} M "
+        f"pairs/s), plain {plain_ms:.4f} ms, one fp32 bmm of the indicators "
+        f"{lib_ms:.4f} ms, torch._int_mm per level {int_ms:.4f} ms; "
+        f"{_k4_bounds(nbytes, macs)}")
+    record(records, f"cum_union_counts {what} ({na}x{nb} m={m} K={K})",
+           K4_SRC, K4_REPLACES, "cum_union_counts", 0.0, ms, plain_ms,
+           nbytes, macs, B1_MACS["rate"], lib_ms)
 
 
 def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
@@ -740,6 +898,7 @@ def phase_e2e(dev, bank, counts, records):
         eh.launches = 0
         um.launches = 0
         um.estimate_launches = 0
+        js.cum_union_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if main(["dist", "-k", "31", "-S", "16", "-M", "-b", "-O", out_b,
@@ -751,8 +910,10 @@ def phase_e2e(dev, bank, counts, records):
         counts["encode_hash"] = eh.launches
         counts["union_triples"] = um.launches
         counts["estimate_rows"] = um.estimate_launches
-        log(f"[e2e b] launches: K1 {eh.launches}, K3 {um.launches}, "
-            f"row estimates {um.estimate_launches}")
+        counts["cum_union_counts"] = js.cum_union_launches
+        log(f"[e2e b] launches: K1 {eh.launches}, K4 X-only "
+            f"{js.cum_union_launches}, K3 {um.launches}, row estimates "
+            f"{um.estimate_launches}")
         if min(counts.values()) == 0:
             fail(f"a kernel of the main path was not launched: {counts}")
         _check_planted(out_b, genomes, "(b)", wall, total_bases)
@@ -760,7 +921,7 @@ def phase_e2e(dev, bank, counts, records):
         # (c) config 2 with the joint MLE: K1, the row estimates, K4, K5
         out_c = os.path.join(tmp, "c.bin")
         eh.launches = um.launches = um.estimate_launches = 0
-        js.launches = jm.launches = 0
+        js.launches = js.cum_union_launches = jm.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if main(["dist", "-k", "31", "-S", "16", "-J", "-M", "-b", "-O",
@@ -774,7 +935,7 @@ def phase_e2e(dev, bank, counts, records):
                  "joint_triples": jm.launches}
         log(f"[e2e c] launches: K1 {eh.launches}, row estimates "
             f"{um.estimate_launches}, K4 {js.launches}, K5 {jm.launches}, "
-            f"K3 {um.launches}")
+            f"K3 {um.launches}, K4 X-only {js.cum_union_launches}")
         if min(joint.values()) == 0:
             fail(f"a kernel of the -J path was not launched: {joint}")
         counts["joint_pair_stats"] = js.launches
@@ -926,6 +1087,7 @@ def _e2e_joint_bank(bank, tmp):
     -J-less run for the largest Jaccard difference between the two."""
     import torch
     from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import joint_stats as js
     from dashing_tpu_torch.sketch import estimators as est
     from dashing_tpu_torch.sketch.hll import HLL
     regs = bank.cpu().numpy().astype(np.uint8)
@@ -939,6 +1101,7 @@ def _e2e_joint_bank(bank, tmp):
     out = {}
     for tag, extra in (("J", ["-J"]), ("m", [])):
         path = os.path.join(tmp, f"d_{tag}.bin")
+        js.launches = js.cum_union_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if main(["dist", "-k", "31", "-H", "-M", "-b", "-O", path, "-o",
@@ -952,9 +1115,15 @@ def _e2e_joint_bank(bank, tmp):
         if not np.isfinite(cond).all():
             fail(f"e2e (d) -{tag}: non-finite distances")
         out[tag] = cond
+        form = js.launches if extra else js.cum_union_launches
+        if form == 0:
+            fail(f"e2e (d) -{tag}: K4's {'joint' if extra else 'X-only'} "
+                 "form was not launched")
         log(f"[e2e d] dist -H {' '.join(extra + ['-M', '-b'])} over {n} p={p}"
             f" sketches: {cond.size} finite distances, wall {wall:.3f}s "
-            f"({cond.size / wall:.0f} pairs/s, sketch load and -o included)")
+            f"({cond.size / wall:.0f} pairs/s, sketch load and -o included);"
+            f" K4 joint launches {js.launches}, X-only "
+            f"{js.cum_union_launches}")
     # Mash d = -ln(2J / (1 + J)) / k  =>  J = r / (2 - r), r = exp(-k d)
     ji = {t: (lambda r: r / (2.0 - r))(np.exp(-31.0 * c.astype(np.float64)))
           for t, c in out.items()}
@@ -989,8 +1158,8 @@ def _phase_times(dev, paths, total_bases):
 
 
 def _config2_kernels(dev, sketches, records):
-    """K3, the row-estimate kernel, K4 and K5 against their plain versions
-    on the inputs config 2's `dist` gives them: the one 100 x 100 tile,
+    """K3, the row-estimate kernel, both forms of K4 and K5 against their
+    plain versions on the inputs config 2's `dist` gives them: the one 100 x 100 tile,
     built the way all_pairs_condensed builds it, and the -o full
     histograms."""
     import torch
@@ -1013,6 +1182,7 @@ def _config2_kernels(dev, sketches, records):
     _check_estimates(hists.to(dev), p, 0, est.ERTL_MLE, est.FULL_MLE_ITERS,
                      "-o sizes MLE config 2", f"{n} rows p={p} K={64 - p + 2}",
                      records)
+    check_cum_union(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     st = check_k4(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     ha = stats["hist_a"].T
     check_k5(st, slice(None), ha, ha.contiguous(), c_a, c_a, p, kmin,
@@ -1036,6 +1206,7 @@ def main() -> int:
     dev = devmod.from_env()          # the CLI's device and matmul policy
     phase_device()
     phase_build()
+    phase_b1_peak(dev)
     records: list = []
     counts: dict = {}
     phase_k1(dev, records)

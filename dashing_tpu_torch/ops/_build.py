@@ -54,17 +54,18 @@ def nvcc() -> str:
 
 
 def load(name: str, signatures: Dict[str, tuple],
-         flags: Sequence[str] = ()) -> ctypes.CDLL:
-    """Compile csrc/<name>.cu (with extra nvcc `flags`) if needed and return
-    the loaded library, with `signatures` ({function: (argtypes, restype)})
-    declared.  Different kernels may build at once from several threads."""
+         flags: Sequence[str] = (), src: str | None = None) -> ctypes.CDLL:
+    """Compile csrc/<name>.cu, or the source at path `src`, (with extra
+    nvcc `flags`) if needed and return the loaded library, with
+    `signatures` ({function: (argtypes, restype)}) declared.  Different
+    kernels may build at once from several threads."""
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, f"{name}.cu")
+        src = src or os.path.join(CSRC, f"{name}.cu")
         opts = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", *flags,
                 "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
         key = hashlib.sha256()

@@ -5,15 +5,18 @@ axis:
 
     cum_union[i, j, l] = #(max(a_i, b_j) <= kmin + l) = [a_i <= k] . [b_j <= k]
 
-so a tile of pairs on the main path is K indicator matmuls (left to
-torch.matmul, as the JAX package left it to XLA), then kernel K3
-(ops/union_mle.py) turns the cumulative counts into set triples, and
-`measure_from_triples` into the requested measure.
+so a tile of pairs on the main path is K indicator products, counted by
+the X-only form of kernel K4 (ops/joint_stats.cum_union_counts: binary
+MMAs of the indicators' bit planes on the tensor cores, exact int32
+counts, where the JAX package's `_dot` counts int8 indicators), then
+kernel K3 (ops/union_mle.py) turns the cumulative counts into set
+triples, and `measure_from_triples` into the requested measure.
 
-The matmuls run in float32 on 0/1 indicators with TF32 off: every count is
-an integer below 2^24, so the result is exact.  The CLI turns TF32 off
-where it resolves the device (device.from_env); a caller that turned it on
-gets an error here rather than rounded counts.
+On the CPU the counts are K4's plain version: float32 matmuls of the 0/1
+indicators with TF32 off; every count is an integer below 2^24, so the
+result is exact.  The CLI turns TF32 off where it resolves the device
+(device.from_env); a caller that turned it on gets an error from the plain
+version rather than rounded counts.
 
 The joint MLE (-J, jestim = ERTL_JOINT_MLE) takes the other route: kernel
 K4 (ops/joint_stats.py) counts the joint statistics eq, gt_a, gt_b (and
@@ -33,7 +36,7 @@ import torch
 
 from ..sketch import estimators as est
 from .joint_mle import joint_triples
-from .joint_stats import indicator_dot, joint_pair_stats
+from .joint_stats import cum_union_counts, joint_pair_stats
 from .union_mle import estimate_rows, union_triples
 
 MASH_DIST = 0
@@ -63,18 +66,18 @@ def pair_stats(a: torch.Tensor, b: torch.Tensor, kmax: int, kmin: int = 0,
                ) -> Dict[str, torch.Tensor]:
     """Pairwise statistics over levels kmin..kmax: cum_union (na, nb, K)
     float32 plus the marginal histograms hist_a (na, K), hist_b (nb, K);
-    with `joint`, also eq, gt_a, gt_b (na, nb, K) from kernel K4 (views of
-    its K-first output).  same=True asserts a and b are the same bank
-    (diagonal tiles): the diagonal of cum_union is then each row's
-    cumulative histogram, and differencing it gives the marginals exactly."""
+    with `joint`, also eq, gt_a, gt_b (na, nb, K).  All from kernel K4
+    (its X-only form without `joint`), as views of its K-first output.
+    same=True asserts a and b are the same bank (diagonal tiles): the
+    diagonal of cum_union is then each row's cumulative histogram, and
+    differencing it gives the marginals exactly."""
     K = kmax - kmin + 1
     if joint:
         st = joint_pair_stats(a, b, kmin=kmin, kmax=kmax, same=same)
         out = {key: t.permute(1, 2, 0) for key, t in st.items()}
     else:
-        out = {"cum_union": torch.stack([indicator_dot(a <= k, b <= k)
-                                         for k in range(kmin, kmax + 1)],
-                                        dim=-1)}
+        out = {"cum_union": cum_union_counts(a, b, kmin=kmin,
+                                             kmax=kmax).permute(1, 2, 0)}
     if same:
         d = torch.diagonal(out["cum_union"], dim1=0, dim2=1).T   # (na, K)
         out["hist_a"] = torch.cat([d[:, :1], d[:, 1:] - d[:, :-1]], dim=-1)

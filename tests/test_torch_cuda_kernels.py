@@ -3,7 +3,9 @@ the card, at edge shapes the smoke run does not reach (k = 1 and 32,
 p = 2 to 25 for keys and 31 for registers, ragged rows, widths and pair
 blocks, more rows than one grid dimension holds, all-N rows and bytes
 >= 0x80 on the ASCII form, registers at 0 and at q+1, windows reaching
-q+1, empty histograms and sketches, the widest joint window).  Marked `cuda`: they skip without a card.  Run them on one:
+q+1, empty histograms and sketches, the widest joint window, both forms
+of K4 bitwise at p = 4 to 18 and 1 to 1000 rows).  Marked `cuda`: they
+skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -293,4 +295,73 @@ def test_joint_dist_through_the_kernels(cuda, rng):
                            est.ERTL_JOINT_MLE, 31, 0, same=True)
     torch.cuda.synchronize()
     assert (js.launches, jm.launches) == (b4 + 1, b5 + 1)
+    assert tile.shape == (70, 70) and torch.isfinite(tile).all()
+
+
+def _k4_bank(rng, n, p, kmin):
+    """kmin + Geometric(1/2) - 1 registers clipped to q+1, with registers
+    at 0 and at q+1 in the first and last rows."""
+    q = 64 - p
+    r = np.minimum(rng.geometric(0.5, size=(n, 1 << p)) - 1 + kmin, q + 1)
+    r[0, :3] = 0
+    r[-1, -5:] = q + 1
+    return r
+
+
+@pytest.mark.parametrize("p,na,nb,kmin,K", [
+    (4, 63, 65, 0, 62),      # m = 16: one word in a 4-word stage
+    (10, 129, 1, 0, 16),     # one row of b
+    (14, 1000, 1000, 2, 32), # j1000's and n1024's widths
+    (16, 65, 129, 8, 24),    # config 2's p, a window above 0
+    (18, 1, 63, 0, 48),      # 2^18 registers, one row of a
+    (14, 5, 7, 0, 65),       # the widest window the kernel takes
+    (16, 3, 2, 3, 32),       # a tiny tile: split along the register axis
+])
+def test_k4_forms_match_plain_bitwise(rng, cuda, p, na, nb, kmin, K):
+    """Both forms of K4 (joint statistics, X-only cum_union) equal to
+    their plain versions bit for bit, on distinct banks and on one bank.
+    (kmin + K - 1 <= 64 bounds a window, so 66 levels need kmin < 0: the
+    widest the kernel takes is 65 levels at kmin = 0.)"""
+    kmax = kmin + K - 1
+    ta = torch.from_numpy(_k4_bank(rng, na, p, kmin)).to(cuda, torch.int8)
+    tb = torch.from_numpy(_k4_bank(rng, nb, p, kmin)).to(cuda, torch.int8)
+    for a, b, same in ((ta, tb, False), (ta, ta, True)):
+        before = (js.launches, js.cum_union_launches)
+        got = js.cum_union_counts(a, b, kmin=kmin, kmax=kmax)
+        st = js.joint_pair_stats(a, b, kmin=kmin, kmax=kmax, same=same)
+        assert (js.launches, js.cum_union_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        want = js.cum_union_counts_plain(a, b, kmin=kmin, kmax=kmax)
+        want_st = js.joint_pair_stats_plain(a, b, kmin=kmin, kmax=kmax,
+                                            same=same)
+        torch.cuda.synchronize()
+        assert got.shape == (K, a.shape[0], b.shape[0])
+        assert torch.equal(got, want), int((got != want).sum())
+        for key in want_st:
+            assert torch.equal(st[key], want_st[key]), key
+        del got, st, want, want_st
+    torch.cuda.empty_cache()
+
+
+def test_pair_stats_on_the_card_calls_no_matmul(rng, cuda, monkeypatch):
+    """The main path's cum_union on the card is K4's X-only form: no
+    torch.matmul (the plain version's), one launch, the marginals from its
+    diagonal equal to the bincount ones."""
+    a = torch.from_numpy(_k4_bank(rng, 70, 12, 2)).to(cuda, torch.int8)
+    want = js.cum_union_counts_plain(a, a, kmin=0, kmax=31)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.matmul on the card's main path")
+
+    monkeypatch.setattr(torch, "matmul", refuse)
+    before = js.cum_union_launches
+    st = pw.pair_stats(a, a, 31, 0, same=True)
+    assert js.cum_union_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(st["cum_union"].permute(2, 0, 1), want)
+    assert torch.equal(st["hist_a"], pw.marginal_histograms(a, 0, 32))
+    tile = pw.compare_tile(a, a, 12, pw.MASH_DIST, 1 / 21, est.ERTL_MLE,
+                           est.ERTL_MLE, 31, 0, same=True)
+    torch.cuda.synchronize()
+    assert js.cum_union_launches == before + 2
     assert tile.shape == (70, 70) and torch.isfinite(tile).all()
