@@ -13,14 +13,17 @@ Phases, each printing its own lines with seconds:
               script (the data sheet gives none); K4's bounds are reckoned
               against the faster
   3. K1       fused encode/hash/register-max kernel vs its plain PyTorch
-              version on the card, one 256-row chunk, k=31 p=14 and k=21
-              p=16: registers must be bitwise equal
-     K2       the same tail on raw ASCII: one 256 x 8222 chunk at k=31 p=14
-              and one 256 x 8212 chunk at k=21 p=16 (N runs, lowercase,
-              IUPAC, 0x00 and bytes >= 0x80): fused registers and keys
-              bitwise equal to the plain versions; beside it K1 on the
-              packed form of the same chunk, with the host 2-bit pack and
-              the upload of each form timed
+              version on the card, one 256-row chunk at k=31 p=14, k=21
+              p=16 and k=31 p=16: registers must be bitwise equal; the
+              launch grid, and SASS instruction counts (cuobjdump)
+     K2       the same tail on raw ASCII: 256 x 8222 chunks at k=31 and
+              256 x 8212 at k=21, same p (N runs, lowercase, IUPAC, 0x00
+              and bytes >= 0x80): fused registers and keys bitwise equal
+              to the plain versions; beside it K1 on the packed form of the
+              same chunk, with the host 2-bit pack and the upload of each
+              form timed.  K1 and K2 are timed alone (launches queued
+              behind a spin kernel, each into fresh registers) and as
+              launched (the host's dispatch pace)
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE, rtol=2e-4 atol=5e-2
               on triples; the row-estimate kernel (marginals) at rtol=1e-5;
@@ -61,7 +64,8 @@ Phases, each printing its own lines with seconds:
                   0.25 d + 0.001, and two genomes' registers on the card
                   bitwise equal to a CPU run of the same port code
 The line before the last is the per-kernel JSON record (launches from the
-run of the kernel's path, times as CUDA-event means, each kernel's bound
+run of the kernel's path, times as CUDA-event means (K1 and K2 alone,
+with no host dispatch between launches), each kernel's bound
 and, where one PyTorch call computes the same function, that call's time:
 for K4 one float32 bmm of the stacked indicators; the log line beside it
 also times torch._int_mm per level product, int8 in, int32 out);
@@ -210,6 +214,55 @@ def phase_build():
             if "Compiling entry" in line or "registers" in line \
                     or "stack frame" in line or "Potential" in line:
                 log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
+    _sass_report(encode_hash._lib()._name, _build.nvcc())
+
+
+def _sass_report(so: str, nvcc: str) -> None:
+    """SASS instructions of each encode/hash kernel (cuobjdump -sass):
+    the whole kernel, and its window loop per window (the smallest
+    backward branch span that holds a BREV, over its BREVs / 2: one
+    __brevll is two)."""
+    import re
+    exe = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    res = subprocess.run([exe, "-sass", so], capture_output=True, text=True,
+                         timeout=120)
+    if res.returncode != 0:
+        log(f"[sass] cuobjdump failed: {res.stderr.strip()[:200]}")
+        return
+    forms = {("0", "0"): "K1 packed->regs", ("1", "0"): "K2 ascii->regs",
+             ("1", "1"): "K2 ascii->keys"}
+    for body in res.stdout.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        if "encode_hash_kernel" not in name:
+            continue
+        m = re.search(r"InE(\d)ELNS_3OutE(\d)E", name)
+        form = forms.get(m.groups() if m else None, name)
+        ins, labels = [], {}
+        for line in body.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(ins)
+            op = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if op:
+                ins.append((int(op.group(1), 16), op.group(2).strip()))
+        index = {addr: i for i, (addr, _) in enumerate(ins)}
+        best = None
+        for i, (_, text) in enumerate(ins):
+            if "BRA" not in text:
+                continue
+            t = re.search(r"BRA\s+(?:\S+\s+)?(0x[0-9a-f]+)", text)
+            tl = re.search(r"\((\.L_x_\d+)\)", text)
+            j = (index.get(int(t.group(1), 16)) if t
+                 else labels.get(tl.group(1)) if tl else None)
+            if j is None or j > i:
+                continue
+            brevs = sum("BREV" in x for _, x in ins[j:i + 1])
+            if brevs and (best is None or i - j < best[0]):
+                best = (i - j + 1, brevs // 2)
+        per = (f"window loop {best[0]} instructions for {best[1]} window(s)"
+               f" = {best[0] / max(best[1], 1):.1f} a window"
+               if best else "window loop not found")
+        log(f"[sass] {form}: {len(ins)} instructions; {per}")
 
 
 def _b1_lib():
@@ -272,12 +325,122 @@ def _random_chunk(rng, rows: int, C: int) -> np.ndarray:
     return tile
 
 
+# Encode/hash chunk shapes (k, p): the benchmark's k31 p14, and config 2's
+# p = 16 at k21 and k31
+ENC_SHAPES = ((31, 14), (21, 16), (31, 16))
+# 32-bit integer instructions the encode/hash function needs, counted from
+# its own arithmetic (csrc/encode_hash.cu; loads and stores not counted).
+# Every window: its staged positions and word indices 5, three funnel
+# shifts, the validity test 2, the loop 2:
+ENC_WINDOW_OPS = 12
+# every hashed window (the valid ones into registers, all of them into
+# keys): the forward k-mer's pair reversal (two BREV, the pair swap 6, the
+# shift by 64 - 2k 3) 11, rc 2, canonical min 5, WangHash in 32-bit halves
+# 38 (its seven steps 6 + 4 + 8 + 4 + 8 + 4 + 4), bucket 1, rank (64-bit
+# shift, or, two-word clz, + 1) 9, register compare or key 3:
+ENC_HASH_OPS = 69
+# every ASCII base: a quarter of classifying four bytes at once (the case
+# mask 1, four byte compares 12, codes 8, validity bits 5, packing 6):
+ENC_ASCII_OPS = 8
+RING = 50                  # launches timed, each into fresh registers
+SPIN_CYCLES = 50_000_000   # the torch.cuda._sleep ahead of them, ~25 ms
+
+
+def _valid_windows(tile: np.ndarray, k: int) -> int:
+    """Windows of an ASCII tile whose k bases are all valid."""
+    ok = np.isin(tile & 0xDF, np.frombuffer(b"ACGT", np.uint8))
+    bad = np.pad(np.cumsum(~ok, axis=1), ((0, 0), (1, 0)))
+    return int(((bad[:, k:] - bad[:, :-k]) == 0).sum())
+
+
+def enc_ops(R: int, C: int, k: int, hashed: int, ascii_in: bool) -> int:
+    """Integer operations of one encode/hash call on an (R, C) chunk with
+    `hashed` windows hashed."""
+    return (ENC_WINDOW_OPS * R * (C - k + 1) + ENC_HASH_OPS * hashed
+            + (ENC_ASCII_OPS * R * C if ascii_in else 0))
+
+
+def kernel_alone_ms(launch, reset, what: str, n: int = RING):
+    """(kernel-alone ms, as-launched ms) a launch of launch(i), i < n.
+    Kernel alone: reset() (re-zeroing the register ring, outside the
+    timing), then the n launches queued behind a torch.cuda._sleep spin so
+    that the card runs them back to back; CUDA events from the spin's end
+    to the last launch's end.  Fails if the spin ends before the host has
+    queued them.  As launched: reset(), then events around the same n
+    launches as the host issues them (the dispatch pace when a launch is
+    shorter than its dispatch)."""
+    import torch
+    launch(0)                                  # warm-up
+    reset()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for i in range(n):
+        launch(i)
+    enqueue = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin = ev[0].elapsed_time(ev[1])
+    if enqueue >= spin:
+        fail(f"{what}: the spin ({spin:.3f} ms) ended before the {n} "
+             f"launches were queued ({enqueue:.3f} ms)")
+    alone = ev[1].elapsed_time(ev[2]) / n
+    reset()
+    torch.cuda.synchronize()
+    ev[3].record()
+    for i in range(n):
+        launch(i)
+    ev[4].record()
+    torch.cuda.synchronize()
+    return alone, ev[3].elapsed_time(ev[4]) / n
+
+
+def _filled_ms(launch, ring, rng, k, p, what):
+    """Kernel-alone ms into registers that already hold the fold of
+    another chunk of the same shape (the later chunks of a genome)."""
+    import torch
+    from dashing_tpu_torch.ops import encode_hash as eh
+    other = torch.from_numpy(_random_chunk(rng, 256, 8192 + k - 1)).to(
+        ring.device)
+    filled = torch.zeros(1 << p, dtype=torch.int32, device=ring.device)
+    eh.ascii_to_registers_plain(other, filled, k=k, p=p, canon=True)
+    ms, _ = kernel_alone_ms(launch, lambda: ring.copy_(filled.expand_as(ring)),
+                            what)
+    return ms
+
+
+def _enc_log(tag, k, p, R, C, nbytes, ops, ms, paced, plain_ms, eh,
+             filled_ms=None):
+    """One log line for an encode/hash chunk: grid, times, bound terms."""
+    g = eh.launch_geometry(R, C, k)
+    W = R * (C - k + 1)
+    filled = ("" if filled_ms is None else
+              f", into filled registers {filled_ms:.4f} ms")
+    log(f"[{tag}] k={k} p={p} chunk ({R}, {C}): grid {g['grid'][0]} x "
+        f"{g['grid'][1]} = {g['grid'][0] * g['grid'][1]} blocks of "
+        f"{g['threads']} threads, {g['segment']} windows a block; kernel "
+        f"alone {ms:.4f} ms ({W / ms / 1e6:.2f} G windows/s){filled}, as "
+        f"launched {paced:.4f} ms a launch, plain {plain_ms:.4f} ms; bound "
+        f"terms: bytes {nbytes / HBM_BPS * 1e3:.4f} ms, {ops / W:.1f} int32 "
+        f"ops a window {ops / INT32_OPS * 1e3:.4f} ms")
+
+
 def phase_k1(dev, records):
+    """K1 (packed -> registers) vs its plain version at ENC_SHAPES, one
+    256-row chunk each: registers bitwise equal, then kernel-alone and
+    as-launched times into a ring of fresh registers."""
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.ops import encode_hash as eh
     rng = np.random.default_rng(SEED)
-    for k, p in ((31, 14), (21, 16)):
+    R, C = pipeline.MAX_ROWS, pipeline.CONTENT + 30
+    log(f"[K1] bounds count operations a window (ENC_*_OPS); the count "
+        f"before, ~100 int32 operations a base with the halo, gave "
+        f"{100 * R * C / INT32_OPS * 1e3:.4f} ms for a {R} x {C} chunk")
+    for k, p in ENC_SHAPES:
         C = pipeline.CONTENT + k - 1
         C += (-C) % 8
         tile = _random_chunk(rng, pipeline.MAX_ROWS, C)
@@ -294,22 +457,24 @@ def phase_k1(dev, records):
             diff = int((regs_k != regs_p).sum())
             fail(f"K1 k={k} p={p}: {diff} registers differ from the plain "
                  f"version ({nz} nonzero)")
-        ms = cuda_ms(lambda: eh.packed_to_registers(pk, vb, regs_k.zero_(),
-                                                    k=k, p=p), 50)
+        ring = torch.zeros((RING, 1 << p), dtype=torch.int32, device=dev)
+        k1 = lambda i: eh.packed_to_registers(pk, vb, ring[i], k=k, p=p)
+        ms, paced = kernel_alone_ms(k1, ring.zero_, f"K1 k={k} p={p}")
+        filled_ms = _filled_ms(k1, ring, rng, k, p, f"K1 k={k} p={p}")
+        del ring
         plain_ms = cuda_ms(lambda: eh.packed_to_registers_plain(
             pk, vb, regs_p.zero_(), k=k, p=p, canon=True), 10)
-        bases = tile.size
-        log(f"[K1] k={k} p={p} chunk {tile.shape}: registers bitwise equal "
-            f"({nz} nonzero); kernel {ms:.4f} ms ({bases / ms / 1e6:.2f} "
-            f"Gbase/s), plain {plain_ms:.4f} ms")
-        # bytes: codes and validity bits in, registers read and written;
-        # ops: ~100 int32 operations per base (rolling k-mer pair, WangHash
-        # on 64 bits, bucket, rank, register compare), counted from the
-        # source, over the int32 rate
+        R = tile.shape[0]
+        # bytes: codes and validity bits in, the registers read and
+        # written; operations: per window and per valid window (ENC_*)
+        nbytes = packed.nbytes + vbits.nbytes + 2 * 4 * (1 << p)
+        ops = enc_ops(R, C, k, _valid_windows(tile, k), False)
+        log(f"[K1] registers bitwise equal ({nz} nonzero)")
+        _enc_log("K1", k, p, R, C, nbytes, ops, ms, paced, plain_ms, eh,
+                 filled_ms)
         record(records, f"encode_hash_regs k={k} p={p}", K1_SRC,
                "dashing_tpu/ops/pallas_encode.py:99", "encode_hash", 0.0, ms,
-               plain_ms, packed.nbytes + vbits.nbytes + 2 * 4 * (1 << p),
-               100 * bases, INT32_OPS)
+               plain_ms, nbytes, ops, INT32_OPS)
 
 
 def _wall_ms(fn, reps: int) -> float:
@@ -326,14 +491,15 @@ def _wall_ms(fn, reps: int) -> float:
 
 def phase_k2(dev, records):
     """K2 (ASCII -> registers, ASCII -> keys) vs its plain versions,
-    bitwise, at the benchmark's chunk (k31 p14, 256 x 8222) and at k21 p16
-    (256 x 8212); then the packed route on the same chunk for comparison:
-    host pack, upload of each form, K1."""
+    bitwise, at ENC_SHAPES (256 x 8222 at k31, the benchmark's chunk;
+    256 x 8212 at k21); kernel-alone and as-launched times; then the packed
+    route on the same chunk for comparison: host pack, upload of each
+    form, K1."""
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.ops import encode_hash as eh
     rng = np.random.default_rng(SEED + 2)
-    for k, p in ((31, 14), (21, 16)):
+    for k, p in ENC_SHAPES:
         C = pipeline.CONTENT + k - 1
         tile = _random_chunk(rng, pipeline.MAX_ROWS, C)
         tile[rng.random(tile.shape) < 1e-4] = 0          # separators
@@ -354,24 +520,34 @@ def phase_k2(dev, records):
             fail(f"K2 keys k={k} p={p}: {int((keys_k != keys_p).sum())} of "
                  f"{keys_p.numel()} keys differ from the plain version")
         zero = int(((keys_p & 63) == 0).sum())
-        ms = cuda_ms(lambda: eh.ascii_to_registers(t, regs_k.zero_(), k=k,
-                                                   p=p), 50)
+        del keys_k, keys_p
+        ring = torch.zeros((RING, 1 << p), dtype=torch.int32, device=dev)
+        k2 = lambda i: eh.ascii_to_registers(t, ring[i], k=k, p=p)
+        ms, paced = kernel_alone_ms(k2, ring.zero_, f"K2 k={k} p={p}")
+        filled_ms = _filled_ms(k2, ring, rng, k, p, f"K2 k={k} p={p}")
         plain_ms = cuda_ms(lambda: eh.ascii_to_registers_plain(
             t, regs_p.zero_(), k=k, p=p, canon=True), 10)
-        keys_ms = cuda_ms(lambda: eh.encode_hash_keys(t, k=k, p=p), 50)
+        keys_ms, keys_paced = kernel_alone_ms(
+            lambda i: eh.encode_hash_keys(t, k=k, p=p), lambda: None,
+            f"K2 keys k={k} p={p}")
         keys_plain_ms = cuda_ms(lambda: eh.encode_hash_keys_plain(
             t, k=k, p=p), 10)
-        bases = tile.size
-        log(f"[K2] k={k} p={p} chunk {tile.shape}: registers and keys bitwise "
-            f"equal ({nz} nonzero registers, {zero} rank-0 keys); registers "
-            f"kernel {ms:.4f} ms ({bases / ms / 1e6:.2f} Gbase/s), plain "
-            f"{plain_ms:.4f} ms; keys kernel {keys_ms:.4f} ms, plain "
-            f"{keys_plain_ms:.4f} ms")
-        # bytes: the ASCII chunk in, the registers read and written; ops:
-        # ~100 int32 operations per base, as for K1
-        record(records, f"ascii_hash_regs k={k} p={p} ({tile.shape[0]}x{C})",
-               K1_SRC, K2_REPLACES, "ascii_hash_regs", 0.0, ms, plain_ms,
-               tile.nbytes + 2 * 4 * (1 << p), 100 * bases, INT32_OPS)
+        R = tile.shape[0]
+        W = R * (C - k + 1)
+        # bytes: the ASCII chunk in, the registers read and written;
+        # operations: per window, per valid window and per base (ENC_*)
+        nbytes = tile.nbytes + 2 * 4 * (1 << p)
+        ops = enc_ops(R, C, k, _valid_windows(tile, k), True)
+        keys_ops = enc_ops(R, C, k, W, True)
+        log(f"[K2] registers and keys bitwise equal ({nz} nonzero "
+            f"registers, {zero} rank-0 keys)")
+        _enc_log("K2", k, p, R, C, nbytes, ops, ms, paced, plain_ms, eh,
+                 filled_ms)
+        _enc_log("K2 keys", k, p, R, C, tile.nbytes + 4 * W, keys_ops,
+                 keys_ms, keys_paced, keys_plain_ms, eh)
+        record(records, f"ascii_hash_regs k={k} p={p} ({R}x{C})", K1_SRC,
+               K2_REPLACES, "ascii_hash_regs", 0.0, ms, plain_ms, nbytes, ops,
+               INT32_OPS)
         # the packed route on the same chunk: host pack, two uploads, K1
         # (the pack needs C % 8 == 0: pad with N, as the pipeline does)
         padded = pipeline._pad8(tile)
@@ -384,10 +560,12 @@ def phase_k2(dev, records):
                                       torch.from_numpy(vbits).to(dev)), 20)
         pk = torch.from_numpy(packed).to(dev)
         vb = torch.from_numpy(vbits).to(dev)
-        k1_ms = cuda_ms(lambda: eh.packed_to_registers(pk, vb, regs_k.zero_(),
-                                                       k=k, p=p), 50)
-        log(f"[K2 vs K1] k={k} p={p}, one chunk: ASCII route upload "
-            f"{up_ascii:.4f} ms ({tile.nbytes} B) + K2 {ms:.4f} ms = "
+        k1_ms, _ = kernel_alone_ms(
+            lambda i: eh.packed_to_registers(pk, vb, ring[i], k=k, p=p),
+            ring.zero_, f"K1 k={k} p={p} (K2's chunk)")
+        del ring
+        log(f"[K2 vs K1] k={k} p={p}, one chunk, kernels alone: ASCII route "
+            f"upload {up_ascii:.4f} ms ({tile.nbytes} B) + K2 {ms:.4f} ms = "
             f"{up_ascii + ms:.4f} ms; packed route host pack2bit "
             f"{pack_ms:.4f} ms + upload {up_packed:.4f} ms "
             f"({packed.nbytes + vbits.nbytes} B) + K1 {k1_ms:.4f} ms = "

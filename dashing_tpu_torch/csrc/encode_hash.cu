@@ -11,44 +11,79 @@
 //      kernel's own output, for holding the kernel bitwise) or REGS
 //      (`dtt_ascii_hash_regs`, the fused form the benchmark and the ASCII
 //      route use).
-// The rolling k-mer, WangHash, bucket and rank are written once
-// (`encode_hash_kernel`), as `_keys_from_code_valid` is in the JAX package.
 // The TPU kernels built k-mers by log-doubling over whole rows and wrote a
-// key per window to HBM; here each thread rolls its k-mer one base at a
-// time and, in the REGS form, folds the rank straight into the registers,
-// so no key reaches device memory.
+// key per window to HBM.  Here the REGS form folds each rank straight into
+// the registers, so no key reaches device memory.
 //
-// What bounds it on an H100: bytes in (0.375 B/base packed, 1 B/base
-// ASCII) and the register atomics.  Per window the arithmetic is a few
-// dozen 64-bit integer ops, far below the card's integer rate; ASCII adds
-// a byte classification per base.  Global atomics are the risk: every
-// window of a fresh sketch would hit one.  The simple design reads the
-// register first and issues atomicMax only when the rank is larger, so
-// once a sketch has filled (a few thousand windows per register at p=14)
-// almost no atomics remain.  Registers stay in global memory for every p:
-// a shared-memory bank for p <= 15 is later work.  The max is
-// order-independent, so the result is bitwise deterministic.
+// What bounds it on an H100: the integer issue rate, then the register
+// update.  The bytes are few (0.375 B a base packed, 1 B ASCII: 0.8 or 2.1
+// MB a 256-row chunk, well under a microsecond of HBM), while every window
+// costs about 80 32-bit integer instructions: extraction, the pair
+// reversal of the forward k-mer, the canonical min, a 64-bit WangHash done
+// in 32-bit halves, the bucket, the rank and the register compare
+// (chip_smoke.py counts them).  The KEYS form, which has the same
+// arithmetic and no register traffic, runs close to that bound.  The REGS
+// form adds a register read per window and the atomics: on a fresh sketch
+// (the first chunk of a genome) most reads find a register below the rank,
+// so atomics dominate; on a filled sketch few atomics remain, and at p = 16
+// the 256 KB of registers do not all stay in L1, so reads go to L2.
+//
+// The design spends its instructions on windows only:
+//   - A block stages one segment of one row, its windows plus the k-1
+//     bases of halo, into shared memory with aligned 16-byte loads: PACKED
+//     copies the code and validity bytes as they are; ASCII classifies
+//     each byte exactly as `base_codes` does ((b & 0xDF) in {A, C, G, T}
+//     -> 0..3, anything else, bytes >= 0x80 included, invalid with code 0),
+//     four bytes at a time, into the same two packed streams.  From there
+//     both input forms share one back half.
+//   - Each window is read whole, with no rolling: with base n at bits 2n
+//     of the staged stream, the window's 2k bits are one funnel shift of
+//     three 32-bit words x; rc = ~x & mask; fwd = pairrev64(x) >> (64 -
+//     2k), pairrev64 being __brevll and then a swap of the two bits of
+//     each pair; valid = the k validity bits at the same offset all set.
+//     Thread t takes windows t, t + 256, ... of the segment, so the KEYS
+//     form's stores are coalesced and no base is read twice by a thread.
+//   - Segments of at most SEG_MAX windows, of equal length within a row,
+//     give a 256-row chunk of ~8 K windows a row 4 blocks a row, 1,024 in
+//     all: one wave of 8 blocks on each of 132 SMs.  R beyond 65,535 loops
+//     over grid y.
+//   - The REGS form reads the register before an atomicMax and issues it
+//     only when the rank is larger (an unconditional atomicMax was slower
+//     still).  A thread hashes GROUP windows before it reads their
+//     registers, so that those reads are in flight together.  The max is
+//     order-independent, so the result is bitwise deterministic.
+//     Registers stay in global memory at every p: a block sees ~2,000
+//     windows, far fewer than the 2^14 or 2^16 registers a shared-memory
+//     bank would have to merge back.
+// CUDA C++ rather than Triton: funnel shifts, __brevll, bit-level
+// staging and the register atomics are native here and not Triton's.
 //
 // Layouts: PACKED is (R, C/4) uint8 codes, base j of a byte at bits 2j,
 // plus (R, C/8) uint8 validity, bit j of a byte = base j (little bit
 // order), as io/native.py `pack2bit` makes them (C % 8 == 0).  ASCII is
-// (R, C) uint8 for any R and C; a byte is a base exactly as `base_codes`
-// classifies it: (b & 0xDF) in {A, C, G, T} -> 0..3, anything else
-// (N, IUPAC, 0x00 separators, bytes >= 0x80, whose bit 7 survives the
-// mask) invalid with code 0.  KEYS is (R, C-k+1) int32 `bucket << 6 |
-// rank`, rank 0 on invalid windows (the bucket is still that of the hash
-// of the window's codes), p <= 25 so the key fits int32.  Each block
-// covers STRIP * blockDim.x consecutive windows of a row; each thread a
-// strip of STRIP windows, read from global memory (the (k-1)-base halo each
-// thread re-reads is served by L1).
+// (R, C) uint8 for any R and C.  Rows are contiguous, so base n of row r
+// is base r*C + n of one flat stream; any data pointer is taken (a
+// row-offset view included): the staged bytes start at the 16-byte
+// boundary at or below the segment's first byte, and the aligned loads
+// never leave the 16-byte blocks that hold the segment's bytes.  KEYS is
+// (R, C-k+1) int32 `bucket << 6 | rank`, rank 0 on invalid windows (the
+// bucket is still that of the hash of the window's codes), p <= 25 so the
+// key fits int32.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int STRIP = 32;
 constexpr int THREADS = 256;
+constexpr int GROUP = 2;                      // windows a thread at once
+// windows a block, at most: a pipeline row of 8,192 windows, plus the few
+// its packing pad adds, is 4 segments
+constexpr int SEG_MAX = 2048 + 64;
 constexpr int MAX_GRID_Y = 65535;
+// staged words: 2-bit codes 16 bases a word, validity 32 bases a word,
+// with room for the halo, the alignment lead and the funnel's next words
+constexpr int CODE_WORDS = SEG_MAX / 16 + 16;
+constexpr int VALID_WORDS = SEG_MAX / 32 + 16;
 
 enum class In { PACKED, ASCII };
 enum class Out { REGS, KEYS };
@@ -64,79 +99,180 @@ __device__ __forceinline__ uint64_t wang_hash(uint64_t x) {
     return x;
 }
 
-// base i of a row: its 2-bit code (0 when invalid) and whether it is valid
-template <In IN>
-__device__ __forceinline__ uint32_t load_base(const uint8_t* __restrict__ a,
-                                              const uint8_t* __restrict__ v,
-                                              int i, bool& ok) {
-    if constexpr (IN == In::PACKED) {
-        ok = (__ldg(v + (i >> 3)) >> (i & 7)) & 1u;
-        return (__ldg(a + (i >> 2)) >> (2 * (i & 3))) & 3u;
-    } else {
-        const uint32_t up = __ldg(a + i) & 0xDFu;
-        ok = up == 'A' || up == 'C' || up == 'G' || up == 'T';
-        return up == 'C' ? 1u : up == 'G' ? 2u : up == 'T' ? 3u : 0u;
+// Copy the bytes that hold flat bases [g0, g0 + nb) of a stream of
+// BITS-bit fields (little bit order) into shared memory with aligned
+// 16-byte loads.  Returns the position of base g0 in the staged stream.
+template <int BITS>
+__device__ __forceinline__ int stage_bits(const uint8_t* base, size_t g0,
+                                          int nb, uint32_t* dst) {
+    constexpr int PER_BYTE = 8 / BITS;
+    const uintptr_t first = (uintptr_t)(base + g0 / PER_BYTE);
+    const uintptr_t last = (uintptr_t)(base + (g0 + nb - 1) / PER_BYTE);
+    const uintptr_t a0 = first & ~(uintptr_t)15;
+    const int chunks = (int)((last - a0) >> 4) + 1;
+    const uint4* src = reinterpret_cast<const uint4*>(a0);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < chunks; i += THREADS) d[i] = __ldg(src + i);
+    return (int)((first - a0) * PER_BYTE + g0 % PER_BYTE);
+}
+
+// Four ASCII bytes -> their four 2-bit codes (byte j at bits 2j, 0 when
+// invalid) and, in `valid4`, their four validity bits, as `base_codes`
+// classifies them.
+__device__ __forceinline__ uint32_t classify4(uint32_t w, uint32_t& valid4) {
+    constexpr uint32_t ACGT[4] = {0x41414141u, 0x43434343u, 0x47474747u,
+                                  0x54545454u};
+    const uint32_t up = w & 0xDFDFDFDFu;
+    uint32_t any_zero = 0xFFFFFFFFu;     // bit 7 of a byte clears on a match
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const uint32_t y = up ^ ACGT[i];
+        any_zero &= ((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y;
     }
+    const uint32_t v = (~any_zero >> 7) & 0x01010101u;     // 1 a valid byte
+    uint32_t t = (up >> 1) & 0x03030303u;                  // A0 C1 G3 T2
+    t = (t ^ ((t >> 1) & 0x01010101u)) & (v * 3u);         // A0 C1 G2 T3
+    t = (t | (t >> 6)) & 0x000F000Fu;
+    uint32_t b = v | (v >> 7);
+    valid4 = (b | (b >> 14)) & 0xFu;
+    return (t | (t >> 12)) & 0xFFu;
+}
+
+// Classify the ASCII bytes of flat bases [g0, g0 + nb) into the staged
+// code and validity streams (16 bases per aligned 16-byte load).
+// Returns the position of base g0 in both.
+__device__ __forceinline__ int stage_ascii(const uint8_t* base, size_t g0,
+                                           int nb, uint32_t* codes,
+                                           uint32_t* valid) {
+    const uintptr_t first = (uintptr_t)(base + g0);
+    const uintptr_t a0 = first & ~(uintptr_t)15;
+    const int chunks = (int)((first + nb - 1 - a0) >> 4) + 1;
+    const uint4* src = reinterpret_cast<const uint4*>(a0);
+    uint16_t* v16 = reinterpret_cast<uint16_t*>(valid);
+    for (int i = threadIdx.x; i < chunks; i += THREADS) {
+        const uint4 q = __ldg(src + i);
+        uint32_t v0, v1, v2, v3;
+        const uint32_t c0 = classify4(q.x, v0), c1 = classify4(q.y, v1),
+                       c2 = classify4(q.z, v2), c3 = classify4(q.w, v3);
+        codes[i] = c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
+        v16[i] = (uint16_t)(v0 | (v1 << 4) | (v2 << 8) | (v3 << 12));
+    }
+    return (int)(first - a0);
+}
+
+// Whether the k bases of the window at position sv of the staged
+// validity bits are all valid.
+__device__ __forceinline__ bool window_valid(const uint32_t* svalid, int sv,
+                                             uint32_t kmask) {
+    const uint32_t w = __funnelshift_r(svalid[sv >> 5], svalid[(sv >> 5) + 1],
+                                       sv & 31);
+    return (w & kmask) == kmask;
+}
+
+// The WangHash of the canonical k-mer of the window at position sc of the
+// staged codes: x holds its base j at bits 2j, so rc = ~x & mask, and the
+// forward k-mer (first base on top) is x with its 2-bit fields reversed:
+// __brevll, a swap within each pair, a shift by 64 - 2k.
+__device__ __forceinline__ uint64_t window_hash(const uint32_t* scode, int sc,
+                                                uint64_t mask, int fshift,
+                                                int canon) {
+    const uint32_t* cw = scode + (sc >> 4);
+    const int sh = 2 * (sc & 15);
+    const uint64_t x = ((uint64_t)__funnelshift_r(cw[1], cw[2], sh) << 32)
+                       | __funnelshift_r(cw[0], cw[1], sh);
+    uint64_t y = __brevll(x);
+    y = ((y >> 1) & 0x5555555555555555ull)
+        | ((y & 0x5555555555555555ull) << 1);
+    const uint64_t fwd = y >> fshift;
+    const uint64_t rc = ~x & mask;
+    return wang_hash(canon && rc < fwd ? rc : fwd);
 }
 
 template <In IN, Out OUT>
-__global__ void encode_hash_kernel(const uint8_t* __restrict__ a,
-                                   const uint8_t* __restrict__ v,
-                                   int32_t* __restrict__ out, int R, int C,
-                                   int k, int p, int canon) {
+__global__ void __launch_bounds__(THREADS)
+encode_hash_kernel(const uint8_t* __restrict__ a,
+                   const uint8_t* __restrict__ v, int32_t* __restrict__ out,
+                   int R, int C, int k, int p, int canon, int seg) {
+    __shared__ __align__(16) uint32_t scode[CODE_WORDS];
+    __shared__ __align__(16) uint32_t svalid[VALID_WORDS];
     const int W = C - k + 1;
-    const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) * STRIP;
+    const int w0 = blockIdx.x * seg;             // the segment's first window
     if (w0 >= W) return;
-    const int w1 = min(w0 + STRIP, W);          // windows [w0, w1)
+    const int len = min(seg, W - w0);
+    const int nb = len + k - 1;                  // bases staged
     const uint64_t mask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
-    const int rshift = 2 * (k - 1);
+    const uint32_t kmask = k == 32 ? ~0u : ((1u << k) - 1);
+    const int fshift = 64 - 2 * k;
     for (int row = blockIdx.y; row < R; row += gridDim.y) {
-        const uint8_t* arow;
-        const uint8_t* vrow = nullptr;
+        const size_t g0 = (size_t)row * C + w0;
+        int s0c, s0v;
         if constexpr (IN == In::PACKED) {
-            arow = a + (size_t)row * (C >> 2);
-            vrow = v + (size_t)row * (C >> 3);
+            s0c = stage_bits<2>(a, g0, nb, scode);
+            s0v = stage_bits<1>(v, g0, nb, svalid);
         } else {
-            arow = a + (size_t)row * C;
+            s0c = s0v = stage_ascii(a, g0, nb, scode, svalid);
         }
-        int32_t* krow = OUT == Out::KEYS ? out + (size_t)row * W : nullptr;
-        uint64_t fwd = 0, rc = 0;
-        int run = 0;                             // consecutive valid bases
-        for (int i = w0; i < w1 + k - 1; ++i) {
-            bool ok;
-            const uint64_t c = load_base<IN>(arow, vrow, i, ok);
-            fwd = ((fwd << 2) | c) & mask;
-            rc = (rc >> 2) | ((3ull - c) << rshift);
-            run = ok ? run + 1 : 0;
-            if (i - w0 < k - 1) continue;        // window i-k+1 incomplete
-            const bool valid = run >= k;
-            if constexpr (OUT == Out::REGS) {
-                if (!valid) continue;
+        __syncthreads();
+        int32_t* krow =
+            OUT == Out::KEYS ? out + (size_t)row * W + w0 : nullptr;
+        // GROUP windows a thread at once, so that their register reads
+        // are in flight together
+        for (int o0 = threadIdx.x; o0 < len; o0 += GROUP * THREADS) {
+            uint32_t bucket[GROUP];
+            int rank[GROUP];                     // 0: no window to fold
+#pragma unroll
+            for (int g = 0; g < GROUP; ++g) {
+                const int o = o0 + g * THREADS;
+                bucket[g] = 0;
+                rank[g] = 0;
+                if (o >= len) continue;
+                const bool valid = window_valid(svalid, s0v + o, kmask);
+                if (OUT == Out::REGS && !valid) continue;
+                const uint64_t h = window_hash(scode, s0c + o, mask, fshift,
+                                               canon);
+                bucket[g] = (uint32_t)(h >> (64 - p));
+                rank[g] = __clzll((long long)((h << p) | (1ull << (p - 1))))
+                          + 1;
+                if constexpr (OUT == Out::KEYS) {
+                    krow[o] = (int32_t)((bucket[g] << 6)
+                                        | (valid ? rank[g] : 0));
+                }
             }
-            const uint64_t km = (canon && rc < fwd) ? rc : fwd;
-            const uint64_t h = wang_hash(km);
-            const uint32_t bucket = (uint32_t)(h >> (64 - p));
-            const int rank =
-                __clzll((long long)((h << p) | (1ull << (p - 1)))) + 1;
             if constexpr (OUT == Out::REGS) {
-                if (rank > out[bucket]) atomicMax(out + bucket, rank);
-            } else {
-                krow[i - k + 1] = (int32_t)((bucket << 6) | (valid ? rank : 0));
+                int cur[GROUP];
+#pragma unroll
+                for (int g = 0; g < GROUP; ++g)
+                    cur[g] = rank[g] ? out[bucket[g]] : 0;
+#pragma unroll
+                for (int g = 0; g < GROUP; ++g)
+                    if (rank[g] > cur[g]) atomicMax(out + bucket[g], rank[g]);
             }
         }
+        __syncthreads();                    // before the next row's staging
     }
+}
+
+struct Geometry {
+    int seg, grid_x, grid_y;
+};
+
+// segments of equal length (a multiple of 32, at most SEG_MAX) along a row
+Geometry geometry(int R, int C, int k) {
+    const int W = C - k + 1;
+    const int nseg = (W + SEG_MAX - 1) / SEG_MAX;
+    const int seg = ((W + nseg - 1) / nseg + 31) & ~31;
+    return {seg, (W + seg - 1) / seg, R < MAX_GRID_Y ? R : MAX_GRID_Y};
 }
 
 template <In IN, Out OUT>
 int launch(const void* a, const void* v, void* out, int R, int C, int k,
            int p, int canon, void* stream) {
-    const int W = C - k + 1;
-    if (R <= 0 || W <= 0) return (int)cudaGetLastError();
-    const int per_block = STRIP * THREADS;
-    dim3 grid((W + per_block - 1) / per_block, R < MAX_GRID_Y ? R : MAX_GRID_Y);
-    encode_hash_kernel<IN, OUT><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)a, (const uint8_t*)v, (int32_t*)out, R, C, k, p,
-        canon);
+    if (R <= 0 || C - k + 1 <= 0) return (int)cudaGetLastError();
+    const Geometry g = geometry(R, C, k);
+    encode_hash_kernel<IN, OUT>
+        <<<dim3(g.grid_x, g.grid_y), THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)a, (const uint8_t*)v, (int32_t*)out, R, C, k, p,
+            canon, g.seg);
     return (int)cudaGetLastError();
 }
 
@@ -164,6 +300,18 @@ extern "C" int dtt_ascii_hash_keys(const void* tile, void* keys, int R,
                                    void* stream) {
     return launch<In::ASCII, Out::KEYS>(tile, nullptr, keys, R, C, k, p,
                                         canon, stream);
+}
+
+// The launch geometry for (R, C, k): windows a block, grid x, grid y and
+// threads a block, into out[0..3].  Returns 0, or 1 when there is no window.
+extern "C" int dtt_encode_hash_geometry(int R, int C, int k, int* out) {
+    if (R <= 0 || C - k + 1 <= 0) return 1;
+    const Geometry g = geometry(R, C, k);
+    out[0] = g.seg;
+    out[1] = g.grid_x;
+    out[2] = g.grid_y;
+    out[3] = THREADS;
+    return 0;
 }
 
 extern "C" const char* dtt_error_string(int err) {

@@ -14,7 +14,9 @@ bitwise).
 
 For a CUDA tensor each entry launches the hand-written kernel and counts
 the launch; for a CPU tensor it runs its plain PyTorch version beside it.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  `launch_geometry` reports
+the kernel's grid for a chunk; `staged_ascii` and `window_fields` repeat
+its window arithmetic on the CPU for the tests.
 """
 from __future__ import annotations
 
@@ -206,9 +208,109 @@ def ascii_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, k: int,
     return regs
 
 
+def launch_geometry(R: int, C: int, k: int) -> dict:
+    """The kernel's launch for an (R, C) chunk at k, as the source computes
+    it: windows a block (`segment`), grid x (segments a row), grid y,
+    threads a block; builds the library."""
+    out = (ctypes.c_int * 4)()
+    if _lib().dtt_encode_hash_geometry(R, C, k, out):
+        raise ValueError(f"no window in a {R} x {C} chunk at k={k}")
+    return dict(segment=out[0], grid=(out[1], out[2]), threads=out[3])
+
+
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("encode_hash", {
         "dtt_encode_hash_regs": ([vp, vp, vp, ci, ci, ci, ci, ci, vp], ci),
         "dtt_ascii_hash_regs": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
-        "dtt_ascii_hash_keys": ([vp, vp, ci, ci, ci, ci, ci, vp], ci)})
+        "dtt_ascii_hash_keys": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
+        "dtt_encode_hash_geometry": ([ci, ci, ci, ctypes.POINTER(ci)], ci)})
+
+
+# ---------------------------------------------------------------------------
+# The kernel's window arithmetic on the CPU, for the tests only (no path
+# calls these): the staged streams and the per-window funnel, pair
+# reversal and validity window of csrc/encode_hash.cu, on int64 words.
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+
+
+def staged_ascii(tile: torch.Tensor):
+    """(R, C) uint8 ASCII -> the kernel's staged streams of the flat bases,
+    as flat uint8 bytes: 2-bit codes (4 bases a byte) and validity bits (8
+    a byte), from its four-bytes-at-a-time classification (`classify4`)."""
+    flat = tile.reshape(-1)
+    pad = (-flat.numel()) % 8
+    flat = torch.cat([flat, flat.new_zeros(pad)]).to(torch.int64)
+    w = flat.view(-1, 4)
+    w = w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16) | (w[:, 3] << 24)
+    up = w & 0xDFDFDFDF
+    any_zero = torch.full_like(up, _U32)
+    for c in (0x41, 0x43, 0x47, 0x54):
+        y = up ^ (c * 0x01010101)
+        any_zero &= (((y & 0x7F7F7F7F) + 0x7F7F7F7F) | y) & _U32
+    v = ((~any_zero & _U32) >> 7) & 0x01010101
+    t = (up >> 1) & 0x03030303
+    t = (t ^ ((t >> 1) & 0x01010101)) & (v * 3)
+    t = (t | (t >> 6)) & 0x000F000F
+    codes = (t | (t >> 12)) & 0xFF
+    b = v | (v >> 7)
+    nib = (b | (b >> 14)) & 0xF
+    valid = nib.view(-1, 2)
+    valid = valid[:, 0] | (valid[:, 1] << 4)
+    return codes.to(torch.uint8), valid.to(torch.uint8)
+
+
+def _shr(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns by 0 <= s < 64 (tensor)."""
+    keep = (torch.ones_like(x) << (64 - s).clamp(max=63)) - 1
+    return torch.where(s == 0, x, (x >> s) & keep)
+
+
+def _words(stream: torch.Tensor, bits: int, lead: int) -> torch.Tensor:
+    """Flat little-bit-order bytes of `bits`-bit fields -> int64 words,
+    preceded by `lead` zero fields and followed by two zero words."""
+    pad = (-stream.numel()) % 8 + 16
+    w = torch.cat([stream, stream.new_zeros(pad)]).view(torch.int64).clone()
+    s = lead * bits
+    if s:
+        prev = torch.cat([w.new_zeros(1), w[:-1]])
+        w = (w << s) | _shr(prev, torch.tensor(64 - s))
+    return w
+
+
+def _funnel(w: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
+    """The 64 bits of word stream `w` from bit position `bit` on."""
+    j, s = bit >> 6, bit & 63
+    hi = torch.where(s == 0, 0, w[j + 1] << (64 - s))
+    return _shr(w[j], s) | hi
+
+
+def _bit_swap(x: torch.Tensor, s: int, m: int) -> torch.Tensor:
+    return (_shr(x, torch.tensor(s)) & m) | ((x & m) << s)
+
+
+def window_fields(codes: torch.Tensor, valid: torch.Tensor, n: int, k: int,
+                  lead: int = 0):
+    """(fwd, rc, valid) of the n windows at positions lead .. lead+n-1 of the
+    staged streams (flat uint8 `codes`, 2 bits a base, and `valid`, 1 bit a
+    base), the streams shifted `lead` bases into their first word, as a
+    staged segment starts anywhere in its word: x = the window's 2k bits by
+    one funnel shift; rc = ~x & mask; fwd = pairrev64(x) >> (64 - 2k), a
+    bit reversal then a swap within each pair; valid = its k validity
+    bits all set."""
+    cw, vw = _words(codes, 2, lead), _words(valid, 1, lead)
+    pos = lead + torch.arange(n, dtype=torch.int64)
+    x = _funnel(cw, 2 * pos)
+    y = x
+    for s, m in ((1, 0x5555555555555555), (2, 0x3333333333333333),
+                 (4, 0x0F0F0F0F0F0F0F0F), (8, 0x00FF00FF00FF00FF),
+                 (16, 0x0000FFFF0000FFFF), (32, _U32)):
+        y = _bit_swap(y, s, m)                          # __brevll
+    y = _bit_swap(y, 1, 0x5555555555555555)             # the pair swap
+    fwd = _shr(y, torch.tensor(64 - 2 * k))
+    mask = -1 if k == 32 else (1 << (2 * k)) - 1
+    kmask = (1 << k) - 1
+    ok = (_funnel(vw, pos) & kmask) == kmask
+    return fwd, ~x & mask, ok

@@ -2,7 +2,11 @@
 the card, at edge shapes the smoke run does not reach (k = 1 and 32,
 p = 2 to 25 for keys and 31 for registers, ragged rows, widths and pair
 blocks, more rows than one grid dimension holds, all-N rows and bytes
->= 0x80 on the ASCII form, registers at 0 and at q+1, windows reaching
+>= 0x80 on the ASCII form; for the encode/hash kernel windows across its
+segment edges at k = 1, 2, 15, 16, 17, 31, 32, valid runs of exactly k
+on the edges, ASCII rows of every width mod 16, chunks that are row-offset
+views (unaligned pointers), a ring of fresh registers at p = 16 and 31;
+registers at 0 and at q+1, windows reaching
 q+1, empty histograms and sketches, the widest joint window, both forms
 of K4 bitwise at p = 4 to 18 and 1 to 1000 rows).  Marked `cuda`: they
 skip without a card.  Run them on one:
@@ -31,6 +35,10 @@ def cuda():
     return torch.device("cuda")
 
 
+# k where a window's bits cross the staged words differently
+STRADDLE_K = [1, 2, 15, 16, 17, 31, 32]
+
+
 def _packed(rng, rows, C, dev):
     tile = rng.choice(np.frombuffer(b"ACGTacgtNR", np.uint8), size=(rows, C),
                       p=[0.22] * 4 + [0.02] * 4 + [0.02, 0.02])
@@ -48,7 +56,7 @@ def _packed(rng, rows, C, dev):
     (31, 16, True, 2, 16400),      # two blocks along the row
     (32, 25, True, 4, 1000),       # k = 32 fills 64 bits; widest key p
     (32, 14, False, 1, 40),        # one row, barely longer than k
-])
+] + [(k, 12, True, 6, 5000) for k in STRADDLE_K])   # windows across segments
 def test_encode_hash_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     pk, vb = _packed(rng, rows, C, cuda)
     got = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
@@ -67,6 +75,105 @@ def test_encode_hash_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
                                  p=p, canon=canon)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _runs_at_segment_edges(C, k, seg):
+    """All-N rows but for valid runs of exactly k bases at the segment
+    edges: in row 0 each run's one window is the last of its segment (it
+    straddles the edge), in row 1 the first of the next, in row 2 the run
+    ends on the edge.  Returns the rows and each row's run count."""
+    rows, counts = [], []
+    for shift in (-1, 0, -k):
+        row = np.full(C, ord("N"), np.uint8)
+        starts = [e + shift for e in range(seg, C - k + 1, seg)
+                  if e + shift >= 1 and e + shift + k < C]
+        for s in starts:
+            row[s:s + k] = np.frombuffer(b"ACGT", np.uint8)[np.arange(k) % 4]
+        rows.append(row)
+        counts.append(len(starts))
+    return np.stack(rows), counts
+
+
+@pytest.mark.parametrize("k", STRADDLE_K)
+def test_valid_run_of_k_on_segment_edges(cuda, k):
+    """A valid run exactly k long makes exactly one valid window; placed on
+    the segment edges, each still reaches the registers and the keys."""
+    C = 6000
+    seg = eh.launch_geometry(3, C, k)["segment"]
+    rows, counts = _runs_at_segment_edges(C, k, seg)
+    assert min(counts) >= 2
+    tile = torch.from_numpy(rows).to(cuda)
+    keys = eh.encode_hash_keys(tile, k=k, p=12)
+    want_keys = eh.encode_hash_keys_plain(tile, k=k, p=12)
+    got = torch.zeros(1 << 12, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    eh.ascii_to_registers(tile, got, k=k, p=12)
+    eh.ascii_to_registers_plain(tile, want, k=k, p=12, canon=True)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want_keys)
+    assert ((want_keys & 63) > 0).sum(1).tolist() == counts
+    assert torch.equal(got, want)
+    # the packed form of the same rows (C % 8 == 0)
+    packed, vbits = pipeline._pack_tile_host(tile.cpu().numpy())
+    pk, vb = (torch.from_numpy(a).to(cuda) for a in (packed, vbits))
+    got.zero_()
+    eh.packed_to_registers(pk, vb, got, k=k, p=12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C", [8214, 8222])
+def test_encode_hash_on_a_row_offset_view(rng, cuda, C):
+    """A chunk taken as rows 3.. (packed) or 5.. (ASCII) of a larger
+    tensor: its data pointers are not 16-byte aligned."""
+    Cp = C + (-C) % 8
+    big_pk, big_vb = _packed(rng, 40, Cp, cuda)
+    pk, vb = big_pk[3:30], big_vb[3:30]
+    assert pk.data_ptr() % 16 or vb.data_ptr() % 16
+    t = _ascii(rng, 40, C, cuda)[5:33]
+    assert t.data_ptr() % 16
+    for k in (16, 31):
+        got = torch.zeros(1 << 14, dtype=torch.int32, device=cuda)
+        want = torch.zeros_like(got)
+        eh.packed_to_registers(pk, vb, got, k=k, p=14)
+        eh.packed_to_registers_plain(pk, vb, want, k=k, p=14, canon=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        got.zero_()
+        want.zero_()
+        eh.ascii_to_registers(t, got, k=k, p=14)
+        eh.ascii_to_registers_plain(t, want, k=k, p=14, canon=True)
+        keys = eh.encode_hash_keys(t, k=k, p=14)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(keys, eh.encode_hash_keys_plain(t, k=k, p=14))
+
+
+@pytest.mark.parametrize("p,ring", [(16, 4), (31, 2)])
+def test_encode_hash_fresh_register_ring(rng, cuda, p, ring):
+    """Launches into a ring of pre-zeroed register arrays, as chip_smoke
+    times them: every array equals the plain fold of its chunk."""
+    regs = torch.zeros((ring, 1 << p), dtype=torch.int32, device=cuda)
+    want = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+    pk, vb = _packed(rng, 8, 4104, cuda)
+    t = _ascii(rng, 8, 4111, cuda)
+    for form in ("packed", "ascii"):
+        regs.zero_()
+        for i in range(ring):
+            if form == "packed":
+                eh.packed_to_registers(pk, vb, regs[i], k=31, p=p)
+            else:
+                eh.ascii_to_registers(t, regs[i], k=31, p=p)
+        want.zero_()
+        if form == "packed":
+            eh.packed_to_registers_plain(pk, vb, want, k=31, p=p, canon=True)
+        else:
+            eh.ascii_to_registers_plain(t, want, k=31, p=p, canon=True)
+        torch.cuda.synchronize()
+        for i in range(ring):
+            assert torch.equal(regs[i], want), (form, i)
+    del regs, want
+    torch.cuda.empty_cache()
 
 
 def test_encode_hash_rejects_mixed_devices(cuda):
@@ -94,7 +201,7 @@ def _ascii(rng, rows, C, dev):
     (31, 14, True, 256, 8222),     # the benchmark's chunk (C % 8 != 0)
     (21, 16, True, 7, 8212),       # ragged strips at the row's end
     (12, 10, True, 70000, 40),     # more rows than one grid dimension
-])
+] + [(31, 14, True, 9, 3000 + r) for r in range(16)])   # every C mod 16
 def test_ascii_keys_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     t = _ascii(rng, rows, C, cuda)
     before = eh.keys_launches
@@ -113,7 +220,7 @@ def test_ascii_keys_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     (31, 14, True, 256, 8222),
     (21, 31, True, 9, 3000),       # p = 31: registers only (8 GB)
     (12, 10, False, 70000, 40),
-])
+] + [(31, 14, True, 9, 3000 + r) for r in range(16)])   # every C mod 16
 def test_ascii_regs_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     t = _ascii(rng, rows, C, cuda)
     got = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
