@@ -25,16 +25,21 @@ Phases, each printing its own lines with seconds:
               behind a spin kernel, each into fresh registers) and as
               launched (the host's dispatch pace)
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
-              pairs at p=14, ORIGINAL / IMPROVED / MLE, rtol=2e-4 atol=5e-2
-              on triples; the row-estimate kernel (marginals) at rtol=1e-5;
-              K4's X-only form (cum_union of the main path) bitwise equal to
-              its plain version on that same-bank 1024 x 2^14 bank
+              pairs at p=14, ORIGINAL / IMPROVED / MLE: bit for bit (max
+              abs err 0, non-finite entries alike) and inside the old bar
+              rtol=2e-4 atol=5e-2 on triples; the row-estimate kernel
+              (marginals, MLE by the chain as the compare takes them) at
+              rtol=1e-5; K4's X-only form (cum_union of the main path)
+              bitwise equal to its plain version on that same-bank
+              1024 x 2^14 bank
   5. K4, K5   joint pair statistics (K4) vs their plain version, bitwise
               equal, on a same-bank 1000 x 2^14 bank and a distinct ragged
               600 x 1000 pair of banks with a window kmin > 0; the joint MLE
               (K5) vs its plain version on 256 x 1000 pairs of the same-bank
-              statistics, rtol=2e-4 atol=5e-2 on triples, atol=2e-6 on
-              Jaccard, non-finite entries in the same places
+              statistics: bit for bit, and inside the old bars rtol=2e-4
+              atol=5e-2 on triples and atol=2e-6 on Jaccard
+  The build phase also prints SASS instruction counts: K1/K2 per window,
+  and the Newton step of K3 (MLE) and K5 at K = 32 per level-step.
   6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
               process at its full geometry, its JSON line printed; K2 must
               launch 30 times per run and the registers equal the plain
@@ -47,8 +52,8 @@ Phases, each printing its own lines with seconds:
               (d) 1000 p=14 sketches of the K4 bank written as .hll files,
                   dist -H -J -M -b (all 499,500 pairs), its wall time and
                   pairs/s, and the largest Jaccard difference from the same
-                  run without -J; K4's joint form must launch in the first,
-                  its X-only form in the second
+                  run without -J; K4's joint form and K5 must launch in the
+                  first, K4's X-only form and K3 in the second
               In (b) and (c) every kernel of the path must have launched
               (counts set to 0 just before the run, read just after), the
               matrix must be finite and of length n(n-1)/2, and every
@@ -152,25 +157,37 @@ def record(records, name, source, replaces, counter, max_abs_err, ms,
 
 
 # Operation counts per pair (or row), from the kernels' sources: float32
-# arithmetic operations, each transcendental (exp, log, expm1) counted as
-# one, so the bound they give is a floor.
-def k3_ops(K: int, method: int, iters: int = 12) -> int:
-    """csrc/union_mle.cu: histogram difference and mass (2 per level), the
-    estimator, and the triple (~10); MLE adds the improved start (2 per
-    level) and per Newton step 13 per level plus ~15."""
+# arithmetic operations, each transcendental (exp, log, expm1) and each
+# division counted as one, so the bound they give is a floor.
+def k3_ops(n: int, K: int, method: int, iters: int, nonempty: int) -> int:
+    """csrc/union_mle.cu, for `n` pairs (or rows) whose histograms are
+    nonzero at `nonempty` (pair, level) places in all: histogram
+    difference and mass (2 per level), the estimator, and the triple
+    (~10).  MLE (hll_estimators.cuh `mle_chain_win`) adds the improved
+    start (2 per level, ~150 for the sigma/tau series) and per Newton step
+    the chain step (2 per level), ~25 (exp, the expm1 seed, the top bin,
+    the clamped step), and 12 per nonempty level (w = z ((1 - c) / c) 3,
+    the two sums 9; empty levels are skipped).  The direct form of the
+    row estimates computes every level: pass nonempty = n * K."""
     if method == 0:
-        return 2 * K + 3 * K + 10
+        return n * (2 * K + 3 * K + 10)
     if method == 1:
-        return 2 * K + 2 * K + 150 + 10
-    return 2 * K + 2 * K + 150 + iters * (13 * K + 15) + 10
+        return n * (2 * K + 2 * K + 150 + 10)
+    return (n * (2 * K + 2 * K + 150 + iters * (2 * K + 25) + 10)
+            + nonempty * iters * 12)
 
 
-def k5_ops(K: int, iters: int) -> int:
-    """csrc/joint_mle.cu: per Newton step ~200 per level (chains, four
-    marginal terms, the equal-level term and its nine sums) plus ~120
-    (exponentials, seeds, 3x3 solve, step); two likelihood passes of ~63
-    per level; loads and the union start 4 per level."""
-    return 4 * K + iters * (200 * K + 120) + 2 * (63 * K + 30) + 20
+def k5_ops(pairs: int, K: int, iters: int, eq_levels: int) -> int:
+    """csrc/joint_mle.cu, for `pairs` pairs whose eq is nonzero at
+    `eq_levels` (pair, level) places in all: per Newton step ~75 per
+    level (three chain steps, four marginal terms with a division each)
+    and ~110 more where eq > 0 (the equal-level term, two divisions, nine
+    sums; skipped where eq = 0), plus ~120 (exponentials, seeds, 3x3
+    solve, step); two likelihood passes of ~32 per level (four marginal
+    logs) and ~21 where eq > 0 (one log); loads, lt_a/lt_b and the union
+    start 8 per level."""
+    return (pairs * (8 * K + 20 + iters * (75 * K + 120) + 2 * (32 * K + 30))
+            + eq_levels * (iters * 110 + 2 * 21))
 
 
 # ---------------------------------------------------------------------------
@@ -214,29 +231,25 @@ def phase_build():
             if "Compiling entry" in line or "registers" in line \
                     or "stack frame" in line or "Potential" in line:
                 log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
-    _sass_report(encode_hash._lib()._name, _build.nvcc())
+    nvcc = _build.nvcc()
+    _sass_report(encode_hash._lib()._name, nvcc)
+    _sass_newton_report(union_mle._lib()._name, joint_mle._lib()._name, nvcc)
 
 
-def _sass_report(so: str, nvcc: str) -> None:
-    """SASS instructions of each encode/hash kernel (cuobjdump -sass):
-    the whole kernel, and its window loop per window (the smallest
-    backward branch span that holds a BREV, over its BREVs / 2: one
-    __brevll is two)."""
+def _sass_functions(so: str, nvcc: str):
+    """{mangled kernel name: [SASS instruction texts]} and, per kernel, its
+    loops as (first, last) instruction indices of every backward branch
+    (cuobjdump -sass); None if cuobjdump fails."""
     import re
     exe = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     res = subprocess.run([exe, "-sass", so], capture_output=True, text=True,
                          timeout=120)
     if res.returncode != 0:
         log(f"[sass] cuobjdump failed: {res.stderr.strip()[:200]}")
-        return
-    forms = {("0", "0"): "K1 packed->regs", ("1", "0"): "K2 ascii->regs",
-             ("1", "1"): "K2 ascii->keys"}
+        return None
+    out = {}
     for body in res.stdout.split("Function : ")[1:]:
         name = body.split(None, 1)[0]
-        if "encode_hash_kernel" not in name:
-            continue
-        m = re.search(r"InE(\d)ELNS_3OutE(\d)E", name)
-        form = forms.get(m.groups() if m else None, name)
         ins, labels = [], {}
         for line in body.splitlines():
             lab = re.match(r"\s*(\.L_x_\d+):", line)
@@ -246,7 +259,7 @@ def _sass_report(so: str, nvcc: str) -> None:
             if op:
                 ins.append((int(op.group(1), 16), op.group(2).strip()))
         index = {addr: i for i, (addr, _) in enumerate(ins)}
-        best = None
+        loops = []
         for i, (_, text) in enumerate(ins):
             if "BRA" not in text:
                 continue
@@ -254,15 +267,88 @@ def _sass_report(so: str, nvcc: str) -> None:
             tl = re.search(r"\((\.L_x_\d+)\)", text)
             j = (index.get(int(t.group(1), 16)) if t
                  else labels.get(tl.group(1)) if tl else None)
-            if j is None or j > i:
-                continue
-            brevs = sum("BREV" in x for _, x in ins[j:i + 1])
+            if j is not None and j <= i:
+                loops.append((j, i))
+        out[name] = ([x for _, x in ins], loops)
+    return out
+
+
+def _sass_report(so: str, nvcc: str) -> None:
+    """SASS instructions of each encode/hash kernel: the whole kernel, and
+    its window loop per window (the smallest backward branch span that
+    holds a BREV, over its BREVs / 2: one __brevll is two)."""
+    import re
+    funcs = _sass_functions(so, nvcc)
+    if funcs is None:
+        return
+    forms = {("0", "0"): "K1 packed->regs", ("1", "0"): "K2 ascii->regs",
+             ("1", "1"): "K2 ascii->keys"}
+    for name, (ins, loops) in funcs.items():
+        if "encode_hash_kernel" not in name:
+            continue
+        m = re.search(r"InE(\d)ELNS_3OutE(\d)E", name)
+        form = forms.get(m.groups() if m else None, name)
+        best = None
+        for j, i in loops:
+            brevs = sum("BREV" in x for x in ins[j:i + 1])
             if brevs and (best is None or i - j < best[0]):
                 best = (i - j + 1, brevs // 2)
         per = (f"window loop {best[0]} instructions for {best[1]} window(s)"
                f" = {best[0] / max(best[1], 1):.1f} a window"
                if best else "window loop not found")
         log(f"[sass] {form}: {len(ins)} instructions; {per}")
+
+
+# (kernel, mangled-name stem, levels a loop pass): K3's MLE instantiation
+# at K = 32 (its 32 levels unrolled into the Newton step) and K5 (its level
+# loop unrolled by two, `#pragma unroll 2` in csrc/joint_mle.cu)
+NEWTON_SASS = (("K3 MLE", "union_triples_kernelILi32ELb1ELi2E", 32),
+               ("K5", "joint_mle_kernel", 2))
+
+
+def _mufu(ins) -> dict:
+    out = {}
+    for x in ins:
+        if "MUFU." in x:
+            op = x[x.index("MUFU."):].split()[0]
+            out[op] = out.get(op, 0) + 1
+    return out
+
+
+def _sass_newton_report(k3_so: str, k5_so: str, nvcc: str) -> None:
+    """SASS of the Newton step of K3 (MLE, K = 32) and K5: the whole
+    kernel; the step, its largest loop (backward branch span); the
+    instructions a level-step: the smallest loop inside the step that
+    holds a division (MUFU.RCP), when the level loop is rolled, else the
+    step, over the levels one pass of it holds; and the special-function
+    (MUFU) and call instructions of the step (expf, one expm1f seed a
+    chain; a call is an IEEE division's slow path)."""
+    for (what, stem, levels), so in zip(NEWTON_SASS, (k3_so, k5_so)):
+        funcs = _sass_functions(so, nvcc) or {}
+        hits = [(n, f) for n, f in funcs.items() if stem in n]
+        if not hits:
+            log(f"[sass] {what}: kernel {stem} not found")
+            continue
+        ins, loops = hits[0][1]
+        if not loops:
+            log(f"[sass] {what}: {len(ins)} instructions; no loop found")
+            continue
+        j, i = max(loops, key=lambda s: s[1] - s[0])
+        step = ins[j:i + 1]
+        inner = [(a, b) for a, b in loops if j <= a and b <= i
+                 and (a, b) != (j, i) and _mufu(ins[a:b + 1]).get("MUFU.RCP")]
+        if inner:
+            a, b = min(inner, key=lambda s: s[1] - s[0])
+            per = (f"level loop {b - a + 1} instructions for {levels} "
+                   f"levels = {(b - a + 1) / levels:.1f} a level-step "
+                   f"({_mufu(ins[a:b + 1])})")
+        else:
+            per = (f"{len(step) / levels:.1f} instructions a level-step "
+                   f"at K={levels}")
+        log(f"[sass] {what}: {len(ins)} instructions; Newton step loop "
+            f"{len(step)} instructions, {per}; in the step: "
+            f"{_mufu(step) or 'no MUFU'}, {sum('CALL' in x for x in step)} "
+            "calls")
 
 
 def _b1_lib():
@@ -618,19 +704,22 @@ def phase_k3(dev, records):
                          (est.ERTL_MLE, "MLE")):
         c_a = _check_estimates(stats["hist_a"], p, kmin, method,
                                est.WINDOW_MLE_ITERS, f"marginals {name}",
-                               f"{n} rows p={p} K={K}", records)
+                               f"{n} rows p={p} K={K}", records, chain=True)
         _check_triples(cumT, c_a, c_a, p, kmin, method, name,
                        f"{n}x{n} pairs p={p} K={K}", 10, 3, records)
 
 
-def _check_estimates(hist, p, kmin, method, iters, what, shape, records):
+def _check_estimates(hist, p, kmin, method, iters, what, shape, records,
+                     chain=False):
     """Row-estimate kernel vs its plain version at rtol=EST_RTOL; returns
-    the kernel's estimates."""
+    the kernel's estimates.  `chain`: MLE by the complement chain, as a
+    compare tile's marginals take it."""
     import torch
     from dashing_tpu_torch.ops import union_mle as um
-    got = um.estimate_rows(hist, p=p, kmin=kmin, method=method, iters=iters)
+    got = um.estimate_rows(hist, p=p, kmin=kmin, method=method, iters=iters,
+                           chain=chain)
     want = um.estimate_rows_plain(hist, p=p, kmin=kmin, method=method,
-                                  iters=iters)
+                                  iters=iters, chain=chain)
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     if not torch.equal(fin, torch.isfinite(got)):
@@ -642,30 +731,36 @@ def _check_estimates(hist, p, kmin, method, iters, what, shape, records):
         fail(f"estimate_rows {what}: {bad} of {want.numel()} estimates "
              f"outside rtol={EST_RTOL} (max abs err {max_err})")
     ms = cuda_ms(lambda: um.estimate_rows(hist, p=p, kmin=kmin, method=method,
-                                          iters=iters), 20)
+                                          iters=iters, chain=chain), 20)
     plain_ms = cuda_ms(lambda: um.estimate_rows_plain(
-        hist, p=p, kmin=kmin, method=method, iters=iters), 3)
+        hist, p=p, kmin=kmin, method=method, iters=iters, chain=chain), 3)
     log(f"[est] {what}, {shape}: within rtol={EST_RTOL}, max abs err "
         f"{max_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     n, K = hist.shape
+    # the chain skips empty levels; the direct form computes them all
+    nonempty = int((hist != 0).sum()) if chain else n * K
     record(records, f"estimate_rows {what} ({shape})", K3_SRC, K3_REPLACES,
            "estimate_rows", max_err, ms, plain_ms, 4 * n * K + 4 * n,
-           n * k3_ops(K, method, iters), FP32_OPS)
+           k3_ops(n, K, method, iters, nonempty), FP32_OPS)
     return got
 
 
 def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
                    plain_reps, records):
-    """K3 vs its plain version at rtol=K3_RTOL, atol=K3_ATOL on triples."""
+    """K3 vs its plain version: bit for bit (max abs err 0, non-finite
+    entries alike), and within the old bar (rtol=K3_RTOL, atol=K3_ATOL on
+    triples) as well."""
     import torch
     from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
     na, nb = cumT.shape[1:]
     got = um.union_triples(cumT, c_a, c_b, p=p, kmin=kmin, method=method)
     want = um.union_triples_plain(cumT, c_a, c_b, p=p, kmin=kmin,
                                   method=method)
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)):
+    if not (torch.equal(fin, torch.isfinite(got))
+            and torch.equal(torch.isnan(want), torch.isnan(got))):
         fail(f"K3 {name} {shape}: non-finite entries differ")
     err = (got - want).abs()[fin]
     tol = K3_ATOL + K3_RTOL * want.abs()[fin]
@@ -674,18 +769,25 @@ def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
     if bad:
         fail(f"K3 {name} {shape}: {bad} triples outside rtol={K3_RTOL} "
              f"atol={K3_ATOL} (max abs err {max_err})")
+    if max_err != 0.0 or not torch.equal(got[fin], want[fin]):
+        fail(f"K3 {name} {shape}: not bit for bit equal to the plain "
+             f"version (max abs err {max_err})")
     ms = cuda_ms(lambda: um.union_triples(cumT, c_a, c_b, p=p, kmin=kmin,
                                           method=method), reps)
     plain_ms = cuda_ms(lambda: um.union_triples_plain(
         cumT, c_a, c_b, p=p, kmin=kmin, method=method), plain_reps)
-    log(f"[K3] {name} {shape}: within rtol={K3_RTOL} atol={K3_ATOL}, max "
-        f"abs err {max_err:.3g}; kernel {ms:.4f} ms "
+    log(f"[K3] {name} {shape}: bit for bit equal, max abs err {max_err:.3g}"
+        f" (bar rtol={K3_RTOL} atol={K3_ATOL}); kernel {ms:.4f} ms "
         f"({na * nb / ms / 1e3:.1f} M pairs/s), plain {plain_ms:.4f} ms")
     K = cumT.shape[0]
+    nonempty = int((cumT[0] != 0).sum() + (cumT[1:] != cumT[:-1]).sum())
+    log(f"[K3] {name} {shape}: nonempty levels a pair "
+        f"{nonempty / (na * nb):.2f} of {K}")
     record(records, f"union_triples {name} ({shape})", K3_SRC, K3_REPLACES,
            "union_triples", max_err, ms, plain_ms,
            4 * (K * na * nb + na + nb + 3 * na * nb),
-           na * nb * k3_ops(K, method), FP32_OPS)
+           k3_ops(na * nb, K, method, est.WINDOW_MLE_ITERS, nonempty),
+           FP32_OPS)
 
 
 def _indicators(a, b, kmin: int, kmax: int, joint: bool):
@@ -836,8 +938,9 @@ def check_cum_union(a, b, kmin, kmax, same, what, records, reps=5):
 
 def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
     """K5 vs its plain version on the K-first statistics `st` restricted to
-    row slice `rows`: rtol=K3_RTOL atol=K3_ATOL on triples, JI_ATOL on
-    Jaccard, non-finite entries alike."""
+    row slice `rows`: bit for bit (max abs err 0, non-finite entries
+    alike), and within the old bars (rtol=K3_RTOL atol=K3_ATOL on
+    triples, JI_ATOL on Jaccard) as well."""
     import torch
     from dashing_tpu_torch.ops import joint_mle as jm
     from dashing_tpu_torch.sketch import estimators as est
@@ -861,20 +964,26 @@ def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
         fail(f"K5 {what}: {bad} triples outside rtol={K3_RTOL} "
              f"atol={K3_ATOL} (max abs err {max_err}), Jaccard max err "
              f"{ji_err}")
+    if max_err != 0.0 or not torch.equal(got[fin], want[fin]):
+        fail(f"K5 {what}: not bit for bit equal to the plain version (max "
+             f"abs err {max_err})")
     ms = cuda_ms(lambda: jm.joint_triples(*args, p=p, kmin=kmin), reps)
     plain_ms = cuda_ms(lambda: jm.joint_triples_plain(*args, p=p, kmin=kmin),
                        1)
     iters = est.jmle_iters(p)
+    eq_levels = int((args[0] > 0).sum())
     log(f"[K5] {what}: {na}x{nb} pairs p={p} kmin={kmin} K={K} ({iters} "
-        f"Newton steps): within rtol={K3_RTOL} atol={K3_ATOL}, max abs err "
-        f"{max_err:.3g}, Jaccard max err {ji_err:.3g}; kernel {ms:.4f} ms "
-        f"({na * nb / ms / 1e3:.1f} M pairs/s), plain {plain_ms:.4f} ms")
+        f"Newton steps, eq > 0 at {eq_levels / (na * nb):.2f} levels a "
+        f"pair): bit for bit equal, max abs err {max_err:.3g} (bars rtol="
+        f"{K3_RTOL} atol={K3_ATOL}, Jaccard {JI_ATOL}: max err "
+        f"{ji_err:.3g}); kernel {ms:.4f} ms ({na * nb / ms / 1e3:.1f} M "
+        f"pairs/s), plain {plain_ms:.4f} ms")
     # bytes: three (K, na, nb) stacks, the marginals and cardinalities in,
-    # (3, na, nb) out; operations: k5_ops per pair at the float32 rate
+    # (3, na, nb) out; operations: k5_ops at the float32 rate
     record(records, f"joint_triples {what} ({na}x{nb} p={p} K={K})", K5_SRC,
            K5_REPLACES, "joint_triples", max_err, ms, plain_ms,
            4 * (3 * K * na * nb + K * (na + nb) + na + nb + 3 * na * nb),
-           na * nb * k5_ops(K, iters), FP32_OPS)
+           k5_ops(na * nb, K, iters, eq_levels), FP32_OPS)
 
 
 def phase_k4_k5(dev, records):
@@ -1265,7 +1374,9 @@ def _e2e_joint_bank(bank, tmp):
     -J-less run for the largest Jaccard difference between the two."""
     import torch
     from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import joint_mle as jm
     from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch import estimators as est
     from dashing_tpu_torch.sketch.hll import HLL
     regs = bank.cpu().numpy().astype(np.uint8)
@@ -1279,7 +1390,7 @@ def _e2e_joint_bank(bank, tmp):
     out = {}
     for tag, extra in (("J", ["-J"]), ("m", [])):
         path = os.path.join(tmp, f"d_{tag}.bin")
-        js.launches = js.cum_union_launches = 0
+        js.launches = js.cum_union_launches = jm.launches = um.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if main(["dist", "-k", "31", "-H", "-M", "-b", "-O", path, "-o",
@@ -1297,11 +1408,14 @@ def _e2e_joint_bank(bank, tmp):
         if form == 0:
             fail(f"e2e (d) -{tag}: K4's {'joint' if extra else 'X-only'} "
                  "form was not launched")
+        if (jm.launches if extra else um.launches) == 0:
+            fail(f"e2e (d) -{tag}: {'K5' if extra else 'K3'} was not "
+                 "launched")
         log(f"[e2e d] dist -H {' '.join(extra + ['-M', '-b'])} over {n} p={p}"
             f" sketches: {cond.size} finite distances, wall {wall:.3f}s "
             f"({cond.size / wall:.0f} pairs/s, sketch load and -o included);"
             f" K4 joint launches {js.launches}, X-only "
-            f"{js.cum_union_launches}")
+            f"{js.cum_union_launches}, K3 {um.launches}, K5 {jm.launches}")
     # Mash d = -ln(2J / (1 + J)) / k  =>  J = r / (2 - r), r = exp(-k d)
     ji = {t: (lambda r: r / (2.0 - r))(np.exp(-31.0 * c.astype(np.float64)))
           for t, c in out.items()}
@@ -1342,6 +1456,7 @@ def _config2_kernels(dev, sketches, records):
     histograms."""
     import torch
     from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch import estimators as est
     regs = pw._stack_regs(sketches)
     n, p = regs.shape[0], sketches[0].p
@@ -1353,7 +1468,8 @@ def _config2_kernels(dev, sketches, records):
     K = cumT.shape[0]
     c_a = _check_estimates(stats["hist_a"], p, kmin, est.ERTL_MLE,
                            est.WINDOW_MLE_ITERS, "marginals MLE config 2",
-                           f"{n} rows p={p} kmin={kmin} K={K}", records)
+                           f"{n} rows p={p} kmin={kmin} K={K}", records,
+                           chain=True)
     _check_triples(cumT, c_a, c_a, p, kmin, est.ERTL_MLE, "MLE config 2",
                    f"{n}x{n} pairs p={p} kmin={kmin} K={K}", 50, 5, records)
     hists = torch.from_numpy(np.stack([s.histogram() for s in sketches]))
@@ -1363,7 +1479,10 @@ def _config2_kernels(dev, sketches, records):
     check_cum_union(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     st = check_k4(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     ha = stats["hist_a"].T
-    check_k5(st, slice(None), ha, ha.contiguous(), c_a, c_a, p, kmin,
+    # the -J start takes the direct MLE marginals
+    c_j = um.estimate_rows(stats["hist_a"], p=p, kmin=kmin,
+                           method=est.ERTL_MLE)
+    check_k5(st, slice(None), ha, ha.contiguous(), c_j, c_j, p, kmin,
              "config 2", records)
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .. import metrics, pipeline
-from ..io import paths
+from ..io import fasta, paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
 from ..sketch.hll import HLL, batch_reports
@@ -53,20 +53,44 @@ class CommonOpts:
     presketched: bool = False
     avoid_sorting: bool = False
     entropy_min: bool = False
+    # count-min filtering: parsed and stored as the JAX CLI does; a run
+    # where a filter would apply is refused (count_filter_refusal)
+    mincount: int = 5
+    nhashes: int = 1
+    cmsketchsize: int = -1
+    seed: int = 1337
+    use_counting_filter: bool = False
+    sketch_by_fname: bool = False
 
 
 def hll_p_from_S(S: int) -> int:
     return S
 
 
+def count_filter_refusal(opts: CommonOpts, inpaths: Sequence[str],
+                         sketch: bool) -> None:
+    """Raise NotPorted where the JAX CLI would count-filter a file
+    (dashing_tpu/cli/core.py device_hll_run, dashing_tpu/cli/main.py
+    sketch_main).  `dist` filters every sketched file under -y/--countmin,
+    at a threshold of -c floored at 2, and never reads -N.  `sketch`
+    filters a file under -b/--countmin, or under -f on a FASTQ name, when
+    its threshold -n (1 unless given) is above 1: a threshold of 1 admits
+    every k-mer, so the run is the plain one."""
+    if opts.presketched:
+        return
+    if not sketch:
+        if opts.use_counting_filter:
+            raise NotPorted("dist -y/--countmin (count-min filtered "
+                            "sketching)")
+        return
+    if opts.mincount > 1 and (opts.use_counting_filter or (
+            opts.sketch_by_fname and any(map(fasta.fname_is_fq, inpaths)))):
+        raise NotPorted("sketch -b/--countmin, or -f on FASTQ inputs, with a "
+                        "threshold -n above 1 (count-min filtered sketching)")
+
+
 # Options of the JAX CLI that the slice refuses, with the name to report.
 _REFUSED = {
-    "-y": "--countmin", "--countmin": "--countmin", "-c": "--countmin (-c)",
-    "--min-count": "--countmin (--min-count)",
-    "-q": "the count-min sketch (-q)", "--nhashes": "the count-min sketch",
-    "-t": "the count-min sketch (-t)", "--cm-sketch-size": "the count-min sketch",
-    "-R": "the count-min seed (-R)", "--seed": "the count-min seed",
-    "-N": "-N/--sketch-by-fname", "--sketch-by-fname": "-N/--sketch-by-fname",
     "-W": "sketch caching (-W)", "--cache-sketches": "sketch caching (-W)",
     "--wj": "weighted Jaccard", "--wj-exact": "weighted Jaccard",
     "--wj-cm-sketch-size": "weighted Jaccard",
@@ -89,6 +113,10 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "-F": ("paths_file", str), "--paths": ("paths_file", str),
         "-P": ("prefix", str), "--prefix": ("prefix", str),
         "-x": ("suffix", str), "--suffix": ("suffix", str),
+        "-c": ("mincount", int), "--min-count": ("mincount", int),
+        "-q": ("nhashes", int), "--nhashes": ("nhashes", int),
+        "-t": ("cmsketchsize", int), "--cm-sketch-size": ("cmsketchsize", int),
+        "-R": ("seed", int), "--seed": ("seed", int),
     }
     if flag in m:
         name, conv = m[flag]
@@ -102,6 +130,10 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "-I": ("estim", est.ERTL_IMPROVED), "--improved": ("estim", est.ERTL_IMPROVED),
         "-m": ("estim", est.ERTL_MLE), "--ertl-mle": ("estim", est.ERTL_MLE),
         "-g": ("entropy_min", True), "--by-entropy": ("entropy_min", True),
+        "-y": ("use_counting_filter", True),
+        "--countmin": ("use_counting_filter", True),
+        "-N": ("sketch_by_fname", True),
+        "--sketch-by-fname": ("sketch_by_fname", True),
         "--use-nthash": ("encoding", "nthash"),
         "--use-cyclic-hash": ("encoding", "cyclic"),
     }

@@ -122,6 +122,7 @@ def dist_main(argv: List[str], device) -> int:
     if not inpaths:
         eprint("No paths. See usage.")
         _dist_usage()
+    core.count_filter_refusal(o, inpaths, sketch=False)
     if not o.presketched and not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
 
@@ -202,16 +203,28 @@ def _write_labels(out_dists: Optional[str], names):
 
 def sketch_main(argv: List[str], device) -> int:
     o = CommonOpts()
+    o.mincount = 1
     output_file = ""
     optlist, positional = _getopts(argv, SKETCH_SHORT_OPTS, SKETCH_LONG)
     for flag, val in optlist:
         # sketch's short letters differ from dist's: -b=countmin,
         # -f=by-fname, -c=skip-cached, -n=min-count, -q=cm size,
         # -H=nhashes, -o=output stream
-        if flag in ("-b", "--countmin", "-n", "--min-count", "-q", "-H"):
-            raise NotPorted(f"{flag} (count-min filtering)")
+        if flag in ("-b", "--countmin"):
+            o.use_counting_filter = True
+            continue
         if flag in ("-f", "--sketch-by-fname"):
-            raise NotPorted(f"{flag} (FASTQ count filtering by name)")
+            o.sketch_by_fname = True
+            continue
+        if flag in ("-n", "--min-count"):
+            o.mincount = int(val)
+            continue
+        if flag == "-q":
+            o.cmsketchsize = int(val)
+            continue
+        if flag == "-H":
+            o.nhashes = int(val)
+            continue
         if flag in ("-c", "--skip-cached"):
             raise NotPorted(f"{flag} (skip cached sketches)")
         if flag == "-o":
@@ -226,6 +239,7 @@ def sketch_main(argv: List[str], device) -> int:
     if not inpaths:
         eprint("No paths. See usage.")
         _sketch_usage()
+    core.count_filter_refusal(o, inpaths, sketch=True)
     if not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
     sp = core.sketch_params(o).spacer()
@@ -279,8 +293,10 @@ def _dist_usage():
         "  -E/-I/-m                estimator: original/improved/MLE\n"
         "  -J/--ertl-joint-mle     set comparisons by the joint MLE\n"
         "  -C no canonicalization, -H presketched inputs, -e scientific\n"
+        "  -c/-q/-t/-R, -N          count-min parameters (stored; no "
+        "filter without -y)\n"
         "Not yet ported (see ROADMAP.md): -Q and asymmetric measures, "
-        "--countmin, -N, -W, weighted Jaccard, non-HLL sketches\n")
+        "-y/--countmin, -W, weighted Jaccard, non-HLL sketches\n")
 
 
 def _sketch_usage():

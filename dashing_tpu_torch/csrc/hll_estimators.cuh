@@ -7,6 +7,15 @@
 // (dashing_tpu_torch/sketch/estimators.py) follow this operation order:
 // levels summed one by one from the lowest, every operation rounded on its
 // own when the including file is built with -fmad=false.
+//
+// Two forms.  The pointer forms (original_est, improved_est, mle_est) take
+// a runtime K and serve the row-estimate kernel.  The window forms
+// (*_win<KT>) serve K3 and K5: their level loops are unrolled over KT, a
+// width from pairwise._K_BUCKETS, so a histogram read as h(l) with a
+// compile-time l stays in registers; a narrower runtime K skips the levels
+// l >= K.  Inside a window, level kmin + l is level 0 only at l = 0 with
+// has0 and the top bin q+1 only at l = K-1 with hastop, so those two
+// flags, not comparisons of levels, pick the special levels.
 #pragma once
 #include <cmath>
 #include <cuda_runtime.h>
@@ -15,9 +24,14 @@ namespace {
 
 constexpr int KMAX = 66;       // largest level window (pairwise._K_BUCKETS)
 
-// jnp.maximum semantics: NaN in either operand gives NaN (fmaxf would not)
+// jnp.maximum / torch.clamp semantics: NaN in either operand gives NaN
+// (fmaxf and fminf would return the other operand)
 __device__ __forceinline__ float nmax(float a, float b) {
     return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float nmin(float a, float b) {
+    return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
 }
 
 __device__ float sigma(float x, int iters) {
@@ -50,8 +64,11 @@ struct Window {
     float imp_am2;      // m^2 / (2 ln 2) (ERTL_IMPROVED), likewise
 };
 
-// exact 2^-l for integer l (exp2f need not be exact)
-__device__ __forceinline__ float pow2neg(int l) { return ldexpf(1.f, -l); }
+// exact 2^-l for integer 0 <= l <= 126 (a window's levels stay below 62),
+// built from its exponent bits (exp2f need not be exact)
+__device__ __forceinline__ float pow2neg(int l) {
+    return __int_as_float((127 - l) << 23);
+}
 
 __device__ float original_est(const float* h, const Window& w) {
     float denom = 0.f;
@@ -100,6 +117,102 @@ __device__ float mle_est(const float* h, float mtot, const Window& w,
         const float dd = dldu + x * x * d2;
         const float step = dldu / fminf(dd, -1e-9f);
         u = u - fminf(fmaxf(step, -1.f), 1.f);
+    }
+    float est = expf(u) * w.m;
+    if (full) est = INFINITY;      // full first, empty last
+    if (empty) est = 0.f;
+    return est;
+}
+
+// ---- window forms: histogram h(l), l = 0..K-1, K <= KT ----
+
+template <int KT, class H>
+__device__ __forceinline__ float original_win(const H& h, int K,
+                                              const Window& w) {
+    float denom = 0.f;
+#pragma unroll
+    for (int l = 0; l < KT; ++l)
+        if (l < K) denom += h(l) * pow2neg(w.kmin + l);
+    const float m = w.m;
+    const float e = w.orig_am2 / denom;
+    const float c0 = w.has0 ? h(0) : 0.f;
+    if (e <= 2.5f * m && c0 > 0.f) return m * logf(m / fmaxf(c0, 1e-9f));
+    return e;
+}
+
+// the window's top bin h(K-1) (a select per level when K is not KT)
+template <int KT, class H>
+__device__ __forceinline__ float top_bin(const H& h, int K) {
+    float t = 0.f;
+#pragma unroll
+    for (int l = 0; l < KT; ++l)
+        if (l == K - 1) t = h(l);
+    return t;
+}
+
+template <int KT, class H>
+__device__ __forceinline__ float improved_win(const H& h, int K,
+                                              const Window& w) {
+    float denom = 0.f;
+#pragma unroll
+    for (int l = 0; l < KT; ++l)
+        if (l < K && !(l == 0 && w.has0) && !(l == K - 1 && w.hastop))
+            denom += h(l) * pow2neg(w.kmin + l);
+    const float m = w.m;
+    if (w.has0) denom += m * sigma(h(0) / m, w.p + 6);
+    if (w.hastop)
+        denom += m * tau(1.f - top_bin<KT>(h, K) / m, 24) * pow2neg(w.q);
+    return w.imp_am2 / denom;
+}
+
+// ERTL_MLE by the complement chain, the form the TPU kernel runs
+// (dashing_tpu/sketch/estimators.py `_mle_dlogl12_chain`): per Newton
+// step ONE expm1f seed at the window's highest mid level hi (q when the
+// window holds the top bin), walked down the levels by c[k-1] = c[k] (2 -
+// c[k]); every mid level takes w = z ((1 - c) / c) and the top bin
+// w_q = (z_q (1 - c_q)) / c_q.  Mid levels are summed from the top down,
+// so no chain value is stored.
+template <int KT, class H>
+__device__ __forceinline__ float mle_chain_win(const H& h, int K, float mtot,
+                                               const Window& w, int iters) {
+    const float c0 = w.has0 ? h(0) : 0.f;
+    const float ctop = w.hastop ? top_bin<KT>(h, K) : 0.f;
+    const bool empty = c0 >= mtot;
+    const bool full = ctop >= mtot;
+    const float x0 = nmin(nmax(improved_win<KT>(h, K, w) / w.m, 1e-12f),
+                          ldexpf(1.f, w.q + 1));
+    float u = logf(x0);
+    const float zq = pow2neg(w.q), zhi = pow2neg(w.hi);
+    for (int it = 0; it < iters; ++it) {
+        const float x = expf(u);
+        const float chi = nmax(-expm1f(-(x * zhi)), 1e-30f);
+        float c = chi, d1 = 0.f, d2 = 0.f;
+#pragma unroll
+        for (int l = KT - 1; l >= 0; --l) {
+            if (l >= K || (l == K - 1 && w.hastop) || (l == 0 && w.has0))
+                continue;
+            // an empty level adds exactly +-0 while w w is finite: w = z /
+            // (e^{x z} - 1) <= 1/x and x >= 1e-12 e^{-iters}, so up to 16
+            // steps (K3 takes 12) such levels are skipped
+            const float hl = h(l);
+            if (hl != 0.f || iters > 16) {
+                const float z = pow2neg(w.kmin + l);
+                const float wl = z * ((1.f - c) / c);
+                d1 = d1 + hl * (wl - z);
+                d2 = d2 + hl * (-(wl * wl + z * wl));
+            }
+            c = c * (2.f - c);
+        }
+        d1 = d1 - c0;
+        if (w.hastop) {                 // c_q is the seed: hi = q
+            const float wq = (zq * (1.f - chi)) / chi;
+            d1 = d1 + ctop * wq;
+            d2 = d2 + ctop * (-(wq * wq + zq * wq));
+        }
+        const float dldu = x * d1;
+        const float dd = dldu + x * x * d2;
+        const float step = dldu / nmin(dd, -1e-9f);
+        u = u - nmin(nmax(step, -1.f), 1.f);
     }
     float est = expf(u) * w.m;
     if (full) est = INFINITY;      // full first, empty last

@@ -23,16 +23,25 @@
 // What bounds it on an H100: FP32 arithmetic per pair, not bytes.  A pair
 // reads 3K + 2K + 2 floats once (at K=32 under 0.7 KB) and then runs
 // `iters` passes of ~150 FP32 operations per level (chains, four marginal
-// likelihoods, the diagonal term and its ten gradient/Hessian sums) plus
-// two likelihood passes with a log per level per chain.  The simple design
-// gives each thread one pair (neighbouring threads take neighbouring j, so
-// every level's load is coalesced): the thread copies its eq, gt_a, gt_b
-// into local arrays once (the TPU kernel's point, reading the statistics
-// once instead of once per iteration), derives lt_a = ha - eq - gt_a and
-// lt_b = hb - eq - gt_b from the row marginals on the fly, and keeps the
-// whole trajectory in registers.  Levels are walked from the top down, so
-// no chain is stored.  The ragged edge is masked by the thread index, so
-// callers need no padding.
+// terms with a true division each, the equal-level term with two) plus two
+// likelihood passes with a log per level per chain.  Each thread takes one
+// pair (neighbouring threads take neighbouring j, so every level's load is
+// coalesced) and reads its statistics once, as the TPU kernel does: eq,
+// gt_a, gt_b and lt_a = (ha - eq) - gt_a, lt_b = (hb - eq) - gt_b (derived
+// once) stay in shared memory for all the passes, laid out
+// [statistic][level][thread], so every access is conflict-free and no
+// thread shares anything (40 KB a 64-thread block at K = 32: five blocks
+// an SM, 92 registers a thread).  The level loop is unrolled by two only:
+// unrolled over all 32 levels the Newton step was 8,156 SASS instructions
+// and 255 registers and ran no faster than the parent (the step outgrows
+// the instruction caches; 1.09 ms unrolled against 0.83 rolled at 256 x
+// 1000 on an H100).  The top bin and level 0 are peeled off the loop, so
+// its body
+// has no special case.  Levels are walked from the top
+// down, so no chain is stored.  A level whose eq is 0 adds exactly +-0 to
+// every equal-level sum, and those sums are skipped there (a zero's sign
+// never reaches a triple).  The ragged edge is masked by the thread index,
+// so callers need no padding.
 //
 // Built with -fmad=false.  The plain version (sketch/estimators.py
 // `joint_mle_core`) runs in this operation order: every level sum from the
@@ -40,7 +49,7 @@
 // written there.  Along a flat likelihood direction the Newton solve turns
 // last-bit differences into whole units of a triple, so with FMA
 // contraction the kernel missed the bar against the plain version; with
-// every operation rounded on its own the two agree.
+// every operation rounded on its own the two agree bit for bit.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,58 +58,65 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 64;
+constexpr int NSTATS = 5;               // eq, gt_a, gt_b, lt_a, lt_b
 
-struct Pair {
-    const float* eq;      // local copies, K levels each
-    const float* ga;
-    const float* gb;
-    const float* ha;      // column i of (K, na), stride na
-    const float* hb;      // column j of (K, nb), stride nb
-    int na, nb;
+// one thread's column of the shared statistics, each K levels with a
+// stride of THREADS floats
+struct Column {
+    float* s;
+    int K;
+    __device__ __forceinline__ float& at(int stat, int l) const {
+        return s[(stat * K + l) * THREADS];
+    }
+    __device__ __forceinline__ float& eq(int l) const { return at(0, l); }
+    __device__ __forceinline__ float& ga(int l) const { return at(1, l); }
+    __device__ __forceinline__ float& gb(int l) const { return at(2, l); }
+    __device__ __forceinline__ float& lta(int l) const { return at(3, l); }
+    __device__ __forceinline__ float& ltb(int l) const { return at(4, l); }
 };
 
 __device__ __forceinline__ float comb(float c1, float c2) {
     return c1 + c2 - c1 * c2;
 }
 
-__device__ __forceinline__ float lt_a(const Pair& s, int l) {
-    return __ldg(s.ha + (long long)l * s.na) - s.eq[l] - s.ga[l];
+// 1 - exp(-x z_hi): the seed of a complement chain at its deepest level
+__device__ __forceinline__ float chain_seed(float x, float zhi) {
+    return nmax(-expm1f(-(x * zhi)), 1e-30f);
 }
 
-__device__ __forceinline__ float lt_b(const Pair& s, int l) {
-    return __ldg(s.hb + (long long)l * s.nb) - s.eq[l] - s.gb[l];
-}
+// The three complement chains at a level, and one level down (c1).
+struct Chains {
+    float u, v, x;          // cu, cv, cx
+    __device__ __forceinline__ Chains step() const {
+        return {u * (2.f - u), v * (2.f - v), x * (2.f - x)};
+    }
+};
 
-// 1 - exp(-x 2^-hi): the seed of a complement chain at its deepest level
-__device__ __forceinline__ float chain_seed(float x, int hi) {
-    return nmax(-expm1f(-(x * pow2neg(hi))), 1e-30f);
-}
-
-// (T1..T4, P) of the equal-level probability at level k from the chain
-// values at k (cu, cv, cx) and at k-1 (cu1, cv1, cx1); at the top level
-// q+1 the values at q are passed as (cu, cv, cx).
-__device__ __forceinline__ void chain_T_P(int k, int q, float cu, float cv,
-                                          float cx, float cu1, float cv1,
-                                          float cx1, float* T) {
-    if (k == 0) {
-        const float t1 = (1.f - cu) * (1.f - cv) * (1.f - cx);
+// (T1..T4, P) of the equal-level probability at a level from the chain
+// values there (c) and one level down (c1); at the top level q+1 the
+// values at q are passed as c.
+__device__ __forceinline__ void chain_T_P(bool top, bool bottom,
+                                          const Chains& c, const Chains& c1,
+                                          float* T) {
+    if (bottom) {
+        const float t1 = (1.f - c.u) * (1.f - c.v) * (1.f - c.x);
         T[0] = t1; T[1] = 0.f; T[2] = 0.f; T[3] = 0.f; T[4] = t1;
         return;
     }
-    const float u = 1.f - cu, v = 1.f - cv, xh = 1.f - cx;
-    const float cA = comb(cu, cx), cB = comb(cv, cx);
-    if (k == q + 1) {
+    const float u = 1.f - c.u, v = 1.f - c.v, xh = 1.f - c.x;
+    const float cA = comb(c.u, c.x), cB = comb(c.v, c.x);
+    if (top) {
         const float g = u * v * xh;
         T[0] = 1.f; T[1] = u * xh; T[2] = v * xh; T[3] = g;
-        T[4] = cA * cB + g * cx;
+        T[4] = cA * cB + g * c.x;
         return;
     }
-    const float u1 = 1.f - cu1, v1 = 1.f - cv1, x1 = 1.f - cx1;
+    const float u1 = 1.f - c1.u, v1 = 1.f - c1.v, x1 = 1.f - c1.x;
     const float t1 = u * v * xh;
     const float vx1 = v1 * x1;
     T[0] = t1; T[1] = (u1 * x1) * v; T[2] = vx1 * u; T[3] = u1 * vx1;
-    T[4] = t1 * (cA * cB + t1 * cx);
+    T[4] = t1 * (cA * cB + t1 * c.x);
 }
 
 // one marginal level term: d1 += h (w - z), d2 += h (-(w w + z w)) with
@@ -118,93 +134,95 @@ __device__ __forceinline__ void marg_top(float h, float wq, float zq,
     t2 = h * (-(wq * wq + zq * wq));
 }
 
+// The sums of the equal-level (diagonal) terms of the gradient and
+// Hessian.  A level whose eq is 0 adds exactly +-0 to each (its T are
+// finite or, with non-finite chains, the marginal sums are NaN anyway),
+// so the level is skipped.
+struct Diag {
+    float ga = 0.f, gb = 0.f, gx = 0.f;
+    float Haa = 0.f, Hbb = 0.f, Hxx = 0.f, Hab = 0.f, Hax = 0.f, Hbx = 0.f;
+
+    __device__ __forceinline__ void add(float wt, bool top, bool bottom,
+                                        const Chains& c, const Chains& c1,
+                                        float zk, float zk1) {
+        if (!(wt > 0.f)) return;
+        float Tv[5];
+        chain_T_P(top, bottom, c, c1, Tv);
+        const float T1 = Tv[0], T2 = Tv[1], T3 = Tv[2], T4 = Tv[3];
+        const float P = nmax(Tv[4], 1e-30f);
+        const float Sa = -T1 * zk + T2 * zk1 + T3 * zk - T4 * zk1;
+        const float Sb = -T1 * zk + T2 * zk + T3 * zk1 - T4 * zk1;
+        const float Sx = -T1 * zk + T2 * zk1 + T3 * zk1 - T4 * zk1;
+        const float wp = wt / P;
+        const float wp2 = wp / P;
+        const float z2 = zk * zk, z12 = zk1 * zk1, zz1 = zk * zk1;
+        ga = ga + wp * Sa;
+        gb = gb + wp * Sb;
+        gx = gx + wp * Sx;
+        Haa = Haa + (wp * (T1 * z2 - T2 * z12 - T3 * z2 + T4 * z12)
+                     - wp2 * Sa * Sa);
+        Hbb = Hbb + (wp * (T1 * z2 - T2 * z2 - T3 * z12 + T4 * z12)
+                     - wp2 * Sb * Sb);
+        Hxx = Hxx + (wp * (T1 * z2 - T2 * z12 - T3 * z12 + T4 * z12)
+                     - wp2 * Sx * Sx);
+        Hab = Hab + (wp * (T1 * z2 - T2 * zz1 - T3 * zz1 + T4 * z12)
+                     - wp2 * Sa * Sb);
+        Hax = Hax + (wp * (T1 * z2 - T2 * z12 - T3 * zz1 + T4 * z12)
+                     - wp2 * Sa * Sx);
+        Hbx = Hbx + (wp * (T1 * z2 - T2 * zz1 - T3 * z12 + T4 * z12)
+                     - wp2 * Sb * Sx);
+    }
+};
+
 // Analytic gradient g[3] and Hessian H[6] (00, 11, 22, 01, 02, 12) of the
 // joint log-likelihood at theta.
-__device__ void grad_hess(const float th[3], const Pair& s, const Window& w,
-                          float g[3], float H[6]) {
-    const int q = w.q, kmin = w.kmin, K = w.K, kmax = kmin + K - 1;
+__device__ void grad_hess(const float th[3], const Column& s,
+                          const Window& w, float g[3], float H[6]) {
     const float m = w.m;
     const float la = expf(th[0]), lb = expf(th[1]), lx = expf(th[2]);
-    float cu = chain_seed(la / m, w.hi);
-    float cv = chain_seed(lb / m, w.hi);
-    float cx = chain_seed(lx / m, w.hi);
+    const float zhi = pow2neg(w.hi);
+    Chains c{chain_seed(la / m, zhi), chain_seed(lb / m, zhi),
+             chain_seed(lx / m, zhi)};
     // marginal sums: gt_a (A), gt_b (B), lt_b (AB), lt_a (BA)
     float d1A = 0.f, d2A = 0.f, d1B = 0.f, d2B = 0.f;
     float d1AB = 0.f, d2AB = 0.f, d1BA = 0.f, d2BA = 0.f;
     float tA1 = 0.f, tA2 = 0.f, tB1 = 0.f, tB2 = 0.f;
     float tAB1 = 0.f, tAB2 = 0.f, tBA1 = 0.f, tBA2 = 0.f;
-    // diagonal sums
-    float sga = 0.f, sgb = 0.f, sgx = 0.f;
-    float sHaa = 0.f, sHbb = 0.f, sHxx = 0.f, sHab = 0.f, sHax = 0.f,
-          sHbx = 0.f;
-    for (int k = kmax; k >= kmin; --k) {
-        const int l = k - kmin;
-        float cu1 = 0.f, cv1 = 0.f, cx1 = 0.f;
-        if (k == q + 1) {
-            // top bin: the chain stays at q for the next level
-            const float zq = pow2neg(q);
-            const float u = 1.f - cu, v = 1.f - cv, xh = 1.f - cx;
-            marg_top(s.ga[l], (zq * u) / cu, zq, tA1, tA2);
-            marg_top(s.gb[l], (zq * v) / cv, zq, tB1, tB2);
-            marg_top(lt_b(s, l), ((zq * v) * xh) / comb(cv, cx), zq, tAB1,
-                     tAB2);
-            marg_top(lt_a(s, l), ((zq * u) * xh) / comb(cu, cx), zq, tBA1,
-                     tBA2);
-        } else {
-            if (k >= 1) {
-                cu1 = cu * (2.f - cu);
-                cv1 = cv * (2.f - cv);
-                cx1 = cx * (2.f - cx);
-            }
-            if (k >= w.lo) {
-                const float z = pow2neg(k);
-                const float u = 1.f - cu, v = 1.f - cv, xh = 1.f - cx;
-                marg(s.ga[l], z, u, cu, d1A, d2A);
-                marg(s.gb[l], z, v, cv, d1B, d2B);
-                marg(lt_b(s, l), z, v * xh, comb(cv, cx), d1AB, d2AB);
-                marg(lt_a(s, l), z, u * xh, comb(cu, cx), d1BA, d2BA);
-            }
-        }
-        const float zk = k <= q ? pow2neg(k) : 0.f;
-        const float zk1 = k >= 1 ? pow2neg(k - 1) : 0.f;
-        float T[5];
-        chain_T_P(k, q, cu, cv, cx, cu1, cv1, cx1, T);
-        const float T1 = T[0], T2 = T[1], T3 = T[2], T4 = T[3];
-        const float P = nmax(T[4], 1e-30f);
-        const float wt = s.eq[l];
-        const bool wpos = wt > 0.f;
-        const float Sa = -T1 * zk + T2 * zk1 + T3 * zk - T4 * zk1;
-        const float Sb = -T1 * zk + T2 * zk + T3 * zk1 - T4 * zk1;
-        const float Sx = -T1 * zk + T2 * zk1 + T3 * zk1 - T4 * zk1;
-        const float wp = wpos ? wt / P : 0.f;
-        const float wp2 = wpos ? wp / P : 0.f;
-        const float z2 = zk * zk, z12 = zk1 * zk1, zz1 = zk * zk1;
-        sga = sga + wp * Sa;
-        sgb = sgb + wp * Sb;
-        sgx = sgx + wp * Sx;
-        sHaa = sHaa + (wp * (T1 * z2 - T2 * z12 - T3 * z2 + T4 * z12)
-                       - wp2 * Sa * Sa);
-        sHbb = sHbb + (wp * (T1 * z2 - T2 * z2 - T3 * z12 + T4 * z12)
-                       - wp2 * Sb * Sb);
-        sHxx = sHxx + (wp * (T1 * z2 - T2 * z12 - T3 * z12 + T4 * z12)
-                       - wp2 * Sx * Sx);
-        sHab = sHab + (wp * (T1 * z2 - T2 * zz1 - T3 * zz1 + T4 * z12)
-                       - wp2 * Sa * Sb);
-        sHax = sHax + (wp * (T1 * z2 - T2 * z12 - T3 * zz1 + T4 * z12)
-                       - wp2 * Sa * Sx);
-        sHbx = sHbx + (wp * (T1 * z2 - T2 * zz1 - T3 * z12 + T4 * z12)
-                       - wp2 * Sb * Sx);
-        if (k != q + 1) {
-            cu = cu1;
-            cv = cv1;
-            cx = cx1;
-        }
+    Diag dg;
+    int l = w.K - 1;
+    if (w.hastop) {
+        // top bin q+1: the chain stays at q for the next level
+        const float zq = pow2neg(w.q);
+        const float u = 1.f - c.u, v = 1.f - c.v, xh = 1.f - c.x;
+        marg_top(s.ga(l), (zq * u) / c.u, zq, tA1, tA2);
+        marg_top(s.gb(l), (zq * v) / c.v, zq, tB1, tB2);
+        marg_top(s.ltb(l), ((zq * v) * xh) / comb(c.v, c.x), zq, tAB1,
+                 tAB2);
+        marg_top(s.lta(l), ((zq * u) * xh) / comb(c.u, c.x), zq, tBA1,
+                 tBA2);
+        dg.add(s.eq(l), true, false, c, Chains{0.f, 0.f, 0.f}, 0.f, zq);
+        --l;
+    }
+    const int lmid = w.has0 ? 1 : 0;        // level 0 is peeled below
+#pragma unroll 2
+    for (; l >= lmid; --l) {
+        const int k = w.kmin + l;
+        const Chains c1 = c.step();
+        const float z = pow2neg(k);
+        const float u = 1.f - c.u, v = 1.f - c.v, xh = 1.f - c.x;
+        marg(s.ga(l), z, u, c.u, d1A, d2A);
+        marg(s.gb(l), z, v, c.v, d1B, d2B);
+        marg(s.ltb(l), z, v * xh, comb(c.v, c.x), d1AB, d2AB);
+        marg(s.lta(l), z, u * xh, comb(c.u, c.x), d1BA, d2BA);
+        dg.add(s.eq(l), false, false, c, c1, z, pow2neg(k - 1));
+        c = c1;
     }
     if (w.has0) {
-        d1A = d1A - s.ga[0];
-        d1B = d1B - s.gb[0];
-        d1AB = d1AB - lt_b(s, 0);
-        d1BA = d1BA - lt_a(s, 0);
+        dg.add(s.eq(0), false, true, c, Chains{0.f, 0.f, 0.f}, 1.f, 0.f);
+        d1A = d1A - s.ga(0);
+        d1B = d1B - s.gb(0);
+        d1AB = d1AB - s.ltb(0);
+        d1BA = d1BA - s.lta(0);
     }
     if (w.hastop) {
         d1A = d1A + tA1;  d2A = d2A + tA2;
@@ -212,15 +230,17 @@ __device__ void grad_hess(const float th[3], const Pair& s, const Window& w,
         d1AB = d1AB + tAB1;  d2AB = d2AB + tAB2;
         d1BA = d1BA + tBA1;  d2BA = d2BA + tBA2;
     }
-    const float gg[3] = {(d1A + d1BA) + sga, (d1B + d1AB) + sgb,
-                         (d1AB + d1BA) + sgx};
-    const float HH[6] = {(d2A + d2BA) + sHaa, (d2B + d2AB) + sHbb,
-                         (d2AB + d2BA) + sHxx, sHab, d2BA + sHax,
-                         d2AB + sHbx};
+    const float gg[3] = {(d1A + d1BA) + dg.ga, (d1B + d1AB) + dg.gb,
+                         (d1AB + d1BA) + dg.gx};
+    const float HH[6] = {(d2A + d2BA) + dg.Haa, (d2B + d2AB) + dg.Hbb,
+                         (d2AB + d2BA) + dg.Hxx, dg.Hab, d2BA + dg.Hax,
+                         d2AB + dg.Hbx};
     const float lam[3] = {la, lb, lx};
     const float mm = m * m;
+#pragma unroll
     for (int a = 0; a < 3; ++a) g[a] = lam[a] * (gg[a] / m);
     const int ia[6] = {0, 1, 2, 0, 0, 1}, ib[6] = {0, 1, 2, 1, 2, 2};
+#pragma unroll
     for (int e = 0; e < 6; ++e) {
         const float h = (lam[ia[e]] * lam[ib[e]] / mm) * HH[e];
         H[e] = e < 3 ? h + g[e] : h;
@@ -228,55 +248,57 @@ __device__ void grad_hess(const float th[3], const Pair& s, const Window& w,
 }
 
 // Joint log-likelihood at theta (the final guard), by the same chains.
-__device__ float logl(const float th[3], const Pair& s, const Window& w) {
-    const int q = w.q, kmin = w.kmin, K = w.K, kmax = kmin + K - 1;
+__device__ float logl(const float th[3], const Column& s, const Window& w) {
     const float m = w.m;
     const float la = expf(th[0]), lb = expf(th[1]), lx = expf(th[2]);
     const float xa = la / m, xb = lb / m, xab = (lb + lx) / m,
                 xba = (la + lx) / m;
-    float cu = chain_seed(la / m, w.hi);
-    float cv = chain_seed(lb / m, w.hi);
-    float cx = chain_seed(lx / m, w.hi);
+    const float zhi = pow2neg(w.hi);
+    Chains c{chain_seed(la / m, zhi), chain_seed(lb / m, zhi),
+             chain_seed(lx / m, zhi)};
+    const Chains none{0.f, 0.f, 0.f};
     float LA = 0.f, LB = 0.f, LAB = 0.f, LBA = 0.f, Ld = 0.f;
     float tA = 0.f, tB = 0.f, tAB = 0.f, tBA = 0.f;
-    for (int k = kmax; k >= kmin; --k) {
-        const int l = k - kmin;
-        float cu1 = 0.f, cv1 = 0.f, cx1 = 0.f;
-        if (k == q + 1) {
-            tA = s.ga[l] * logf(cu);
-            tB = s.gb[l] * logf(cv);
-            tAB = lt_b(s, l) * logf(comb(cv, cx));
-            tBA = lt_a(s, l) * logf(comb(cu, cx));
-        } else {
-            if (k >= 1) {
-                cu1 = cu * (2.f - cu);
-                cv1 = cv * (2.f - cv);
-                cx1 = cx * (2.f - cx);
-            }
-            if (k >= w.lo) {
-                const float z = pow2neg(k);
-                LA = LA + s.ga[l] * (-(xa * z) + logf(cu));
-                LAB = LAB + lt_b(s, l) * (-(xab * z) + logf(comb(cv, cx)));
-                LB = LB + s.gb[l] * (-(xb * z) + logf(cv));
-                LBA = LBA + lt_a(s, l) * (-(xba * z) + logf(comb(cu, cx)));
-            }
+    float Tv[5];
+    int l = w.K - 1;
+    if (w.hastop) {
+        tA = s.ga(l) * logf(c.u);
+        tB = s.gb(l) * logf(c.v);
+        tAB = s.ltb(l) * logf(comb(c.v, c.x));
+        tBA = s.lta(l) * logf(comb(c.u, c.x));
+        const float wt = s.eq(l);
+        if (wt > 0.f) {
+            chain_T_P(true, false, c, none, Tv);
+            Ld = Ld + wt * logf(nmax(Tv[4], 1e-30f));
         }
-        float T[5];
-        chain_T_P(k, q, cu, cv, cx, cu1, cv1, cx1, T);
-        const float P = nmax(T[4], 1e-30f);
-        const float wt = s.eq[l];
-        Ld = Ld + (wt > 0.f ? wt * logf(P) : 0.f);
-        if (k != q + 1) {
-            cu = cu1;
-            cv = cv1;
-            cx = cx1;
+        --l;
+    }
+    const int lmid = w.has0 ? 1 : 0;
+#pragma unroll 1
+    for (; l >= lmid; --l) {
+        const Chains c1 = c.step();
+        const float z = pow2neg(w.kmin + l);
+        LA = LA + s.ga(l) * (-(xa * z) + logf(c.u));
+        LAB = LAB + s.ltb(l) * (-(xab * z) + logf(comb(c.v, c.x)));
+        LB = LB + s.gb(l) * (-(xb * z) + logf(c.v));
+        LBA = LBA + s.lta(l) * (-(xba * z) + logf(comb(c.u, c.x)));
+        const float wt = s.eq(l);
+        if (wt > 0.f) {
+            chain_T_P(false, false, c, c1, Tv);
+            Ld = Ld + wt * logf(nmax(Tv[4], 1e-30f));
         }
+        c = c1;
     }
     if (w.has0) {
-        LA = LA + s.ga[0] * (-xa);
-        LAB = LAB + lt_b(s, 0) * (-xab);
-        LB = LB + s.gb[0] * (-xb);
-        LBA = LBA + lt_a(s, 0) * (-xba);
+        const float wt = s.eq(0);
+        if (wt > 0.f) {
+            chain_T_P(false, true, c, none, Tv);
+            Ld = Ld + wt * logf(nmax(Tv[4], 1e-30f));
+        }
+        LA = LA + s.ga(0) * (-xa);
+        LAB = LAB + s.ltb(0) * (-xab);
+        LB = LB + s.gb(0) * (-xb);
+        LBA = LBA + s.lta(0) * (-xba);
     }
     if (w.hastop) {
         LA = LA + tA;
@@ -287,7 +309,8 @@ __device__ float logl(const float th[3], const Pair& s, const Window& w) {
     return (((LA + LAB) + LB) + LBA) + Ld;
 }
 
-__device__ void solve3_sym(const float H[6], const float g[3], float x[3]) {
+__device__ __forceinline__ void solve3_sym(const float H[6], const float g[3],
+                                           float x[3]) {
     const float a = H[0], b = H[3], c = H[4], d = H[1], e = H[5], f = H[2];
     const float A = d * f - e * e;
     const float B = c * e - b * f;
@@ -302,33 +325,31 @@ __device__ void solve3_sym(const float H[6], const float g[3], float x[3]) {
     x[2] = (C * g[0] + E * g[1] + F * g[2]) / det;
 }
 
-__global__ void joint_mle_kernel(const float* __restrict__ eq,
-                                 const float* __restrict__ gta,
-                                 const float* __restrict__ gtb,
-                                 const float* __restrict__ ha,
-                                 const float* __restrict__ hb,
-                                 const float* __restrict__ ca,
-                                 const float* __restrict__ cb,
-                                 float* __restrict__ out, int na, int nb,
-                                 Window w, int iters) {
+__global__ void __launch_bounds__(THREADS)
+joint_mle_kernel(const float* __restrict__ eq, const float* __restrict__ gta,
+                 const float* __restrict__ gtb, const float* __restrict__ ha,
+                 const float* __restrict__ hb, const float* __restrict__ ca,
+                 const float* __restrict__ cb, float* __restrict__ out,
+                 int na, int nb, Window w, int iters) {
+    extern __shared__ float smem[];            // [NSTATS][K][THREADS]
     const long long npairs = (long long)na * nb;
-    const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (idx >= npairs) return;
     const int i = (int)(idx / nb);
     const int j = (int)(idx - (long long)i * nb);
-    float e[KMAX], ga[KMAX], gb[KMAX];
-    float c_u;
-    {
-        float hu[KMAX];
-        for (int l = 0; l < w.K; ++l) {
-            e[l] = __ldg(eq + (long long)l * npairs + idx);
-            ga[l] = __ldg(gta + (long long)l * npairs + idx);
-            gb[l] = __ldg(gtb + (long long)l * npairs + idx);
-            hu[l] = e[l] + ga[l] + gb[l];
-        }
-        c_u = improved_est(hu, w);
+    const Column s{smem + threadIdx.x, w.K};
+    for (int l = 0; l < w.K; ++l) {
+        const long long o = (long long)l * npairs + idx;
+        const float eql = __ldg(eq + o), ga = __ldg(gta + o),
+                    gb = __ldg(gtb + o);
+        s.eq(l) = eql;
+        s.ga(l) = ga;
+        s.gb(l) = gb;
+        s.lta(l) = (__ldg(ha + (long long)l * na + i) - eql) - ga;
+        s.ltb(l) = (__ldg(hb + (long long)l * nb + j) - eql) - gb;
     }
-    const Pair s{e, ga, gb, ha + i, hb + j, na, nb};
+    const float c_u = improved_win<KMAX>(
+        [&](int l) { return (s.eq(l) + s.ga(l)) + s.gb(l); }, w.K, w);
     const float c_a = __ldg(ca + i), c_b = __ldg(cb + j);
     const float tiny = 1e-3f;
     const float th0[3] = {logf(nmax(c_u - c_b, tiny)),
@@ -342,11 +363,13 @@ __global__ void joint_mle_kernel(const float* __restrict__ eq,
         H[1] = H[1] - 1e-4f;
         H[2] = H[2] - 1e-4f;
         solve3_sym(H, g, st);
+#pragma unroll
         for (int a = 0; a < 3; ++a) st[a] = isfinite(st[a]) ? st[a] : 0.f;
         const float norm = sqrtf(st[0] * st[0] + st[1] * st[1]
                                  + st[2] * st[2]);
         const float scale = fminf(2.f / nmax(norm, 1e-9f), 1.f);
         float nw[3];
+#pragma unroll
         for (int a = 0; a < 3; ++a) nw[a] = th[a] - st[a] * scale;
         if (isfinite(nw[0]) && isfinite(nw[1]) && isfinite(nw[2]))
             for (int a = 0; a < 3; ++a) th[a] = nw[a];
@@ -378,8 +401,17 @@ extern "C" int dtt_joint_mle(const void* eq, const void* gta, const void* gtb,
         return (int)cudaErrorInvalidValue;
     const long long npairs = (long long)na * nb;
     if (npairs == 0) return (int)cudaGetLastError();
-    const long long blocks = (npairs + THREADS - 1) / THREADS;
-    joint_mle_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+    const int smem = NSTATS * K * THREADS * (int)sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        joint_mle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        NSTATS * KMAX * THREADS * (int)sizeof(float));
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            joint_mle_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned blocks = (unsigned)((npairs + THREADS - 1) / THREADS);
+    joint_mle_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)eq, (const float*)gta, (const float*)gtb,
         (const float*)ha, (const float*)hb, (const float*)ca,
         (const float*)cb, (float*)out, na, nb, w, iters);

@@ -104,9 +104,12 @@ def triples_from_stats(stats: Dict[str, torch.Tensor], p: int, estim: int,
                             stats["hist_a"].T, stats["hist_b"].T, c_a, c_b,
                             p=p, kmin=kmin)
         return tri.permute(1, 2, 0)
-    c_a = estimate_rows(stats["hist_a"], p=p, kmin=kmin, method=estim)
+    # the marginals by the union kernel's own form of the estimator
+    c_a = estimate_rows(stats["hist_a"], p=p, kmin=kmin, method=estim,
+                        chain=True)
     c_b = (c_a if stats["hist_b"] is stats["hist_a"] else
-           estimate_rows(stats["hist_b"], p=p, kmin=kmin, method=estim))
+           estimate_rows(stats["hist_b"], p=p, kmin=kmin, method=estim,
+                         chain=True))
     cumT = stats["cum_union"].permute(2, 0, 1)
     tri = union_triples(cumT, c_a, c_b, p=p, kmin=kmin, method=estim)
     return tri.permute(1, 2, 0)

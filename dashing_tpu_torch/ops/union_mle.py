@@ -8,8 +8,9 @@ with the chosen estimator and return (3, na, nb) float32
 (onlyA, onlyB, shared) with shared = max(0, c_a + c_b - c_u).
 
 `estimate_rows` runs the same estimators, from the same CUDA file, on
-(n, K) histogram rows: the marginal cardinalities of a compare tile and
-the sizes of `dist -o`.
+(n, K) histogram rows: the marginal cardinalities of a compare tile (MLE
+by the chain, as union_triples) and the sizes of `dist -o` (MLE by the
+direct form, an expm1 per level).
 
 Both wrappers launch their CUDA kernel for CUDA tensors and run the plain
 PyTorch version (the windowed estimators of sketch/estimators.py) for CPU
@@ -29,15 +30,20 @@ launches = 0               # union_triples
 estimate_launches = 0      # estimate_rows
 
 KMAX = 66   # largest level window the kernel holds (pairwise._K_BUCKETS)
+_MLE_CHAIN = 3   # dtt_estimate_rows' code for ERTL_MLE by the chain
 
 
 def union_triples_plain(cum: torch.Tensor, c_a: torch.Tensor,
                         c_b: torch.Tensor, *, p: int, kmin: int,
                         method: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, same layout in and out."""
+    """Plain PyTorch version of the kernel, same layout in and out; MLE by
+    the complement chain, as the kernel and the TPU kernel run it."""
     cumL = cum.permute(1, 2, 0)                       # (na, nb, K)
     hist = torch.cat([cumL[..., :1], cumL[..., 1:] - cumL[..., :-1]], dim=-1)
-    c_u = est.estimate_windowed(hist, p, kmin, method)
+    if method == est.ERTL_MLE:
+        c_u = est.mle_estimate_windowed_chain(hist, p, kmin)
+    else:
+        c_u = est.estimate_windowed(hist, p, kmin, method)
     shared = torch.clamp(c_a[:, None] + c_b[None, :] - c_u, min=0.0)
     only_a = torch.clamp(c_a[:, None] - shared, min=0.0)
     only_b = torch.clamp(c_b[None, :] - shared, min=0.0)
@@ -97,18 +103,25 @@ def union_triples(cum: torch.Tensor, c_a: torch.Tensor, c_b: torch.Tensor,
 
 
 def estimate_rows_plain(hist: torch.Tensor, *, p: int, kmin: int,
-                        method: int, iters: int = est.WINDOW_MLE_ITERS
-                        ) -> torch.Tensor:
+                        method: int, iters: int = est.WINDOW_MLE_ITERS,
+                        chain: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the row-estimate kernel."""
     if method == est.ERTL_MLE:
+        if chain:
+            return est.mle_estimate_windowed_chain(hist, p, kmin, iters=iters)
         return est.mle_estimate_windowed(hist, p, kmin, iters=iters)
     return est.estimate_windowed(hist, p, kmin, method)
 
 
 def estimate_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
-                  iters: int = est.WINDOW_MLE_ITERS) -> torch.Tensor:
+                  iters: int = est.WINDOW_MLE_ITERS, chain: bool = False
+                  ) -> torch.Tensor:
     """(n, K) float32 histograms over levels kmin..kmin+K-1 -> (n,) float32
-    cardinality estimates; `iters` Newton steps for ERTL_MLE."""
+    cardinality estimates; `iters` Newton steps for ERTL_MLE, by the
+    direct form or, with `chain`, by the complement chain that
+    union_triples takes (the marginals of a compare tile: a pair's union
+    and its marginals then come from one function, so a pair beside an
+    empty sketch shares exactly 0 and identical sketches share all)."""
     if hist.dim() != 2 or hist.dtype != torch.float32:
         raise TypeError("hist must be (n, K) float32")
     n, K = hist.shape
@@ -117,16 +130,17 @@ def estimate_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
         raise ValueError(f"iters must be >= 0, got {iters}")
     if hist.device.type == "cpu":
         return estimate_rows_plain(hist, p=p, kmin=kmin, method=method,
-                                   iters=iters)
+                                   iters=iters, chain=chain)
     if hist.device.type != "cuda":
         raise ValueError(f"unsupported device {hist.device}")
     hist = hist.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=hist.device)
     lib = _lib()
     stream = torch.cuda.current_stream(hist.device).cuda_stream
+    code = _MLE_CHAIN if chain and method == est.ERTL_MLE else method
     with torch.cuda.device(hist.device):
         err = lib.dtt_estimate_rows(hist.data_ptr(), out.data_ptr(), n, K, p,
-                                    kmin, method, iters, stream)
+                                    kmin, code, iters, stream)
     _build.check(err, "estimate_rows", lib)
     global estimate_launches
     estimate_launches += 1

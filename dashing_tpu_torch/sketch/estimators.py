@@ -9,10 +9,13 @@ every register lies inside the window.
 
 These are the plain versions of the estimators in csrc/union_mle.cu (the
 union-MLE kernel and the row-estimate kernel, ops/union_mle.py); on the
-card those kernels run instead.  They are written in the kernels'
-operation order:
-sums over levels run level by level from the lowest, every operation
-rounds on its own (the kernel is built without FMA contraction), and
+card those kernels run instead.  Single-sketch estimates (`-o` sizes,
+HLL.report) take the direct MLE, an expm1 per level, as the JAX package
+does; a compare tile's unions and marginals take the complement chain
+(`mle_estimate_windowed_chain`, the TPU kernel's form).  They are written
+in the kernels' operation order: sums over levels run level by level
+(from the lowest, the chain's from the top), every operation rounds on
+its own (the kernel is built without FMA contraction), and
 scalar-over-tensor divisions are true divisions (torch's `scalar /
 tensor` is a reciprocal and a multiply).  Union estimates of millions
 then agree to the last bits, which matters because the set triples
@@ -156,6 +159,57 @@ def mle_estimate_windowed(Cw: torch.Tensor, p: int, kmin: int,
     est = torch.exp(u) * m
     # full first, empty LAST: a zero-mass histogram satisfies both masks
     # and must give 0, not inf
+    est = torch.where(full, torch.inf, est)
+    return torch.where(empty, 0.0, est)
+
+
+def mle_estimate_windowed_chain(Cw: torch.Tensor, p: int, kmin: int,
+                                iters: int = WINDOW_MLE_ITERS
+                                ) -> torch.Tensor:
+    """mle_estimate_windowed by the complement chain, the form of the TPU
+    kernel (the JAX package's K-first `_mle_dlogl12_chain`) and of the
+    union-MLE kernel (csrc/hll_estimators.cuh `mle_chain_win`), in that
+    kernel's operation order.  Per Newton step ONE expm1 seed at the
+    window's highest mid level hi (q when the window holds the top bin)
+    gives c = 1 - exp(-x 2^-l) at every mid level l by c[l-1] = c[l] (2 -
+    c[l]), and w = z ((1 - c) / c) takes the place of z / expm1(x z);
+    mid levels are summed from the top down."""
+    m = float(1 << p)
+    q = 64 - p
+    K = Cw.shape[-1]
+    kmax = kmin + K - 1
+    lo, hi = max(kmin, 1), min(kmax, q)
+    c0, ctop, _ = _win_parts(Cw, p, kmin)
+    mtot = Cw.sum(-1)
+    empty = c0 >= mtot
+    full = ctop >= mtot
+    x0 = torch.clamp(improved_estimate_windowed(Cw, p, kmin) / m,
+                     1e-12, 2.0 ** (q + 1))
+    u = torch.log(x0)
+    zq, zhi = 2.0 ** -q, 2.0 ** -hi
+    for _ in range(iters):
+        x = torch.exp(u)
+        chi = torch.clamp(-torch.expm1(-(x * zhi)), min=1e-30)
+        c = chi
+        d1 = torch.zeros_like(x)
+        d2 = torch.zeros_like(x)
+        for l in range(hi, lo - 1, -1):
+            z = 2.0 ** -l
+            w = z * ((1.0 - c) / c)
+            h = Cw[..., l - kmin]
+            d1 = d1 + h * (w - z)
+            d2 = d2 + h * (-(w * w + z * w))
+            c = c * (2.0 - c)
+        d1 = d1 - c0
+        if kmax == q + 1:               # c_q is the seed: hi = q
+            wq = zq * (1.0 - chi) / chi
+            d1 = d1 + ctop * wq
+            d2 = d2 + ctop * (-(wq * wq + zq * wq))
+        dldu = x * d1
+        d2 = dldu + x * x * d2
+        step = dldu / torch.clamp(d2, max=-1e-9)
+        u = u - torch.clamp(step, -1.0, 1.0)
+    est = torch.exp(u) * m
     est = torch.where(full, torch.inf, est)
     return torch.where(empty, 0.0, est)
 

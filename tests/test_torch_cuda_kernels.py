@@ -8,8 +8,9 @@ on the edges, ASCII rows of every width mod 16, chunks that are row-offset
 views (unaligned pointers), a ring of fresh registers at p = 16 and 31;
 registers at 0 and at q+1, windows reaching
 q+1, empty histograms and sketches, the widest joint window, both forms
-of K4 bitwise at p = 4 to 18 and 1 to 1000 rows).  Marked `cuda`: they
-skip without a card.  Run them on one:
+of K4 bitwise at p = 4 to 18 and 1 to 1000 rows; K3 and K5 bitwise at
+every window width, on ragged blocks, single pairs and row-offset
+views).  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -275,9 +276,87 @@ def test_union_kernel_matches_plain(rng, cuda, method, p, kmin, kmax, hi):
     want = um.union_triples_plain(cumT, c_a, c_b, p=p, kmin=kmin,
                                   method=method)
     torch.cuda.synchronize()
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-2)
+    # bit for bit, NaN and infinity in the same places
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _window_bank(rng, n, p, kmin, kmax):
+    """kmin + Geometric(1/2) - 1 registers clipped to the window, with an
+    empty row (all at kmin), and with a window reaching q+1 a fully
+    saturated row and a few top-bin registers in others."""
+    r = np.clip(rng.geometric(0.5, size=(n, 1 << p)) - 1 + kmin
+                + rng.integers(0, 4, size=(n, 1)), kmin, kmax)
+    r[0] = kmin
+    if kmax == 64 - p + 1:
+        r[-1] = kmax
+        r[1::4, :3] = kmax
+    return r
+
+
+# every bucketed window width (pairwise._K_BUCKETS up to 58) and the
+# widest clipped one, with and without bin 0 and the top bin q+1
+BUCKET_WINDOWS = [
+    (12, 0, 8),      # bin 0, the narrowest bucket
+    (14, 3, 16),
+    (14, 5, 24),
+    (14, 2, 32),     # the measured compare shape
+    (16, 0, 32),     # config 2's p
+    (12, 4, 44),     # interior
+    (16, 6, 44),     # reaching q+1 = 49 with kmin > 0
+    (8, 0, 58),      # 0..q+1
+    (10, 1, 55),     # 1..q+1: a width outside the buckets
+    (4, 0, 62),      # 0..q+1 at p=4, the widest window a kernel takes
+]
+
+
+@pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,
+                                    est.ERTL_MLE])
+@pytest.mark.parametrize("p,kmin,K", BUCKET_WINDOWS)
+def test_union_kernel_bitwise_every_window(rng, cuda, method, p, kmin, K):
+    """K3 against its plain version bit for bit at every window width, on
+    ragged pair blocks, a single pair and a row-offset view."""
+    kmax = kmin + K - 1
+    a = torch.from_numpy(_window_bank(rng, 45, p, kmin, kmax)).to(
+        cuda, torch.int8)
+    b = torch.from_numpy(_window_bank(rng, 259, p, kmin, kmax)).to(
+        cuda, torch.int8)
+    stats = pw.pair_stats(a, b, kmax, kmin)
+    c_a = um.estimate_rows(stats["hist_a"], p=p, kmin=kmin, method=method,
+                           chain=True)
+    c_b = um.estimate_rows(stats["hist_b"], p=p, kmin=kmin, method=method,
+                           chain=True)
+    cumT = stats["cum_union"].permute(2, 0, 1)
+    for rows, cols in ((slice(None), slice(None)),     # 45 x 259
+                       (slice(3, 40), slice(7, 200)),  # row-offset view
+                       (slice(1, 2), slice(0, 1))):    # one pair
+        view = cumT[:, rows, cols]
+        got = um.union_triples(view, c_a[rows], c_b[cols], p=p, kmin=kmin,
+                               method=method)
+        want = um.union_triples_plain(view, c_a[rows], c_b[cols], p=p,
+                                      kmin=kmin, method=method)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    rows = um.estimate_rows_plain(stats["hist_a"], p=p, kmin=kmin,
+                                  method=method, chain=True)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(c_a.cpu().numpy(), rows.cpu().numpy())
+
+
+def test_union_kernel_exact_beside_empty_and_identical(rng, cuda):
+    """On the card as on the CPU: the marginals (row kernel, chain) and the
+    union (K3) of an empty or identical sketch agree to the last bit, so
+    a pair beside an empty sketch shares exactly 0 and identical sketches
+    share exactly all."""
+    p, kmin, kmax = 14, 0, 31
+    a = _window_bank(rng, 40, p, kmin, kmax)
+    a[2] = a[1]
+    ta = torch.from_numpy(a).to(cuda, torch.int8)
+    st = pw.pair_stats(ta, ta, kmax, kmin, same=True)
+    tri = pw.triples_from_stats(st, p, est.ERTL_MLE, est.ERTL_MLE, kmin)
+    torch.cuda.synchronize()
+    tri = tri.cpu()
+    assert torch.equal(tri[0, :, 2], torch.zeros(40))
+    assert tri[1, 2, 0] == 0 and tri[1, 2, 1] == 0 and tri[1, 2, 2] > 0
 
 
 @pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,
@@ -380,17 +459,42 @@ def test_joint_mle_kernel_matches_plain(rng, cuda, p, kmin, K):
     want = jm.joint_triples_plain(*args, p=p, kmin=kmin)
     torch.cuda.synchronize()
     got, want = got.cpu().numpy(), want.cpu().numpy()
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    fin = np.isfinite(want)
-    np.testing.assert_allclose(got[fin], want[fin], rtol=2e-4, atol=5e-2)
-    with np.errstate(invalid="ignore"):
-        ji_g = got[2] / np.maximum(got.sum(0), 1e-30)
-        ji_w = want[2] / np.maximum(want.sum(0), 1e-30)
-    ok = np.isfinite(ji_w)
-    np.testing.assert_allclose(ji_g[ok], ji_w[ok], atol=2e-6)
+    # bit for bit, NaN and infinity in the same places
+    np.testing.assert_array_equal(got, want)
     if kmin == 0:
         assert (got[[0, 2], 0] == 0).all()       # A empty: la = lx = 0
+
+
+@pytest.mark.parametrize("p,kmin,K", BUCKET_WINDOWS)
+def test_joint_mle_kernel_bitwise_every_window(rng, cuda, p, kmin, K):
+    """K5 against its plain version bit for bit at every window width, on
+    ragged pair blocks, a single pair and a row-offset view of the
+    statistics; empty and saturated sketches included."""
+    kmax = kmin + K - 1
+    m = 1 << p
+    shared = np.minimum(rng.geometric(0.5, size=m) - 1 + kmin, kmax)
+    a = np.maximum(_window_bank(rng, 21, p, kmin, kmax), shared)
+    b = np.maximum(_window_bank(rng, 133, p, kmin, kmax), shared)
+    a[0] = kmin                       # empty sketch when kmin = 0
+    b[1] = kmin
+    ta = torch.from_numpy(a).to(cuda, torch.int8)
+    tb = torch.from_numpy(b).to(cuda, torch.int8)
+    st = pw.pair_stats(ta, tb, kmax, kmin, joint=True)
+    ca = um.estimate_rows(st["hist_a"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    cb = um.estimate_rows(st["hist_b"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    kf = [st[key].permute(2, 0, 1) for key in ("eq", "gt_a", "gt_b")]
+    ha, hb = st["hist_a"].T, st["hist_b"].T
+    for rows, cols in ((slice(None), slice(None)),     # 21 x 133
+                       (slice(5, 20), slice(3, 130)),  # row-offset view
+                       (slice(2, 3), slice(4, 5))):    # one pair
+        args = [t[:, rows, cols] for t in kf]
+        args += [ha[:, rows], hb[:, cols], ca[rows], cb[cols]]
+        before = jm.launches
+        got = jm.joint_triples(*args, p=p, kmin=kmin)
+        assert jm.launches == before + 1
+        want = jm.joint_triples_plain(*args, p=p, kmin=kmin)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 def test_joint_dist_through_the_kernels(cuda, rng):

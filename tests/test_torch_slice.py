@@ -396,12 +396,73 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-W"],
-    ["--use-range-minhash"], ["--countmin"], ["-c", "3"], ["-N"],
+    ["--use-range-minhash"], ["--countmin"], ["-c", "3", "-y"],
+    ["-N", "--cache-sketches"],
     ["--wj-exact"], ["--use-bb-minhash"], ["-y"], ["--nearest-neighbors", "3"],
 ])
 def test_out_of_slice_flags_refused(genomes, cpu_env, extra):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain.main(["dist", "-k", str(K)] + extra + genomes[:2])
+
+
+@pytest.fixture(scope="module")
+def fastq(genomes, tmp_path_factory):
+    """One genome's first 2 kbp as 20 FASTQ reads of 100 bases."""
+    seq = b"".join(l for l in open(genomes[0], "rb").read().splitlines()
+                   if not l.startswith(b">"))[:2000].upper()
+    path = tmp_path_factory.mktemp("fq") / "reads.fq"
+    path.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seq[i:i + 100],
+                                                      b"I" * 100)
+                              for i in range(0, 2000, 100)))
+    return str(path)
+
+
+def test_dist_count_min_parameters_match_jax_cli(genomes, tmp_path, cpu_env):
+    """-c/-q/-t/-R (and -N, which dist never reads) are stored and change
+    nothing without -y, as in the JAX CLI: the same matrix bytes as the
+    port's run without them, and the JAX CLI's matrix at the tolerance of
+    test_dist_matches_jax_cli."""
+    args = ["dist", "-k", str(K), "-S", str(S), "-M", "-b"]
+    cm = ["-c", "3", "-q", "2", "-t", "20", "-R", "7", "-N"]
+    out = {}
+    for tag, fn, extra in (("plain", tmain.main, []), ("port", tmain.main, cm),
+                           ("jax", jmain.main, cm)):
+        out[tag] = str(tmp_path / f"{tag}.bin")
+        assert fn(args + extra + ["-O", out[tag]] + genomes) == 0
+    with open(out["port"], "rb") as a, open(out["plain"], "rb") as b:
+        assert a.read() == b.read()
+    (nj, mj), (nt, mt) = (distmat.read_binary(out["jax"]),
+                          distmat.read_binary(out["port"]))
+    assert nj == nt == 6 and np.isfinite(mt).all()
+    np.testing.assert_allclose(mt, mj, rtol=1e-4, atol=1e-6)
+
+
+def test_sketch_count_min_parameters(genomes, fastq, tmp_path, cpu_env):
+    """sketch -n/-q/-H (threshold, sizes) and -b or -f at threshold 1 write
+    the plain sketches, byte for byte as the JAX CLI; -b with a threshold
+    above 1, -f above 1 on a FASTQ input, and dist -y are refused."""
+    for d in ("jax", "port"):
+        (tmp_path / d).mkdir()
+    args = ["sketch", "-k", str(K), "-S", str(S), "-q", "20", "-H", "2",
+            "-b", "-f", "-n", "1"]
+    assert jmain.main(args + ["-P", str(tmp_path / "jax")] + genomes[:2]
+                      + [fastq]) == 0
+    assert tmain.main(args + ["-P", str(tmp_path / "port")] + genomes[:2]
+                      + [fastq]) == 0
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port")) and len(names) == 3
+    for nm in names:
+        assert (_records(tmp_path / "port" / nm)
+                == _records(tmp_path / "jax" / nm)), nm
+    base = ["sketch", "-k", str(K), "-S", str(S), "-P", str(tmp_path)]
+    assert tmain.main(base + ["-f", "-n", "3"] + genomes[:2]) == 0
+    for refused in (["-b", "-n", "3"] + genomes[:1],
+                    ["--countmin", "--min-count", "2"] + genomes[:1],
+                    ["-f", "-n", "3", fastq]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tmain.main(base + refused)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        tmain.main(["dist", "-k", str(K), "-y", "-c", "3"] + genomes[:2])
 
 
 def test_out_of_slice_subcommands_refused(cpu_env):
