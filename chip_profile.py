@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_profile.py [--reps 3]
+    python3 chip_profile.py [--reps 3] [--only NAME] [--fastq-reads N]
+                            [--no-trace]
 
-Three workloads, each run `--reps` times untraced and then once under
-torch.profiler:
+Four workloads, each run `--reps` times untraced and then once under
+torch.profiler (not with --no-trace):
   config 2   `dist -k 31 -S 16 -M -b -O ... -o ...` through the CLI entry on
              the 100 synthetic 5 Mbp genomes of chip_smoke.py (same seed),
              with the DASHING_TPU_METRICS buckets of every untraced run;
@@ -13,7 +14,15 @@ torch.profiler:
              K4's X-only form (cum_union), the marginals and K3;
   j1000      the same engine with the joint MLE (-J) over the 1000-sketch
              p=14 bank of chip_smoke.py's K4 phase (one 1000 x 1000 tile,
-             Mash): kernels K4 and K5.
+             Mash): kernels K4 and K5;
+  fastq      BASELINE.json config 3: `sketch -k 31 -S 16` over the FASTQ
+             read set of chip_smoke.py's e2e (f) (--fastq-reads reads of
+             100 bases, default 1 M), plain and count-min filtered (-b -n 2
+             -q 28), with the buckets of each run: host.parse (and
+             host.parse.cm_count / .cm_admit, the parse within each
+             filter pass), sketch.cm_count and sketch.cm_admit (the host
+             wall of each pass); then the count-min's PyTorch ops on one
+             of the file's 256-row tiles, timed alone with CUDA events.
 For the traced run it prints the profiler's table (top ops by self device
 time) and the device busy share of that one run: the union of the device
 activity intervals in the trace over the run's wall clock.  The profiler
@@ -91,7 +100,7 @@ def buckets() -> str:
     return out
 
 
-def config2(dev, reps: int) -> None:
+def config2(dev, reps: int, trace: bool) -> None:
     import torch
     import chip_smoke
     from dashing_tpu_torch.cli.main import main
@@ -117,13 +126,14 @@ def config2(dev, reps: int) -> None:
             torch.cuda.synchronize()
             log(f"[config2] rep {r} wall {time.perf_counter() - t0:.4f}s; "
                 f"buckets: {buckets()}")
-        traced("config2", run)
+        if trace:
+            traced("config2", run)
         buckets()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def n1024(dev, reps: int) -> None:
+def n1024(dev, reps: int, trace: bool) -> None:
     import torch
     import chip_smoke
     from dashing_tpu_torch.ops import joint_stats as js
@@ -149,10 +159,11 @@ def n1024(dev, reps: int) -> None:
         log(f"[n1024] rep {r} compare {dt:.4f}s, "
             f"{n * (n - 1) / 2 / dt:.0f} pairs/s, K4 X-only launches "
             f"{js.cum_union_launches}")
-    traced("n1024", run)
+    if trace:
+        traced("n1024", run)
 
 
-def j1000(dev, reps: int) -> None:
+def j1000(dev, reps: int, trace: bool) -> None:
     import torch
     import chip_smoke
     from dashing_tpu_torch.ops import pairwise as pw
@@ -176,13 +187,104 @@ def j1000(dev, reps: int) -> None:
         dt = time.perf_counter() - t0
         log(f"[j1000] rep {r} compare -J {dt:.4f}s, "
             f"{n * (n - 1) / 2 / dt:.0f} pairs/s")
-    traced("j1000", run)
+    if trace:
+        traced("j1000", run)
+
+
+def fastq(dev, reps: int, reads: int, trace: bool) -> None:
+    import torch
+    import chip_smoke
+    from dashing_tpu_torch import metrics, pipeline
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops.hll_update import update_registers
+    rng = np.random.default_rng(chip_smoke.SEED + 3)
+    tmp = tempfile.mkdtemp(prefix="dtt_profile_fq_")
+    try:
+        fq = os.path.join(tmp, "reads.fq")
+        chip_smoke.write_reads(fq, rng, reads)
+        log(f"[fastq] {reads} reads, {os.path.getsize(fq) / 1e6:.1f} MB")
+        for label, extra in (("plain", []), ("filtered", [
+                "-b", "-n", "2", "-q", str(chip_smoke.FQ_CM_LOG2)])):
+            argv = ["sketch", "-k", "31", "-S", "16", "-P", tmp] + extra + [fq]
+
+            def run():
+                if main(list(argv)) != 0:
+                    raise SystemExit(f"fastq {label} returned nonzero")
+
+            run()
+            buckets()
+            for r in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                share = metrics.total("host.parse") / wall
+                log(f"[fastq {label}] rep {r} wall {wall:.4f}s, "
+                    f"{reads / wall:,.0f} reads/s, host.parse share "
+                    f"{share:.3f}; buckets: {buckets()}")
+            if trace:
+                traced(f"fastq {label}", run)
+                buckets()
+        # the count-min's PyTorch ops alone, on one full tile of the file
+        params = pipeline.SketchParams(
+            k=31, use_counting_filter=True, min_count=2,
+            cm_size_log2=chip_smoke.FQ_CM_LOG2)
+        sp = params.spacer()
+        kw = pipeline._encode_kw(params, sp)
+        tiles = pipeline._file_tiles(fq, sp)
+        tile = next(tiles)
+        ntiles = 1 + sum(1 for _ in tiles)
+        nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed
+        up = torch.from_numpy(tile).to(dev)
+        h, valid = pipeline.tile_hashes(up, **kw)
+        counts = torch.zeros((nh, 1 << size), dtype=torch.int32, device=dev)
+        regs = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+        times = {
+            "upload": chip_smoke.cuda_ms(
+                lambda: torch.from_numpy(tile).to(dev), 20),
+            "tile_hashes": chip_smoke.cuda_ms(
+                lambda: pipeline.tile_hashes(up, **kw), 20),
+            "_cm_add": chip_smoke.cuda_ms(
+                lambda: pipeline._cm_add(counts, h, valid, nh, size, seed), 20),
+            "_cm_query": chip_smoke.cuda_ms(
+                lambda: pipeline._cm_query(counts, h, nh, size, seed), 20),
+            "update_registers": chip_smoke.cuda_ms(
+                lambda: update_registers(regs, h, valid, 16), 20),
+        }
+        # the counting op alone, one row, against scatter_add_ on the same
+        # indices (both exact int32 atomics)
+        row = pipeline._cm_indices(h, 1, size, seed)[0].reshape(-1)
+        ones = valid.reshape(-1).to(torch.int32)
+        times["index_add_ row"] = chip_smoke.cuda_ms(
+            lambda: counts[0].index_add_(0, row, ones), 20)
+        times["scatter_add_ row"] = chip_smoke.cuda_ms(
+            lambda: counts[0].scatter_add_(0, row, ones), 20)
+        per_pass = (times["upload"] + times["tile_hashes"] + times["_cm_add"],
+                    times["upload"] + times["tile_hashes"] + times["_cm_query"]
+                    + times["update_registers"])
+        log(f"[fastq cm ops] one {tile.shape[0]}x{tile.shape[1]} tile of "
+            f"{ntiles}, ms: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in times.items())
+            + f"; so about {per_pass[0] * ntiles / 1e3:.3f}s of device work "
+            f"in the counting pass and {per_pass[1] * ntiles / 1e3:.3f}s in "
+            "the admitting pass, every tile hashed anew")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+WORKLOADS = ("config2", "n1024", "j1000", "fastq")
 
 
 def main() -> int:
     global _log_fp
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", choices=WORKLOADS,
+                    help="run this workload alone")
+    ap.add_argument("--fastq-reads", type=int, default=1_000_000)
+    ap.add_argument("--no-trace", action="store_true",
+                    help="skip the torch.profiler runs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -199,9 +301,14 @@ def main() -> int:
     dev = devmod.from_env()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
-    config2(dev, args.reps)
-    n1024(dev, args.reps)
-    j1000(dev, args.reps)
+    trace = not args.no_trace
+    runs = {"config2": lambda: config2(dev, args.reps, trace),
+            "n1024": lambda: n1024(dev, args.reps, trace),
+            "j1000": lambda: j1000(dev, args.reps, trace),
+            "fastq": lambda: fastq(dev, args.reps, args.fastq_reads, trace)}
+    for name in WORKLOADS:
+        if args.only in (None, name):
+            runs[name]()
     _log_fp.close()
     return 0
 

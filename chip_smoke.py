@@ -68,6 +68,18 @@ Phases, each printing its own lines with seconds:
                   n(n-1)/2 long, -s and ntHash planted pairs within
                   0.25 d + 0.001, and two genomes' registers on the card
                   bitwise equal to a CPU run of the same port code
+              (f) BASELINE.json config 3 at 1 M reads of 100 bases (213 MB
+                  of FASTQ, streamed; from one 5 Mbp genome, half
+                  reverse-complemented, 0.5 % substitution errors), k=31:
+                  `sketch -S 16` and `sketch -S 16 -b -n 2 -q 28`, their
+                  `card` within 2 % and 3 % of the exact distinct and
+                  twice-seen k-mer counts, filtered <= plain registers;
+                  `union` of the two equal to the plain sketch; `hll`
+                  (p=24) within 1 %; `dist -S 14 -M -y -c 2 -t 28` over the
+                  four quarters, every distance below the unfiltered one;
+                  the filtered registers of 20,000 reads on the card
+                  bitwise equal to the CPU run.  K1, the row-estimate
+                  kernel, K4's X-only form and K3 must launch in their steps
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path, times as CUDA-event means (K1 and K2 alone,
 with no host dispatch between launches), each kernel's bound
@@ -1486,6 +1498,224 @@ def _config2_kernels(dev, sketches, records):
              "config 2", records)
 
 
+# e2e (f), BASELINE.json config 3: FASTQ reads drawn from one genome, with
+# substitution errors for the count-min filter to remove
+FQ_READS = 1_000_000        # the config's 10 M cut to 1 M (PERF.md section 4)
+FQ_LEN = 100
+FQ_GENOME = 5_000_000
+FQ_ERR = 0.005              # planted substitutions a base
+FQ_RECORD = 1 + 7 + 1 + FQ_LEN + 1 + 2 + FQ_LEN + 1    # @id\nseq\n+\nqual\n
+FQ_CM_LOG2 = 28             # count-min counters a row: sketch -q, dist -t
+
+
+def write_reads(path: str, rng, n_reads: int, batch: int = 250_000):
+    """n_reads reads of FQ_LEN bases from one seeded FQ_GENOME-base genome,
+    half reverse-complemented, with FQ_ERR substitutions a base, as FASTQ
+    records of fixed width (`@` and a 7-digit id) written array by array.
+    Returns the reads' 2-bit codes, (n_reads, FQ_LEN) uint8."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    genome = rng.integers(0, 4, FQ_GENOME).astype(np.uint8)
+    codes = np.empty((n_reads, FQ_LEN), np.uint8)
+    with open(path, "wb") as fp:
+        for b0 in range(0, n_reads, batch):
+            n = min(batch, n_reads - b0)
+            starts = rng.integers(0, FQ_GENOME - FQ_LEN, n)
+            c = genome[starts[:, None] + np.arange(FQ_LEN)]
+            flip = rng.random(n) < 0.5
+            c[flip] = 3 - c[flip, ::-1]
+            flat = c.reshape(-1)
+            hit = rng.integers(0, flat.size, rng.binomial(flat.size, FQ_ERR))
+            flat[hit] = (flat[hit] + rng.integers(1, 4, hit.size)) & 3
+            codes[b0:b0 + n] = c
+            rec = np.empty((n, FQ_RECORD), np.uint8)
+            rec[:, 0] = ord("@")
+            ids = np.arange(b0, b0 + n)
+            for d in range(7):
+                rec[:, 7 - d] = ord("0") + (ids // 10 ** d) % 10
+            rec[:, 8] = ord("\n")
+            rec[:, 9:9 + FQ_LEN] = lut[c]
+            tail = 9 + FQ_LEN
+            rec[:, tail:tail + 3] = np.frombuffer(b"\n+\n", np.uint8)
+            rec[:, tail + 3:tail + 3 + FQ_LEN] = ord("I")
+            rec[:, -1] = ord("\n")
+            fp.write(rec.tobytes())
+    return codes
+
+
+def kmer_truth(codes: np.ndarray, k: int, dev):
+    """(distinct, seen at least twice) canonical k-mers of the reads: 2-bit
+    k-mers and reverse complements by shifts on the card, counted by
+    torch.unique; independent of the port's encoder."""
+    import torch
+    n = codes.shape[1] - k + 1
+    c = torch.from_numpy(codes).to(dev).long()
+    fwd = torch.zeros((codes.shape[0], n), dtype=torch.int64, device=dev)
+    rc = torch.zeros_like(fwd)
+    for j in range(k):
+        fwd = (fwd << 2) | c[:, j:j + n]
+        rc |= (3 - c[:, j:j + n]) << (2 * j)
+    _, counts = torch.unique(torch.minimum(fwd, rc), return_counts=True)
+    return counts.numel(), int((counts >= 2).sum())
+
+
+def _cli_regs(path: str) -> np.ndarray:
+    from dashing_tpu_torch.sketch.hll import HLL
+    return HLL.read(path).regs
+
+
+def _step(tag: str, wall: float, reads: int) -> None:
+    log(f"[e2e f] {tag}: wall {wall:.3f}s, {reads / wall:,.0f} reads/s")
+
+
+def phase_e2e_fastq(dev):
+    """(f) BASELINE.json config 3 at 1 M reads through the CLI entry, k=31:
+    plain and count-min filtered `sketch` (-b -n 2 -q 28: 2^28 x 4 int32
+    counters, 4 GiB) checked against the exact k-mer counts, `card` and
+    `union` of the two, `hll` at p=24, `dist -y` over the read set's four
+    quarters, and the filtered registers on the card against the CPU."""
+    import contextlib
+    import io
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    rng = np.random.default_rng(SEED + 3)
+    tmp = tempfile.mkdtemp(prefix="dtt_fastq_")
+    try:
+        t0 = time.perf_counter()
+        fq = os.path.join(tmp, "reads.fq")
+        codes = write_reads(fq, rng, FQ_READS)
+        size = os.path.getsize(fq)
+        if size <= pipeline.STREAM_THRESHOLD:
+            fail(f"e2e (f): {size} B of FASTQ does not stream")
+        quarters = []
+        with open(fq, "rb") as src:
+            for q in range(4):
+                quarters.append(os.path.join(tmp, f"q{q}.fq"))
+                with open(quarters[-1], "wb") as dst:
+                    dst.write(src.read(size // 4))
+        distinct, twice = kmer_truth(codes, 31, dev)
+        log(f"[e2e f] {FQ_READS} reads x {FQ_LEN} ({size / 1e6:.1f} MB FASTQ, "
+            f"{FQ_ERR:.1%} errors): {distinct:,} distinct canonical 31-mers, "
+            f"{twice:,} seen at least twice ({time.perf_counter() - t0:.1f}s "
+            "to write and count)")
+
+        def run(argv, what):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = main(argv)
+            torch.cuda.synchronize()
+            if rc != 0:
+                fail(f"e2e (f) {what} returned nonzero")
+            return time.perf_counter() - t, out.getvalue()
+
+        # 1. plain and filtered sketches of the whole read set
+        dirs = {t: os.path.join(tmp, t) for t in ("plain", "filt")}
+        for tag, extra in (("plain", []),
+                           ("filt", ["-b", "-n", "2", "-q", str(FQ_CM_LOG2)])):
+            os.makedirs(dirs[tag])
+            eh.launches = 0
+            wall, _ = run(["sketch", "-k", "31", "-S", "16", "-P", dirs[tag]]
+                          + extra + [fq], f"sketch {tag}")
+            _step(" ".join(["sketch -S 16"] + extra), wall, FQ_READS)
+            if tag == "plain" and eh.launches == 0:
+                fail("e2e (f): the plain sketch did not launch K1")
+        hlls = [os.path.join(dirs[t], "reads.fq.w.31.spacing.16.hll")
+                for t in ("plain", "filt")]
+        plain, filt = map(_cli_regs, hlls)
+        if not (filt <= plain).all():
+            fail("e2e (f): a filtered register exceeds the plain one")
+        um.estimate_launches = 0
+        cards_txt = os.path.join(tmp, "cards.txt")
+        wall, _ = run(["card", "-H", "-o", cards_txt] + hlls, "card")
+        if um.estimate_launches == 0:
+            fail("e2e (f): card did not launch the row-estimate kernel")
+        cards = [float(l.split("\t")[1])
+                 for l in open(cards_txt).read().splitlines()[1:]]
+        for what, got, want, tol in (("plain", cards[0], distinct, 0.02),
+                                     ("filtered", cards[1], twice, 0.03)):
+            rel = got / want - 1.0
+            log(f"[e2e f] card {what}: {got:,.0f} vs exact {want:,} "
+                f"({rel:+.3%}, bound {tol:.0%})")
+            if abs(rel) > tol:
+                fail(f"e2e (f): {what} cardinality {got} vs {want}")
+        if not cards[0] > 1.5 * cards[1]:
+            fail(f"e2e (f): the filter removed too little ({cards})")
+        _step(f"card -H of both sketches (row-estimate launches "
+              f"{um.estimate_launches})", wall, FQ_READS)
+
+        # 2. union of the two sketches = the plain sketch
+        union = os.path.join(tmp, "union.hll")
+        wall, _ = run(["union", "-o", union] + hlls, "union")
+        if not np.array_equal(_cli_regs(union), plain):
+            fail("e2e (f): union registers differ from the plain sketch's")
+        _step("union of plain and filtered, registers equal the plain "
+              "sketch's", wall, FQ_READS)
+
+        # 3. hll at its default p = 24
+        eh.launches = 0
+        wall, out = run(["hll", "-k", "31", fq], "hll")
+        est_hll = float(out.strip().rsplit(" ", 1)[1])
+        rel = est_hll / distinct - 1.0
+        _step(f"hll -S 24 (K1 launches {eh.launches}), estimate "
+              f"{est_hll:,.0f} ({rel:+.3%} of exact)", wall, FQ_READS)
+        if eh.launches == 0:
+            fail("e2e (f): hll did not launch K1")
+        if abs(rel) > 0.01:
+            fail(f"e2e (f): hll estimate {est_hll} vs exact {distinct}")
+
+        # 4. dist -y over the four quarters, and without -y
+        mats = {}
+        for tag, extra in (("y", ["-y", "-c", "2", "-t", str(FQ_CM_LOG2)]),
+                           ("plain", [])):
+            out_d = os.path.join(tmp, f"dist_{tag}.bin")
+            js.cum_union_launches = um.launches = 0
+            wall, _ = run(["dist", "-k", "31", "-S", "14", "-M", "-b", "-O",
+                           out_d, "--avoid-sorting"] + extra + quarters,
+                          f"dist {tag}")
+            n, cond = _read_condensed(out_d)
+            if n != 4 or cond.shape != (6,) or not np.isfinite(cond).all():
+                fail(f"e2e (f) dist {tag}: bad matrix n={n} {cond}")
+            if tag == "y" and (js.cum_union_launches == 0 or um.launches == 0):
+                fail("e2e (f): dist -y did not launch K4's X-only form and "
+                     "K3")
+            mats[tag] = cond
+            _step(" ".join(["dist -S 14 -M"] + extra)
+                  + f" over 4 quarters (K4 X-only {js.cum_union_launches}, "
+                  f"K3 {um.launches})", wall, FQ_READS)
+        if not (mats["y"] < mats["plain"]).all():
+            fail(f"e2e (f): a filtered distance is not below the plain one: "
+                 f"{mats['y']} vs {mats['plain']}")
+        log("[e2e f] Mash, filtered "
+            + " ".join(f"{v:.5f}" for v in mats["y"]) + " < plain "
+            + " ".join(f"{v:.5f}" for v in mats["plain"]))
+
+        # 5. the filtered path on the card and on the CPU, bitwise
+        head = os.path.join(tmp, "head.fq")
+        with open(fq, "rb") as src, open(head, "wb") as dst:
+            dst.write(src.read(20_000 * FQ_RECORD))
+        params = pipeline.SketchParams(k=31, use_counting_filter=True,
+                                       min_count=2,
+                                       cm_size_log2=FQ_CM_LOG2)
+        t = time.perf_counter()
+        got = pipeline.sketch_file_hll(head, params, 16, dev)
+        wall = time.perf_counter() - t
+        t = time.perf_counter()
+        want = pipeline.sketch_file_hll(head, params, 16, torch.device("cpu"))
+        if not np.array_equal(got, want) or not got.any():
+            fail(f"e2e (f): filtered registers on the card differ from the "
+                 f"CPU run in {int((got != want).sum())} places")
+        _step(f"20,000 reads filtered at 2^{FQ_CM_LOG2} x 4 counters in "
+              f"process, registers bitwise equal to the CPU run "
+              f"({time.perf_counter() - t:.1f}s on the CPU)", wall, 20_000)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -1512,6 +1742,7 @@ def main() -> int:
     bank = phase_k4_k5(dev, records)
     phase_bench(dev, counts)
     phase_e2e(dev, bank, counts, records)
+    phase_e2e_fastq(dev)
     for r in records:
         r["launches"] = counts[r["counter"]]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

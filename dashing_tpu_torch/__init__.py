@@ -21,3 +21,11 @@ the modules there that do not import jax.
 """
 
 __version__ = "0.1.0"
+
+
+class NotPorted(SystemExit):
+    """A flag, mode or subcommand the port does not have yet."""
+
+    def __init__(self, what: str):
+        super().__init__(f"{what} is not yet ported to dashing_tpu_torch, "
+                         "see ROADMAP.md")

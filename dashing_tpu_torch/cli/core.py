@@ -7,29 +7,22 @@ computed some other way.
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import math
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import metrics, pipeline
-from ..io import fasta, paths
+from .. import NotPorted, metrics, pipeline
+from ..io import paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
-from ..sketch.hll import HLL, batch_reports
+from ..sketch.hll import HLL, BadMagic, batch_reports
 
 HLL_EXT = ".hll"
-
-
-class NotPorted(SystemExit):
-    """A flag or mode the port does not have yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what} is not yet ported to dashing_tpu_torch, "
-                         "see ROADMAP.md")
 
 
 def eprint(*a, **kw):
@@ -53,8 +46,7 @@ class CommonOpts:
     presketched: bool = False
     avoid_sorting: bool = False
     entropy_min: bool = False
-    # count-min filtering: parsed and stored as the JAX CLI does; a run
-    # where a filter would apply is refused (count_filter_refusal)
+    # count-min filtering (dist -y -c -q -t -R; sketch -b/-f -n -q -H)
     mincount: int = 5
     nhashes: int = 1
     cmsketchsize: int = -1
@@ -65,28 +57,6 @@ class CommonOpts:
 
 def hll_p_from_S(S: int) -> int:
     return S
-
-
-def count_filter_refusal(opts: CommonOpts, inpaths: Sequence[str],
-                         sketch: bool) -> None:
-    """Raise NotPorted where the JAX CLI would count-filter a file
-    (dashing_tpu/cli/core.py device_hll_run, dashing_tpu/cli/main.py
-    sketch_main).  `dist` filters every sketched file under -y/--countmin,
-    at a threshold of -c floored at 2, and never reads -N.  `sketch`
-    filters a file under -b/--countmin, or under -f on a FASTQ name, when
-    its threshold -n (1 unless given) is above 1: a threshold of 1 admits
-    every k-mer, so the run is the plain one."""
-    if opts.presketched:
-        return
-    if not sketch:
-        if opts.use_counting_filter:
-            raise NotPorted("dist -y/--countmin (count-min filtered "
-                            "sketching)")
-        return
-    if opts.mincount > 1 and (opts.use_counting_filter or (
-            opts.sketch_by_fname and any(map(fasta.fname_is_fq, inpaths)))):
-        raise NotPorted("sketch -b/--countmin, or -f on FASTQ inputs, with a "
-                        "threshold -n above 1 (count-min filtered sketching)")
 
 
 # Options of the JAX CLI that the slice refuses, with the name to report.
@@ -171,9 +141,14 @@ def validate_k(opts: CommonOpts):
 
 
 def sketch_params(opts: CommonOpts) -> pipeline.SketchParams:
-    return pipeline.SketchParams(k=opts.k, w=opts.wsz, spacing=opts.spacing,
-                                 canon=opts.canon, encoding=opts.encoding,
-                                 entropy=opts.entropy_min)
+    return pipeline.SketchParams(
+        k=opts.k, w=opts.wsz, spacing=opts.spacing, canon=opts.canon,
+        encoding=opts.encoding, entropy=opts.entropy_min,
+        min_count=opts.mincount,
+        use_counting_filter=opts.use_counting_filter,
+        cm_size_log2=(opts.cmsketchsize if opts.cmsketchsize > 0 else 20),
+        cm_nhashes=(opts.nhashes if opts.nhashes > 1 else 4),
+        cm_seed=opts.seed)
 
 
 def gather_inpaths(opts: CommonOpts, positional: List[str]) -> List[str]:
@@ -181,25 +156,73 @@ def gather_inpaths(opts: CommonOpts, positional: List[str]) -> List[str]:
             else list(positional))
 
 
+# file magic -> sketch family of every DTPU container (the JAX CLI's
+# table); the port reads the HLL family only
+MAGIC_TYPES = {b"DTPUHLL1": "hll", b"DTPUBF01": "bf", b"DTPURMH1": "rmh",
+               b"DTPUCRM1": "crmh", b"DTPUBBM1": "bbmh",
+               b"DTPUCBB1": "cbbmh",
+               b"DTPUWHL1": "wide_hll", b"DTPUHMH1": "hmh",
+               b"DTPUSMH1": "superminhash", b"DTPUSMH2": "superminhash"}
+
+
+def _refuse_family(what, magic: bytes) -> None:
+    family = MAGIC_TYPES.get(magic)
+    if family is not None and family != "hll":
+        raise NotPorted(f"reading {family} sketches ({what})")
+
+
 def read_hll(path_or_fp) -> HLL:
-    """Load an HLL record; other sketch types are refused by their magic."""
+    """Load one HLL record from a path or a stream.  Another DTPU family is
+    refused by name; a file that is no sketch fails on its magic."""
     try:
         return HLL.read(path_or_fp)
-    except ValueError as e:
-        if "magic" in str(e):
-            raise NotPorted(f"reading non-HLL sketches ({e})")
+    except BadMagic as e:
+        _refuse_family(path_or_fp, e.magic)
         raise
 
 
-def device_hll_run(indexed_paths, opts: CommonOpts, put,
-                   device: torch.device, lookahead: int = 2):
-    """Sketch (index, path) pairs on `device`, calling put(index, regs)
-    with (2^p,) uint8 registers as each lands.  A worker thread parses and
-    joins the next `lookahead` files while this one packs and uploads;
-    files large enough to stream are parsed incrementally instead."""
+def read_sketch_auto(path: str) -> HLL:
+    """The JAX CLI's `read_sketch_auto` for the HLL family: the magic is
+    sniffed first, and any other family (a .khs, a bloom filter, a MinHash)
+    is refused rather than loaded as something else."""
+    try:
+        with gzip.open(path, "rb") as fp:
+            magic = fp.read(8)
+    except OSError:
+        magic = b""
+    if path.endswith(".khs") and magic not in MAGIC_TYPES:
+        raise NotPorted(f"reading khset sketches ({path})")
+    _refuse_family(path, magic)
+    return HLL.read(path)
+
+
+def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
+                    filter_idx=None, filt_min_count: Optional[int] = None,
+                    lookahead: int = 2
+                    ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """The HLL sketch engine over (index, path) pairs: yields (index,
+    (2^p,) int32 registers on `device`, not synchronised).  A worker
+    thread parses and joins the next `lookahead` files while this one
+    uploads and sketches; files large enough to stream are parsed ahead
+    by their own producer thread (pipeline._readahead).
+
+    filter_idx: the indices whose file is count-min filtered (None: all of
+    them under opts.use_counting_filter, none otherwise); filt_min_count:
+    their threshold (None: opts.mincount floored at 2, the `dist` rule).
+    A threshold of 1 or less admits every k-mer: no filter."""
     p = hll_p_from_S(opts.sketch_size)
-    params = sketch_params(opts)
-    sp = pipeline.check_supported(params)
+    if filt_min_count is None:
+        filt_min_count = opts.mincount if opts.mincount > 1 else 2
+    base = sketch_params(opts)
+    plain = dataclasses.replace(base, use_counting_filter=False)
+    filt = dataclasses.replace(base, use_counting_filter=True,
+                               min_count=filt_min_count)
+    if filter_idx is None:
+        filter_idx = ({i for i, _ in indexed_paths}
+                      if opts.use_counting_filter else frozenset())
+    if filt_min_count <= 1:
+        filter_idx = frozenset()
+    sp = pipeline.check_supported(base)
     ex = ThreadPoolExecutor(max_workers=1)
     try:
         futs = {}
@@ -208,21 +231,35 @@ def device_hll_run(indexed_paths, opts: CommonOpts, put,
                 if j not in futs and not pipeline.should_stream(nxt):
                     futs[j] = ex.submit(pipeline._read_joined, nxt, sp.halo)
             fut = futs.pop(i, None)
-            if fut is None:
-                regs = pipeline.sketch_file_hll(path, params, p, device)
-            else:
-                regs = pipeline.sketch_joined_hll(fut.result(), params, p,
-                                                  device)
-            put(i, regs)
+            joined = None if fut is None else fut.result()
+
+            def tiles(path=path, joined=joined):
+                # a filtered file's second pass re-tiles a prefetched join
+                if joined is None:
+                    return pipeline._file_tiles(path, sp)
+                return pipeline._joined_tiles(joined, sp.halo)
+
+            yield i, pipeline.sketch_hll_async(
+                tiles, filt if i in filter_idx else plain, p, device)
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
+
+
+def device_hll_run(indexed_paths, opts: CommonOpts, put,
+                   device: torch.device, filter_idx=None,
+                   filt_min_count: Optional[int] = None):
+    """device_hll_jobs, calling put(index, (2^p,) uint8 registers) as each
+    file lands."""
+    for i, regs in device_hll_jobs(indexed_paths, opts, device, filter_idx,
+                                   filt_min_count):
+        put(i, pipeline.registers_to_numpy(regs))
 
 
 def sketch_paths(paths_list: List[str], opts: CommonOpts,
                  device: torch.device) -> List[HLL]:
     """Sketch or load many logical paths into HLLs."""
     if opts.presketched:
-        return [read_hll(path) for path in paths_list]
+        return [read_sketch_auto(path) for path in paths_list]
     p = hll_p_from_S(opts.sketch_size)
     out: List = [None] * len(paths_list)
     device_hll_run(list(enumerate(paths_list)), opts,
@@ -250,14 +287,22 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
 
 
 def emit_cardinalities(fp, names: Sequence[str], sketches,
-                       device: torch.device):
-    """'#Path\\tSize (est.)' then one '%s\\t%zu' line per sketch."""
+                       device: torch.device, integer: bool = True,
+                       use_scientific: bool = False):
+    """'#Path\\tSize (est.)' then one line per sketch: '%s\\t%zu' (dist),
+    or the float as `card` prints it.  The estimates come from one batched
+    call per (p, estimator) on `device`."""
     with metrics.accum("cardinality"):
         batch_reports(sketches, device)
     fp.write("#Path\tSize (est.)\n")
     for name, sk in zip(names, sketches):
         card = sk.report()
-        val = "inf" if not math.isfinite(card) else str(int(card))
+        if integer:
+            val = "inf" if not math.isfinite(card) else str(int(card))
+        elif use_scientific:
+            val = f"{card:0.12g}"
+        else:
+            val = f"{card:0.8f}"
         fp.write(f"{name}\t{val}\n")
 
 

@@ -2,28 +2,36 @@
 
     python -m dashing_tpu_torch.cli sketch [opts] genomes...
     python -m dashing_tpu_torch.cli dist   [opts] genomes...
+    python -m dashing_tpu_torch.cli card|cardcmp|hll [opts] genomes...
+    python -m dashing_tpu_torch.cli union|view|fold|printmat|flatten ...
 
 Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
 slice covers: HLL sketches of exact k-mers (contiguous or spaced, with or
 without minimizer windows, scored by value or by entropy) or of the
-ntHash and cyclic rolling hashes, symmetric measures, the
-ORIGINAL/IMPROVED/MLE estimators and the joint MLE (-J).  Everything else
-is refused with a "not yet ported" error.  The device comes from
-DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a card
-raises.
+ntHash and cyclic rolling hashes, count-min filtered or not (sketch -b/-f,
+dist -y), symmetric measures, the ORIGINAL/IMPROVED/MLE estimators and the
+joint MLE (-J); cardinalities (card, hll) and the HLL file tools (union,
+view, fold, printmat, flatten).  Everything else is refused with a "not
+yet ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
+(default "cuda"); asking for CUDA without a card raises.  The file tools
+run on the host and never create a device.
 """
 from __future__ import annotations
 
 import getopt
 import gzip
 import os
+import struct
 import sys
+from collections import deque
 from typing import List, Optional
 
-from .. import __version__, device as devmod, metrics
-from ..io import cache, distmat, paths
+import numpy as np
+
+from .. import __version__, device as devmod, metrics, pipeline
+from ..io import cache, distmat, fasta, paths
 from ..ops import pairwise as pw
-from ..sketch.hll import HLL
+from ..sketch.hll import HLL, batch_reports
 from . import core
 from .core import CommonOpts, NotPorted, eprint
 
@@ -122,7 +130,6 @@ def dist_main(argv: List[str], device) -> int:
     if not inpaths:
         eprint("No paths. See usage.")
         _dist_usage()
-    core.count_filter_refusal(o, inpaths, sketch=False)
     if not o.presketched and not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
 
@@ -239,7 +246,6 @@ def sketch_main(argv: List[str], device) -> int:
     if not inpaths:
         eprint("No paths. See usage.")
         _sketch_usage()
-    core.count_filter_refusal(o, inpaths, sketch=True)
     if not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
     sp = core.sketch_params(o).spacer()
@@ -259,7 +265,13 @@ def sketch_main(argv: List[str], device) -> int:
             sk.write(tmp)
             os.replace(tmp, fnames[i])
 
-    core.device_hll_run(list(enumerate(inpaths)), o, put, device)
+    # -b filters every file, -f the FASTQ ones, at the threshold -n
+    core.device_hll_run(
+        list(enumerate(inpaths)), o, put, device,
+        filter_idx={i for i, path in enumerate(inpaths)
+                    if o.use_counting_filter
+                    or (o.sketch_by_fname and fasta.fname_is_fq(path))},
+        filt_min_count=o.mincount)
     if output_file:
         with gzip.open(output_file + ".labels.gz", "wt") as fp:
             for path in inpaths:
@@ -269,6 +281,267 @@ def sketch_main(argv: List[str], device) -> int:
                 results[i].write_record(fp)
     eprint(f"Successfully finished sketching from {len(inpaths)} files")
     return 0
+
+
+# ===========================================================================
+# card / hll / union / view / fold / printmat / flatten
+# ===========================================================================
+
+def card_main(argv: List[str], device) -> int:
+    """Cardinalities of the inputs (also `cardcmp`): text, or -b float32."""
+    o = CommonOpts()
+    use_scientific = False
+    emit_binary = False
+    out: Optional[str] = None
+    querypaths: List[str] = []
+    optlist, positional = _getopts(argv, DIST_SHORT_OPTS, DIST_LONG)
+    for flag, val in optlist:
+        if core.parse_common(o, flag, val):
+            continue
+        if flag in ("-b", "--emit-binary"):
+            emit_binary = True
+        elif flag in ("-e", "--use-scientific"):
+            use_scientific = True
+        elif flag == "-o":
+            out = val
+        elif flag in ("-Q", "--query-paths"):
+            querypaths = paths.get_paths(val)
+        elif flag in ("-h", "-?", "--help"):
+            _dist_usage()
+    core.validate_k(o)
+    inpaths = core.gather_inpaths(o, positional)
+    if not inpaths:
+        eprint("No paths. See usage.")
+        return 1
+    if not o.presketched and not o.avoid_sorting:
+        inpaths = paths.sort_paths_by_fsize(inpaths)
+        querypaths = paths.sort_paths_by_fsize(querypaths)
+    inpaths += querypaths
+    sketches = core.sketch_paths(inpaths, o, device)
+    if emit_binary:
+        batch_reports(sketches, device)
+        fp, close = core.open_output(out, binary=True)
+        fp.write(np.asarray([s.report() for s in sketches],
+                            np.float32).tobytes())
+    else:
+        fp, close = core.open_output(out)
+        core.emit_cardinalities(fp, inpaths, sketches, device, integer=False,
+                                use_scientific=use_scientific)
+    if close:
+        fp.close()
+    return 0
+
+
+def hll_main(argv: List[str], device) -> int:
+    """One HLL merged over all inputs -> one cardinality (default -S 24)."""
+    o = CommonOpts()
+    o.sketch_size = 24
+    optlist, positional = _getopts(argv, "Cw:s:S:p:k:F:tfh?", ["help"])
+    for flag, val in optlist:
+        if flag in ("-t", "-f"):
+            continue    # taken without an argument and ignored (JAX CLI)
+        if core.parse_common(o, flag, val):
+            continue
+        if flag in ("-h", "-?", "--help"):
+            eprint("usage: hll [-k k] [-S p] [-F paths] files...")
+            return 1
+    inpaths = core.gather_inpaths(o, positional)
+    if not inpaths:
+        eprint("usage: hll [-k k] [-S p] [-F paths] files...")
+        return 1
+    core.validate_k(o)
+    p = core.hll_p_from_S(o.sketch_size)
+    regs = np.zeros(1 << p, np.uint8)
+    # every file max-folded into one register set, with at most 4 files'
+    # device registers (64 MiB each at p = 24) in flight before the oldest
+    # is pulled
+    inflight: deque = deque()
+    for _, dev_regs in core.device_hll_jobs(list(enumerate(inpaths)), o,
+                                            device):
+        inflight.append(dev_regs)
+        if len(inflight) >= 4:
+            np.maximum(regs, pipeline.registers_to_numpy(inflight.popleft()),
+                       out=regs)
+    for dev_regs in inflight:
+        np.maximum(regs, pipeline.registers_to_numpy(dev_regs), out=regs)
+    h = HLL(p, o.estim, o.jestim, regs)
+    batch_reports([h], device)
+    print(f"Estimated number of unique exact matches: {h.report():f}")
+    return 0
+
+
+def union_main(argv: List[str]) -> int:
+    """Register max of HLL sketch files, gzipped to -o (default stdout)."""
+    opath = "/dev/stdout"
+    plist: List[str] = []
+    compression_level = 6
+    optlist, positional = _getopts(argv, "p:b:o:F:zZ:rHh?", ["help"])
+    for flag, val in optlist:
+        if flag in ("-h", "--help", "-?"):
+            _union_usage()
+        elif flag == "-Z":
+            compression_level = int(val)
+        elif flag == "-o":
+            opath = val
+        elif flag == "-F":
+            plist = paths.get_paths(val)
+        elif flag in ("-r", "-H", "-b"):
+            raise NotPorted(f"union {flag} (non-HLL sketch unions)")
+    plist += positional
+    if not plist:
+        _union_usage()
+    merged = core.read_sketch_auto(plist[0])
+    for path in plist[1:]:
+        merged += core.read_sketch_auto(path)
+    if opath in ("-", "/dev/stdout"):
+        # gzipped on stdout too, so that every subcommand reads it back
+        with gzip.GzipFile(fileobj=sys.stdout.buffer, mode="wb",
+                           compresslevel=compression_level) as fp:
+            merged.write_record(fp)
+    else:
+        with gzip.open(opath, "wb", compresslevel=compression_level) as fp:
+            merged.write_record(fp)
+    return 0
+
+
+# DTPU container header field names, by magic (the JAX CLI's table): every
+# container is a gzip member holding the 8-byte magic (7 family characters
+# and a version digit), then little-endian fields; all but HLL's are two
+# u32s
+_HDR_FIELDS = {
+    b"DTPUHLL1": ("p", "estim", "jestim", "flags"),          # BBBB + u32 rsvd
+    b"DTPUBF01": ("nbits_log2", "nhashes"),
+    b"DTPURMH1": ("k", "n_values"),
+    b"DTPUCRM1": ("k", "n_values"),
+    b"DTPUBBM1": ("p", "b"),
+    b"DTPUCBB1": ("p", "b"),
+    b"DTPUWHL1": ("p", "estim_jestim_packed"),
+    b"DTPUHMH1": ("p", "regwidth"),
+    b"DTPUSMH1": ("p", "b"),
+    b"DTPUSMH2": ("p", "b"),
+}
+
+
+def _view_header(path: str, fp) -> None:
+    """The raw container header (magic, family, version, endianness,
+    header fields, payload bytes), without parsing the payload."""
+    try:
+        g = gzip.open(path, "rb")
+        head = g.read(16)
+    except OSError:
+        raise SystemExit(f"view --header: {path} is not a gzip container")
+    with g:
+        magic = head[:8]
+        fields = _HDR_FIELDS.get(magic)
+        if fields is None and not path.endswith(".khs") and len(head) < 16:
+            raise SystemExit(f"view --header: {path}: truncated container "
+                             f"({len(head)} bytes)")
+        if fields is not None and len(head) < 16:
+            raise SystemExit(f"view --header: {path}: truncated "
+                             f"{magic.decode(errors='replace')} header "
+                             f"({len(head)} bytes)")
+        rest = lambda used: len(head) - used + sum(  # noqa: E731
+            len(c) for c in iter(lambda: g.read(1 << 20), b""))
+        if fields is None:
+            if path.endswith(".khs"):
+                if len(head) < 8:
+                    raise SystemExit(f"view --header: {path}: truncated "
+                                     ".khs header")
+                n = struct.unpack("<Q", head[:8])[0]
+                fp.write(f"{path}\tformat=khs (reference khset64, no magic)"
+                         f"\tendian=little\tn_keys={n}"
+                         f"\tpayload_bytes={rest(8)}\n")
+                return
+            raise SystemExit(
+                f"view --header: {path}: unknown magic {head[:8]!r}")
+        fmt = "<BBBBI" if magic == b"DTPUHLL1" else "<II"
+        vals = struct.unpack(fmt, head[8:16])[:len(fields)]
+        kv = "\t".join(f"{k}={v}" for k, v in zip(fields, vals))
+        fp.write(f"{path}\tmagic={magic.decode()}"
+                 f"\tfamily={core.MAGIC_TYPES[magic]}\tversion={chr(magic[7])}"
+                 f"\tendian=little\t{kv}\tpayload_bytes={rest(16)}\n")
+
+
+def view_main(argv: List[str]) -> int:
+    """Register dumps of HLL files, or with --header/-H every container's
+    header."""
+    header_only = False
+    paths_ = []
+    for a in argv:
+        if a in ("--header", "-H"):
+            header_only = True
+        else:
+            paths_.append(a)
+    if not paths_:
+        raise SystemExit("Usage: view [--header] f1.hll [f2.bf ...] "
+                         "(type auto-detected from the file magic)")
+    for path in paths_:
+        if header_only:
+            _view_header(path, sys.stdout)
+        else:
+            core.read_sketch_auto(path).printf(sys.stdout)
+    return 0
+
+
+def fold_main(argv: List[str]) -> int:
+    """Fold an HLL exactly to a smaller precision (-p; default p - 1)."""
+    out, inp, destp = "/dev/stdout", "/dev/stdin", -1
+    optlist, positional = _getopts(argv, "p:o:h?", ["help"])
+    for flag, val in optlist:
+        if flag == "-o":
+            out = val
+        elif flag == "-p":
+            destp = int(val)
+        else:
+            eprint("Usage: fold [-o out] [-p destp] in.hll")
+            return 1
+    if positional:
+        inp = positional[0]
+    # a stream (/dev/stdin) is not sniffed: that would consume its magic
+    h = core.read_sketch_auto(inp) if os.path.isfile(inp) else HLL.read(inp)
+    if destp <= 0:
+        destp = h.p - 1
+    h.compress(destp).write(out if out != "-" else "/dev/stdout")
+    return 0
+
+
+def printmat_main(argv: List[str]) -> int:
+    """A binary distance matrix (`dist -b`) as text."""
+    use_scientific = False
+    outpath = ""
+    optlist, positional = _getopts(argv, "o:sh?", ["help"])
+    for flag, val in optlist:
+        if flag == "-o":
+            outpath = val
+        elif flag == "-s":
+            use_scientific = True
+        else:
+            eprint("printmat <binary matrix> [-o out] [-s]")
+            return 1
+    if not positional:
+        eprint("printmat <binary matrix> [-o out] [-s]")
+        return 1
+    fp, close = core.open_output(outpath or None)
+    distmat.print_binary(positional[0], fp, use_scientific)
+    if close:
+        fp.close()
+    return 0
+
+
+def flatten_main(argv: List[str]) -> int:
+    """Per-k binary matrices -> one flattened container."""
+    optlist, positional = _getopts(argv, "o:k:h?", ["help"])
+    out = "flattened.bin"
+    ks: List[int] = []
+    for flag, val in optlist:
+        if flag == "-o":
+            out = val
+        elif flag == "-k":
+            ks = [int(x) for x in val.split(",")]
+    if not positional or len(ks) != len(positional):
+        eprint("flatten -o out -k k1,k2,... mat1 mat2 ...")
+        return 1
+    return distmat.flatten_all(positional, out, ks)
 
 
 # ===========================================================================
@@ -293,15 +566,24 @@ def _dist_usage():
         "  -E/-I/-m                estimator: original/improved/MLE\n"
         "  -J/--ertl-joint-mle     set comparisons by the joint MLE\n"
         "  -C no canonicalization, -H presketched inputs, -e scientific\n"
-        "  -c/-q/-t/-R, -N          count-min parameters (stored; no "
-        "filter without -y)\n"
+        "  -y/--countmin           count-min filter: admit k-mers seen at "
+        "least -c times [5, floored at 2]\n"
+        "  -c/-q/-t/-R             threshold, rows, log2 counters a row "
+        "[20], seed [1337]\n"
         "Not yet ported (see ROADMAP.md): -Q and asymmetric measures, "
-        "-y/--countmin, -W, weighted Jaccard, non-HLL sketches\n")
+        "-W, weighted Jaccard, non-HLL sketches\n")
 
 
 def _sketch_usage():
     raise SystemExit("Usage: sketch <opts> [genomes...]; see dist for shared "
-                     "options; -o writes all sketches to one stream")
+                     "options; -o writes all sketches to one stream; -b "
+                     "count-min filters every file, -f the FASTQ ones, at "
+                     "-n [1] with -q log2 counters a row and -H rows")
+
+
+def _union_usage():
+    raise SystemExit("Usage: union [-o out] [-Z level] [-F paths] "
+                     "f1.hll f2.hll ...")
 
 
 SUBCOMMANDS = {
@@ -309,6 +591,17 @@ SUBCOMMANDS = {
     "dist": dist_main,
     "cmp": dist_main,
     "setdist": dist_main,
+    "card": card_main,
+    "cardcmp": card_main,
+    "hll": hll_main,
+}
+# the file tools: run on the host, take no device
+HOST_SUBCOMMANDS = {
+    "union": union_main,
+    "view": view_main,
+    "fold": fold_main,
+    "printmat": printmat_main,
+    "flatten": flatten_main,
 }
 
 
@@ -316,22 +609,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     eprint(f"dashing_tpu_torch version: {__version__}")
     if not argv or argv[0] in ("-h", "--help"):
-        raise SystemExit("Usage: dashing_tpu_torch <sketch|dist> [options...]")
+        raise SystemExit("Usage: dashing_tpu_torch <subcommand> [options...]\n"
+                         "Subcommands: " + ", ".join(SUBCOMMANDS)
+                         + ", " + ", ".join(HOST_SUBCOMMANDS))
     cmd = argv[0]
-    fn = SUBCOMMANDS.get(cmd)
-    if fn is None:
+    if cmd in HOST_SUBCOMMANDS:
+        run = HOST_SUBCOMMANDS[cmd]
+    elif cmd in SUBCOMMANDS:
+        try:
+            device = devmod.from_env()
+        except RuntimeError as e:
+            raise SystemExit(f"{cmd}: {e}")
+        run = lambda args: SUBCOMMANDS[cmd](args, device)  # noqa: E731
+    else:
         raise NotPorted(f"the {cmd!r} subcommand")
     try:
-        device = devmod.from_env()
-    except RuntimeError as e:
-        raise SystemExit(f"{cmd}: {e}")
-    try:
-        rc = fn(argv[1:], device)
+        rc = run(argv[1:])
     except (FileNotFoundError, IsADirectoryError) as e:
         raise SystemExit(f"{cmd}: {e}")
     except NotImplementedError as e:
         raise SystemExit(f"{cmd}: {e}")
-    except (EOFError, ValueError, gzip.BadGzipFile) as e:
+    except (EOFError, ValueError, OSError) as e:
         if os.environ.get("DASHING_TPU_DEBUG"):
             raise
         raise SystemExit(f"{cmd}: {type(e).__name__}: {e}")

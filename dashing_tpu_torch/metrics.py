@@ -48,6 +48,11 @@ def add_time(name: str, dt: float, items: float = 0.0):
         _counts[name] = _counts.get(name, 0.0) + items
 
 
+def total(name: str) -> float:
+    """Seconds accumulated in a bucket so far (0 when disabled)."""
+    return _totals.get(name, 0.0)
+
+
 @contextlib.contextmanager
 def accum(name: str, items: float = 0.0):
     """Accumulate wall time into a named bucket WITHOUT printing per call

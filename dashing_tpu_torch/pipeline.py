@@ -15,19 +15,26 @@ routes, as the JAX package chooses them:
           encodes it on the device (ops/encode.encode_tile or
           ops/rolling.rolling_hash_tile), WangHashes it and scatter-maxes
           the ranks into the registers.
+A file can also be count-min filtered (sketch -b/-f, dist -y): two passes
+over its tiles, the first counting every k-mer's hash into a count-min
+sketch on the device, the second admitting the k-mers whose estimated
+count reaches the threshold (`_count_filtered_tiles`).  Filtered tiles
+take the ASCII route, since the count-min needs the 64-bit hashes.
 No mesh: the TPU banks and sharded steps are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Iterable, List
+import queue
+import threading
+from typing import Callable, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
-from . import metrics
-from .hashes import wang_hash
+from . import NotPorted, device as devmod, metrics
+from .hashes import shr, wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
 from .ops import rolling
@@ -55,6 +62,17 @@ class SketchParams:
     encoding: str = "bonsai"        # bonsai | nthash | cyclic
     rehash: bool = True             # apply WangHash to the encoder output
     entropy: bool = False           # -g/--by-entropy minimizer scoring
+    min_count: int = 1              # threshold (sketch -n, dist -c)
+    use_counting_filter: bool = False
+    cm_size_log2: int = 20          # count-min geometry: 2^size counters a row
+    cm_nhashes: int = 4             #   rows
+    cm_seed: int = 1337             #   row-hash seed (-R/--seed)
+
+    @property
+    def filtered(self) -> bool:
+        """Whether a file is count-min filtered: a threshold of 1 admits
+        every k-mer, so only a threshold above 1 filters."""
+        return self.use_counting_filter and self.min_count > 1
 
     def spacer(self) -> Spacer:
         return Spacer(self.k, self.w, parse_spacing(self.spacing, self.k))
@@ -91,20 +109,28 @@ def packed_ok(params: SketchParams, sp: Spacer, p: int) -> bool:
             and 2 <= p <= 31)
 
 
-def tile_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, k: int,
-                      w: int, positions, span: int, canon: bool,
-                      encoding: str, rehash: bool, p: int,
-                      entropy: bool = False) -> torch.Tensor:
-    """The ASCII route's device step (JAX `_tile_to_registers`): an
-    uploaded (R, C) uint8 tile -> k-mers or rolling hashes -> WangHash
-    when `rehash` -> register max into `regs` in place."""
+def tile_hashes(tile: torch.Tensor, *, k: int, w: int, positions, span: int,
+                canon: bool, encoding: str, rehash: bool,
+                entropy: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An uploaded (R, C) uint8 tile -> (int64 hashes, valid), one per
+    window: k-mers or rolling hashes, WangHashed when `rehash` (JAX
+    `_tile_to_hashes`)."""
     if encoding == "bonsai":
         km, valid = encode_tile(tile, k=k, w=w, positions=positions,
                                 span=span, canon=canon, entropy=entropy)
     else:
         km, valid = rolling.rolling_hash_tile(tile, k=k, kind=encoding,
                                               canon=canon, w=w)
-    return update_registers(regs, wang_hash(km) if rehash else km, valid, p)
+    return (wang_hash(km) if rehash else km), valid
+
+
+def tile_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, p: int,
+                      **kw) -> torch.Tensor:
+    """The ASCII route's device step (JAX `_tile_to_registers`): an
+    uploaded tile -> `tile_hashes(tile, **kw)` -> register max into `regs`
+    in place."""
+    h, valid = tile_hashes(tile, **kw)
+    return update_registers(regs, h, valid, p)
 
 
 def _pack_tile_host(tile: np.ndarray):
@@ -226,11 +252,58 @@ def _stream_tiles(parts: Iterable[np.ndarray], halo: int
         yield from _joined_tiles(np.concatenate(buf), halo)
 
 
+def _readahead(gen: Iterable, depth: int = 2) -> Iterator:
+    """Run `gen` in a producer thread behind a bounded queue, so that
+    parsing a streamed file overlaps the device work on its tiles (JAX
+    `_readahead`).  An exception in the producer is raised in the
+    consumer; a consumer that stops early stops the producer, which then
+    closes `gen`."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def work():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+            put(done)
+        except BaseException as exc:    # delivered to the consumer
+            put(exc)
+        finally:
+            close = getattr(gen, "close", None)
+            if close is not None:
+                close()
+
+    threading.Thread(target=work, daemon=True, name="dtt-readahead").start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 def _file_tiles(path: str, sp: Spacer) -> Iterable[np.ndarray]:
     """(rows, CONTENT + halo, padded to %8) uint8 tiles covering a path;
-    files above STREAM_THRESHOLD stream (same registers either way)."""
+    files above STREAM_THRESHOLD stream, parsed ahead in a producer
+    thread (same tiles either way)."""
     if should_stream(path):
-        yield from _stream_tiles(_stream_joined_parts(path, sp.halo), sp.halo)
+        yield from _readahead(
+            _stream_tiles(_stream_joined_parts(path, sp.halo), sp.halo))
     else:
         yield from _joined_tiles(_read_joined(path, sp.halo), sp.halo)
 
@@ -258,6 +331,125 @@ def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
     return regs
 
 
+# ---------------------------------------------------------------------------
+# Count-min threshold filtering (JAX pipeline.py:1168-1248).  Two passes
+# over a file's tiles: count every window's hash into an (nh, 2^size)
+# int32 count-min sketch, then admit the windows whose estimated count
+# (the minimum over the rows, never below the true count) reaches the
+# threshold.  The admitted set, and so the registers, are the JAX
+# package's bit for bit: the counts are exact integers.
+# ---------------------------------------------------------------------------
+
+# Budget of (hashes, valid) kept on the device between the passes, at 9 B a
+# tile byte (int64 hash and bool valid); tiles past it are hashed again in
+# the second pass (hashing is pure, so the masks are the same).
+_CM_HASH_CACHE_BYTES = 256 << 20
+
+
+def _check_cm_size(size_log2: int) -> None:
+    # the JAX index is the top size_log2 bits of a 32-bit word: undefined
+    # outside 1..32
+    if not 1 <= size_log2 <= 32:
+        raise ValueError(f"count-min size_log2 must be in [1, 32], "
+                         f"got {size_log2}")
+
+
+def _cm_row_constant(seed: int, row: int) -> int:
+    """(seed + row * 0x9E3779B9) | 1 taken to 64 bits, as the int64 of the
+    same bit pattern (JAX u64.const masks the Python int to 64 bits)."""
+    c = ((seed + row * 0x9E3779B9) | 1) & 0xFFFFFFFFFFFFFFFF
+    return c - (1 << 64) if c >> 63 else c
+
+
+def _cm_indices(h: torch.Tensor, nh: int, size_log2: int,
+                seed: int) -> torch.Tensor:
+    """(nh, *h.shape) int64 counter indices: the top size_log2 bits of
+    wang_hash(h ^ c_row), a logical shift of the 64-bit pattern."""
+    _check_cm_size(size_log2)
+    return torch.stack([shr(wang_hash(h ^ _cm_row_constant(seed, row)),
+                            64 - size_log2) for row in range(nh)])
+
+
+def _cm_add(counts: torch.Tensor, h: torch.Tensor, valid: torch.Tensor,
+            nh: int, size_log2: int, seed: int) -> torch.Tensor:
+    """Count the valid windows' hashes into `counts` (nh, 2^size_log2)
+    int32, in place; invalid windows add 0."""
+    idx = _cm_indices(h, nh, size_log2, seed).reshape(nh, -1)
+    ones = valid.reshape(-1).to(counts.dtype)
+    for row in range(nh):
+        counts[row].index_add_(0, idx[row], ones)
+    return counts
+
+
+def _cm_query(counts: torch.Tensor, h: torch.Tensor, nh: int,
+              size_log2: int, seed: int) -> torch.Tensor:
+    """Estimated count of each hash: the minimum over the rows."""
+    idx = _cm_indices(h, nh, size_log2, seed)
+    est = counts[0][idx[0]]
+    for row in range(1, nh):
+        est = torch.minimum(est, counts[row][idx[row]])
+    return est
+
+
+def _hashed_tile(tile: np.ndarray, kw: dict, device: torch.device):
+    return tile_hashes(torch.from_numpy(tile).to(device), **kw)
+
+
+def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
+                          params: SketchParams, sp: Spacer,
+                          device: torch.device):
+    """The two-pass filter over the tiles `tiles()` yields (called once a
+    pass).  Yields (hashes, admitted) a tile, both on `device`: admitted =
+    valid & (estimated count >= params.min_count).  No host pull."""
+    if os.environ.get("DASHING_TPU_USE_HK", "") not in ("", "0"):
+        raise NotPorted("DASHING_TPU_USE_HK=1 (the HeavyKeeper count filter)")
+    nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed
+    _check_cm_size(size)
+    kw = _encode_kw(params, sp)
+    counts = torch.zeros((nh, 1 << size), dtype=torch.int32, device=device)
+    cached = {}
+    budget = _CM_HASH_CACHE_BYTES
+    mark = metrics.total("host.parse")       # the parse seconds of each pass
+    with metrics.accum("sketch.cm_count"):
+        for i, tile in enumerate(tiles()):
+            h, valid = _hashed_tile(tile, kw, device)
+            _cm_add(counts, h, valid, nh, size, seed)
+            cost = tile.size * 9
+            if budget >= cost:
+                cached[i] = (h, valid)
+                budget -= cost
+    metrics.add_time("host.parse.cm_count", metrics.total("host.parse") - mark)
+    mark = metrics.total("host.parse")
+    stream = enumerate(tiles())
+    while True:
+        with metrics.accum("sketch.cm_admit"):
+            nxt = next(stream, None)
+            if nxt is None:
+                metrics.add_time("host.parse.cm_admit",
+                                 metrics.total("host.parse") - mark)
+                return
+            i, tile = nxt
+            h, valid = cached.pop(i, None) or _hashed_tile(tile, kw, device)
+            admitted = valid & (_cm_query(counts, h, nh, size, seed)
+                                >= params.min_count)
+        yield h, admitted
+
+
+def sketch_hll_async(tiles: Callable[[], Iterable[np.ndarray]],
+                     params: SketchParams, p: int,
+                     device: torch.device) -> torch.Tensor:
+    """(2^p,) int32 registers on `device`, not synchronised, of the tiles
+    that `tiles()` yields: one pass, or the two of the count-min filter
+    when `params.filtered` (its tiles take the ASCII route)."""
+    if not params.filtered:
+        return sketch_chunk_stream(tiles(), params, p, device)
+    sp = check_supported(params)
+    regs = torch.zeros(1 << p, dtype=torch.int32, device=device)
+    for h, admitted in _count_filtered_tiles(tiles, params, sp, device):
+        update_registers(regs, h, admitted, p)
+    return regs
+
+
 def registers_to_numpy(regs: torch.Tensor) -> np.ndarray:
     """Device int32 registers -> host uint8 (clamped to 0..255, as the JAX
     package clamps on the pull)."""
@@ -267,15 +459,41 @@ def registers_to_numpy(regs: torch.Tensor) -> np.ndarray:
 def sketch_file_hll(path: str, params: SketchParams, p: int,
                     device: torch.device) -> np.ndarray:
     """Sketch one logical path into 2^p uint8 HLL registers."""
+    device = devmod.resolve(device)
     sp = check_supported(params)
-    return registers_to_numpy(
-        sketch_chunk_stream(_file_tiles(path, sp), params, p, device))
+    return registers_to_numpy(sketch_hll_async(
+        lambda: _file_tiles(path, sp), params, p, device))
 
 
 def sketch_joined_hll(joined: np.ndarray, params: SketchParams, p: int,
                       device: torch.device) -> np.ndarray:
     """Sketch an already joined uint8 sequence (records separated by at
     least k-1 invalid bytes) into 2^p uint8 registers."""
+    device = devmod.resolve(device)
     sp = check_supported(params)
-    return registers_to_numpy(
-        sketch_chunk_stream(_joined_tiles(joined, sp.halo), params, p, device))
+    return registers_to_numpy(sketch_hll_async(
+        lambda: _joined_tiles(joined, sp.halo), params, p, device))
+
+
+def file_kmer_hashes(path: str, params: SketchParams,
+                     device: torch.device) -> np.ndarray:
+    """Every valid window's hash of a path (the raw k-mer when not
+    `params.rehash`), host uint64, count-min filtered when
+    `params.filtered` (JAX `file_kmer_hashes`)."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    tiles = lambda: _file_tiles(path, sp)  # noqa: E731
+    if params.filtered:
+        pairs = _count_filtered_tiles(tiles, params, sp, device)
+    else:
+        kw = _encode_kw(params, sp)
+        pairs = (_hashed_tile(t, kw, device) for t in tiles())
+    outs = [h[keep].cpu().numpy().view(np.uint64) for h, keep in pairs]
+    return np.concatenate(outs) if outs else np.zeros(0, np.uint64)
+
+
+def file_raw_kmers(path: str, params: SketchParams,
+                   device: torch.device) -> np.ndarray:
+    """The encoded k-mers themselves, unhashed (JAX `file_raw_kmers`)."""
+    return file_kmer_hashes(path, dataclasses.replace(params, rehash=False),
+                            device)

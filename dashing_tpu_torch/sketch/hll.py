@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import gzip
 import struct
+import sys
 from typing import IO, Optional, Union
 
 import numpy as np
@@ -20,6 +21,14 @@ from . import estimators as est
 
 MAGIC = b"DTPUHLL1"
 _HEADER = struct.Struct("<8sBBBBI")
+
+
+class BadMagic(ValueError):
+    """A record that does not start with the HLL magic."""
+
+    def __init__(self, magic: bytes):
+        super().__init__(f"bad HLL magic {magic!r}")
+        self.magic = magic
 
 
 class HLL:
@@ -54,6 +63,45 @@ class HLL:
     def q(self) -> int:
         return 64 - self.p
 
+    def clone_empty(self) -> "HLL":
+        return HLL(self.p, self.estim, self.jestim)
+
+    def clear(self):
+        self.regs[:] = 0
+        self._card = None
+
+    def _check_same_p(self, other: "HLL"):
+        if other.p != self.p:
+            raise ValueError(f"can't merge or compare HLLs of different p "
+                             f"({self.p} vs {other.p}); fold the larger one "
+                             "down first")
+
+    def __iadd__(self, other: "HLL") -> "HLL":
+        """Merge (register max) in place."""
+        self._check_same_p(other)
+        np.maximum(self.regs, other.regs, out=self.regs)
+        self._card = None
+        return self
+
+    def union(self, other: "HLL") -> "HLL":
+        self._check_same_p(other)
+        return HLL(self.p, self.estim, self.jestim,
+                   np.maximum(self.regs, other.regs))
+
+    def compress(self, new_p: int) -> "HLL":
+        """Fold exactly to a smaller precision (the `fold` subcommand).
+        Dropping the lowest index bit merges buckets 2j and 2j+1 into j:
+        the even bucket's suffix gains a leading 0 (rank + 1), the odd
+        bucket's a leading 1 (rank 1 when nonempty)."""
+        if new_p >= self.p:
+            raise ValueError("compress requires new_p < p")
+        regs = self.regs.astype(np.int32)
+        for _ in range(self.p - new_p):
+            lo, hi = regs[0::2], regs[1::2]
+            regs = np.maximum(np.where(lo > 0, lo + 1, 0),
+                              (hi > 0).astype(np.int32))
+        return HLL(new_p, self.estim, self.jestim, regs.astype(np.uint8))
+
     def histogram(self) -> np.ndarray:
         return np.bincount(self.regs, minlength=self.q + 2).astype(np.float32)
 
@@ -63,6 +111,19 @@ class HLL:
             C = torch.from_numpy(self.histogram())[None]
             self._card = float(est.estimate(C, self.p, self.estim)[0])
         return self._card
+
+    def union_size(self, other: "HLL") -> float:
+        """Cardinality of the union, with this sketch's estimator."""
+        return self.union(other).report()
+
+    def printf(self, fp=None):
+        """Human-readable register dump (the `view` subcommand)."""
+        fp = fp or sys.stdout
+        fp.write(f"HLL p={self.p} m={self.m} estim={self.estim} "
+                 f"jestim={self.jestim}\n")
+        for i in range(0, self.m, 32):
+            row = " ".join(str(int(v)) for v in self.regs[i:i + 32])
+            fp.write(f"{i}\t{row}\n")
 
     def write_record(self, fp: IO[bytes]):
         fp.write(_HEADER.pack(MAGIC, self.p, self.estim, self.jestim, 0, 0))
@@ -82,7 +143,7 @@ class HLL:
             raise EOFError("truncated or missing HLL record")
         magic, p, estim, jestim, _flags, _res = _HEADER.unpack(hdr)
         if magic != MAGIC:
-            raise ValueError(f"bad HLL magic {magic!r}")
+            raise BadMagic(magic)
         data = fp.read(1 << p)
         if len(data) != 1 << p:
             raise EOFError("truncated HLL registers")

@@ -352,6 +352,16 @@ rc |= main(["dist", "-k", "15", "-S", "10", "-w", "30", "-O",
             sys.argv[2] + ".w"] + sys.argv[3:])
 rc |= main(["dist", "-k", "40", "-S", "10", "--use-nthash", "-O",
             sys.argv[2] + ".nt"] + sys.argv[3:])
+import glob, os
+sk = os.path.join(os.path.dirname(sys.argv[2]), "sk")
+os.mkdir(sk)
+rc |= main(["sketch", "-k", "15", "-S", "10", "-b", "-n", "2", "-P", sk]
+           + sys.argv[3:])
+rc |= main(["hll", "-k", "15", "-S", "12"] + sys.argv[3:])
+rc |= main(["card", "-k", "15", "-S", "10", "-o", sys.argv[2] + ".card"]
+           + sys.argv[3:])
+rc |= main(["union", "-o", sys.argv[2] + ".union"]
+           + sorted(glob.glob(os.path.join(sk, "*.hll"))))
 import chip_smoke, chip_profile  # noqa: F401  (import-time only)
 import dashing_tpu_torch.bench  # noqa: F401
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -372,6 +382,10 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
     for ext in ("J", "w", "nt"):
         assert (tmp_path / f"d.txt.{ext}").read_text().count("\n") == 4
+    assert (tmp_path / "d.txt.card").read_text().count("\n") == 4
+    assert len(os.listdir(tmp_path / "sk")) == 3
+    assert HLL.read(str(tmp_path / "d.txt.union")).p == 10
+    assert "Estimated number of unique exact matches" in res.stdout
 
 
 def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
@@ -396,9 +410,8 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-W"],
-    ["--use-range-minhash"], ["--countmin"], ["-c", "3", "-y"],
-    ["-N", "--cache-sketches"],
-    ["--wj-exact"], ["--use-bb-minhash"], ["-y"], ["--nearest-neighbors", "3"],
+    ["--use-range-minhash"], ["-N", "--cache-sketches"],
+    ["--wj-exact"], ["--use-bb-minhash"], ["--nearest-neighbors", "3"],
 ])
 def test_out_of_slice_flags_refused(genomes, cpu_env, extra):
     with pytest.raises(SystemExit, match="not yet ported"):
@@ -440,7 +453,9 @@ def test_dist_count_min_parameters_match_jax_cli(genomes, tmp_path, cpu_env):
 def test_sketch_count_min_parameters(genomes, fastq, tmp_path, cpu_env):
     """sketch -n/-q/-H (threshold, sizes) and -b or -f at threshold 1 write
     the plain sketches, byte for byte as the JAX CLI; -b with a threshold
-    above 1, -f above 1 on a FASTQ input, and dist -y are refused."""
+    above 1, -f above 1 on a FASTQ input, and dist -y filter, as the JAX
+    CLI does (test_torch_subcommands.py holds the filtered outputs on
+    read sets)."""
     for d in ("jax", "port"):
         (tmp_path / d).mkdir()
     args = ["sketch", "-k", str(K), "-S", str(S), "-q", "20", "-H", "2",
@@ -456,16 +471,27 @@ def test_sketch_count_min_parameters(genomes, fastq, tmp_path, cpu_env):
                 == _records(tmp_path / "jax" / nm)), nm
     base = ["sketch", "-k", str(K), "-S", str(S), "-P", str(tmp_path)]
     assert tmain.main(base + ["-f", "-n", "3"] + genomes[:2]) == 0
-    for refused in (["-b", "-n", "3"] + genomes[:1],
-                    ["--countmin", "--min-count", "2"] + genomes[:1],
-                    ["-f", "-n", "3", fastq]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tmain.main(base + refused)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain.main(["dist", "-k", str(K), "-y", "-c", "3"] + genomes[:2])
+    for i, filtered in enumerate((["-b", "-n", "3"] + genomes[:1],
+                                  ["--countmin", "--min-count", "2"]
+                                  + genomes[:1],
+                                  ["-f", "-n", "3", fastq])):
+        outs = []
+        for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+            out = str(tmp_path / f"{tag}{i}.stream")
+            assert fn(base + ["-o", out] + filtered) == 0
+            outs.append(_records(out))
+        assert outs[1] == outs[0], filtered
+    mats = []
+    for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+        out = str(tmp_path / f"{tag}.bin")
+        assert fn(["dist", "-k", str(K), "-y", "-c", "3", "-b", "-O", out,
+                   fastq, fastq]) == 0
+        mats.append(distmat.read_binary(out)[1])
+    np.testing.assert_allclose(mats[1], mats[0], rtol=1e-4, atol=1e-6)
 
 
 def test_out_of_slice_subcommands_refused(cpu_env):
-    for cmd in ("union", "hll", "mkdist", "readfilt"):
+    for cmd in ("mkdist", "readfilt", "panel", "sketch_by_seq", "sbs",
+                "dist_by_seq", "cmp_by_seq"):
         with pytest.raises(SystemExit, match="not yet ported"):
             tmain.main([cmd, "x"])
