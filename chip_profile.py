@@ -4,7 +4,7 @@
     python3 chip_profile.py [--reps 3] [--only NAME] [--fastq-reads N]
                             [--no-trace]
 
-Four workloads, each run `--reps` times untraced and then once under
+Five workloads, each run `--reps` times untraced and then once under
 torch.profiler (not with --no-trace):
   config 2   `dist -k 31 -S 16 -M -b -O ... -o ...` through the CLI entry on
              the 100 synthetic 5 Mbp genomes of chip_smoke.py (same seed),
@@ -22,7 +22,18 @@ torch.profiler (not with --no-trace):
              host.parse.cm_count / .cm_admit, the parse within each
              filter pass), sketch.cm_count and sketch.cm_admit (the host
              wall of each pass); then the count-min's PyTorch ops on one
-             of the file's 256-row tiles, timed alone with CUDA events.
+             of the file's 256-row tiles, timed alone with CUDA events;
+  rect       chip_smoke.py's e2e (g) shapes: first both K4 forms on its
+             1000 x 500 reference x query tile and on the transpose, kernel
+             alone; then its 1000 p=14 reference .hll files and 500 queries, `dist -k 31 -H -Q q.txt -M -b` and
+             `dist -k 31 -H -Q q.txt --nearest-neighbors 5` through the
+             CLI entry, with the buckets of every untraced run: sketch
+             (loading the .hll files), cardinality (-o),
+             compare.stack_upload (stacking each bank's registers and
+             uploading them), compare.dispatch (queueing
+             each tile's kernels, and the device top-k in NN mode),
+             compare.pull (waiting for and copying each tile's result, or
+             its (qt, nn) candidates), nn.merge (the host argsort merge).
 For the traced run it prints the profiler's table (top ops by self device
 time) and the device busy share of that one run: the union of the device
 activity intervals in the trace over the run's wall clock.  The profiler
@@ -273,7 +284,79 @@ def fastq(dev, reps: int, reads: int, trace: bool) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-WORKLOADS = ("config2", "n1024", "j1000", "fastq")
+def rect(dev, reps: int, trace: bool) -> None:
+    import torch
+    import chip_smoke
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    p = 14
+    bank, _ = chip_smoke._k3_bank(dev, p, 1000)
+    other, qs = chip_smoke.query_bank(dev, bank)
+    k4_orientation(bank, qs)
+    tmp = tempfile.mkdtemp(prefix="dtt_profile_rect_")
+    try:
+        hdir = os.path.join(tmp, "bank")
+        os.makedirs(hdir)
+        hlls = []
+        for i, r in enumerate(bank.cpu().numpy().astype(np.uint8)):
+            hlls.append(os.path.join(hdir, f"s{i:04d}.hll"))
+            HLL(p, est.ERTL_MLE, est.ERTL_MLE, r).write(hlls[-1])
+        queries = chip_smoke.write_query_bank(os.path.join(tmp, "queries"),
+                                              other, hlls)
+        qfile = chip_smoke._write_list(os.path.join(tmp, "q.txt"), queries)
+        out = os.path.join(tmp, "out")
+        pairs = len(hlls) * len(queries)
+        for label, extra in (("-Q -M -b", ["-M", "-b"]),
+                             ("-Q --nearest-neighbors 5",
+                              ["--nearest-neighbors", "5"])):
+            argv = (["dist", "-k", "31", "-H", "-Q", qfile, "-O", out, "-o",
+                     out + ".sizes"] + extra + hlls)
+
+            def run():
+                if main(list(argv)) != 0:
+                    raise SystemExit(f"rect {label} returned nonzero")
+
+            run()
+            buckets()
+            for r in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                log(f"[rect {label}] rep {r} wall {wall:.4f}s, "
+                    f"{pairs / wall:.0f} pairs/s; buckets: {buckets()}")
+            if trace:
+                traced(f"rect {label}", run)
+                buckets()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k4_orientation(bank, qs) -> None:
+    """Both K4 forms on e2e (g)'s reference x query tile and on its
+    transpose (the queries on the lhs), over the CLI's window for that
+    tile: kernel ms each way (CUDA events, 5 calls after a warm-up)."""
+    import chip_smoke
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import pairwise as pw
+    mm = [pw._block_minmax(x.cpu().numpy().astype(np.int32), x.shape[0],
+                           pw.DEFAULT_TILE)[0] for x in (bank, qs)]
+    kmax, kmin = pw._pair_window(mm[0], mm[1], 64 - 14)
+    parts = []
+    for tag, (a, b) in (("refs x queries", (bank, qs)),
+                        ("queries x refs", (qs, bank))):
+        x = chip_smoke.cuda_ms(
+            lambda: js.cum_union_counts(a, b, kmin=kmin, kmax=kmax), 5)
+        j = chip_smoke.cuda_ms(
+            lambda: js.joint_pair_stats(a, b, kmin=kmin, kmax=kmax), 5)
+        parts.append(f"{tag} ({a.shape[0]}x{b.shape[0]}) {x:.4f} / {j:.4f}")
+    log(f"[rect] K4 by orientation, kmin={kmin} K={kmax - kmin + 1} (kernel "
+        "ms, X-only / joint): " + "; ".join(parts))
+
+
+WORKLOADS = ("config2", "n1024", "j1000", "fastq", "rect")
 
 
 def main() -> int:
@@ -305,7 +388,8 @@ def main() -> int:
     runs = {"config2": lambda: config2(dev, args.reps, trace),
             "n1024": lambda: n1024(dev, args.reps, trace),
             "j1000": lambda: j1000(dev, args.reps, trace),
-            "fastq": lambda: fastq(dev, args.reps, args.fastq_reads, trace)}
+            "fastq": lambda: fastq(dev, args.reps, args.fastq_reads, trace),
+            "rect": lambda: rect(dev, args.reps, trace)}
     for name in WORKLOADS:
         if args.only in (None, name):
             runs[name]()

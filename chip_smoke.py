@@ -38,6 +38,14 @@ Phases, each printing its own lines with seconds:
               (K5) vs its plain version on 256 x 1000 pairs of the same-bank
               statistics: bit for bit, and inside the old bars rtol=2e-4
               atol=5e-2 on triples and atol=2e-6 on Jaccard
+     rect     e2e (g)'s query x reference tile at its shape and window:
+              that bank as references against its 500 queries (490 rows
+              from other ranges of the pool, ten byte copies of
+              references; two tensors, each side its own marginals): K4's
+              X-only form, K3 (MLE and ORIGINAL, c_a != c_b), K4's joint
+              form and K5 (all 1000 x 500 pairs, ha != hb), each bit for
+              bit against its plain version, and the ten identical pairs
+              at Jaccard 1 within 1e-5
   The build phase also prints SASS instruction counts: K1/K2 per window,
   and the Newton step of K3 (MLE) and K5 at K = 32 per level-step.
   6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
@@ -80,8 +88,20 @@ Phases, each printing its own lines with seconds:
                   the filtered registers of 20,000 reads on the card
                   bitwise equal to the CPU run.  K1, the row-estimate
                   kernel, K4's X-only form and K3 must launch in their steps
+              (g) query/reference dist over (d)'s files and 500 queries
+                  (ten byte copies of references): -Q -M, --containment-
+                  index (each copy's containment in its reference 1),
+                  -J -Q, --nearest-neighbors 5 with and without -Q, TSV
+                  and binary (each copy's first neighbour its reference),
+                  --containment-dist without -Q (1000 x 1000; over 20
+                  FASTA genomes the aliased half sketches each file once),
+                  and -Q with the references as queries, bit for bit equal
+                  to (d)'s condensed -M matrix; a 64 x 48 corner of the -M
+                  and -J matrices against the plain versions on the CPU.
+                  Each run's kernels must launch, every value be finite
 The line before the last is the per-kernel JSON record (launches from the
-run of the kernel's path, times as CUDA-event means (K1 and K2 alone,
+run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
+and -J -Q runs), times as CUDA-event means (K1 and K2 alone,
 with no host dispatch between launches), each kernel's bound
 and, where one PyTorch call computes the same function, that call's time:
 for K4 one float32 bmm of the stacked indicators; the log line beside it
@@ -761,7 +781,7 @@ def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
                    plain_reps, records):
     """K3 vs its plain version: bit for bit (max abs err 0, non-finite
     entries alike), and within the old bar (rtol=K3_RTOL, atol=K3_ATOL on
-    triples) as well."""
+    triples) as well.  Returns the kernel's triples."""
     import torch
     from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch import estimators as est
@@ -800,6 +820,7 @@ def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
            4 * (K * na * nb + na + nb + 3 * na * nb),
            k3_ops(na * nb, K, method, est.WINDOW_MLE_ITERS, nonempty),
            FP32_OPS)
+    return got
 
 
 def _indicators(a, b, kmin: int, kmax: int, joint: bool):
@@ -952,7 +973,8 @@ def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
     """K5 vs its plain version on the K-first statistics `st` restricted to
     row slice `rows`: bit for bit (max abs err 0, non-finite entries
     alike), and within the old bars (rtol=K3_RTOL atol=K3_ATOL on
-    triples, JI_ATOL on Jaccard) as well."""
+    triples, JI_ATOL on Jaccard) as well.  Returns the kernel's
+    triples."""
     import torch
     from dashing_tpu_torch.ops import joint_mle as jm
     from dashing_tpu_torch.sketch import estimators as est
@@ -996,6 +1018,7 @@ def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
            K5_REPLACES, "joint_triples", max_err, ms, plain_ms,
            4 * (3 * K * na * nb + K * (na + nb) + na + nb + 3 * na * nb),
            k5_ops(na * nb, K, iters, eq_levels), FP32_OPS)
+    return got
 
 
 def phase_k4_k5(dev, records):
@@ -1024,6 +1047,91 @@ def phase_k4_k5(dev, records):
     check_k5(st, slice(0, 256), hist.T, hist.T.contiguous(), c, c, p, kmin,
              "p=14 bank", records)
     return bank
+
+
+# e2e (g): query positions that are byte copies of reference files, and
+# the references they copy
+QUERY_COPIES = {7 + 50 * i: 3 + 97 * i for i in range(10)}
+N_QUERIES = 500
+
+
+def query_bank(dev, bank):
+    """e2e (g)'s queries as the card holds them: (the `other` bank whose
+    rows fill them, the (N_QUERIES, 2^14) int8 query tensor).  Position i
+    of QUERY_COPIES holds reference QUERY_COPIES[i]'s row (its .hll file's
+    byte copy), every other position the next row of `other`, a bank of
+    N_QUERIES - 10 rows from other ranges of the pool."""
+    import torch
+    other, _ = _k3_bank(dev, 14, N_QUERIES - len(QUERY_COPIES))
+    rows = iter(range(other.shape[0]))
+    return other, torch.stack([bank[QUERY_COPIES[i]] if i in QUERY_COPIES
+                               else other[next(rows)]
+                               for i in range(N_QUERIES)])
+
+
+def phase_rect(dev, bank, records):
+    """The query x reference tile of e2e (g)'s -Q runs, at its shape and
+    window: the 1000 x 2^14 bank as references (lhs) against the 500
+    queries of query_bank (rhs), two tensors, each side with its own
+    marginals.  K4's X-only form, K3 (MLE and ORIGINAL, c_a != c_b), K4's
+    joint form and K5 (all 1000 x 500 pairs, ha != hb), each bit for bit
+    against its plain version; the ten identical (reference, copy) pairs
+    must give Jaccard 1 within 1e-5 from K3 and K5.  Their records count
+    launches from e2e (g)'s -Q runs.  Returns the `other` bank (e2e (g)
+    writes its rows as query files)."""
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
+    p = 14
+    t0 = time.perf_counter()
+    other, qs = query_bank(dev, bank)
+    n0 = len(records)
+    nr, nq = bank.shape[0], qs.shape[0]
+    # the CLI's window for its one (1024-row tiles) reference x query tile
+    mm_r = pw._block_minmax(bank.cpu().numpy().astype(np.int32), nr,
+                            pw.DEFAULT_TILE)
+    mm_q = pw._block_minmax(qs.cpu().numpy().astype(np.int32), nq,
+                            pw.DEFAULT_TILE)
+    kmax, kmin = pw._pair_window(mm_r[0], mm_q[0], 64 - p)
+    K = kmax - kmin + 1
+    shape = f"{nr}x{nq} pairs p={p} K={K}"
+    log(f"[rect] references {nr} x 2^{p}, queries {nq} x 2^{p} ("
+        f"{len(QUERY_COPIES)} of them reference rows) from K1, window "
+        f"kmin={kmin} K={K} ({time.perf_counter() - t0:.2f}s)")
+    copies = (list(QUERY_COPIES.values()), list(QUERY_COPIES))
+
+    def identical(tri, what):
+        t = tri[:, copies[0], copies[1]].double()
+        err = float((t[2] / t.sum(0) - 1.0).abs().max())
+        if not err <= 1e-5:
+            fail(f"{what}: a reference and its byte copy have Jaccard "
+                 f"{1 - err}")
+        log(f"[rect] {what}: the {len(copies[0])} identical pairs at Jaccard"
+            f" 1 within {err:.3g} (onlyA, onlyB at most "
+            f"{float(t[:2].abs().max()):.3g})")
+
+    check_cum_union(bank, qs, kmin, kmax, False, "two banks", records)
+    stats = pw.pair_stats(bank, qs, kmax, kmin)
+    cumT = stats["cum_union"].permute(2, 0, 1).contiguous()
+    for method, name in ((est.ERTL_MLE, "MLE"), (est.ORIGINAL, "ORIGINAL")):
+        c_a, c_b = (um.estimate_rows(stats[h], p=p, kmin=kmin, method=method,
+                                     chain=True) for h in ("hist_a", "hist_b"))
+        tri = _check_triples(cumT, c_a, c_b, p, kmin, method,
+                             f"{name} two banks", shape, 10, 2, records)
+        if method == est.ERTL_MLE:
+            identical(tri, "K3 MLE two banks")
+    del stats, cumT, tri
+    st = check_k4(bank, qs, kmin, kmax, False, "two banks", records)
+    ha, hb = (pw.marginal_histograms(x, kmin, K) for x in (bank, qs))
+    c_a, c_b = (um.estimate_rows(h, p=p, kmin=kmin, method=est.ERTL_MLE)
+                for h in (ha, hb))
+    tri = check_k5(st, slice(0, nr), ha.T, hb.T.contiguous(), c_a, c_b, p,
+                   kmin, "two banks", records, reps=3)
+    identical(tri, "K5 two banks")
+    del st, tri
+    for r in records[n0:]:
+        r["counter"] = "rect " + r["counter"]
+    return other
 
 
 def phase_bench(dev, counts):
@@ -1159,7 +1267,7 @@ def _cond_index(n: int, i: int, j: int) -> int:
     return i * (2 * n - i - 1) // 2 + j - i - 1
 
 
-def phase_e2e(dev, bank, counts, records):
+def phase_e2e(dev, bank, other, counts, records):
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.cli.main import main
@@ -1266,7 +1374,8 @@ def phase_e2e(dev, bank, counts, records):
         _e2e_encodings(dev, genomes, total_bases, tmp, counts)
         sketches = _phase_times(dev, paths, total_bases)
         _config2_kernels(dev, sketches, records)
-        _e2e_joint_bank(bank, tmp)
+        hlls, cond_m = _e2e_joint_bank(bank, tmp)
+        _e2e_query(dev, other, hlls, cond_m, paths[:20], tmp, counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1433,6 +1542,336 @@ def _e2e_joint_bank(bank, tmp):
           for t, c in out.items()}
     log(f"[e2e d] largest |JI(-J) - JI(-m)| over the pairs: "
         f"{float(np.abs(ji['J'] - ji['m']).max()):.6f}")
+    return hlls, out["m"]
+
+
+def write_query_bank(qdir: str, other, hlls):
+    """N_QUERIES query .hll files: byte copies of the references in
+    QUERY_COPIES, the rest rows of the `other` bank.  Returns their paths."""
+    import shutil as sh
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    regs = other.cpu().numpy().astype(np.uint8)
+    os.makedirs(qdir)
+    out, row = [], 0
+    for i in range(N_QUERIES):
+        out.append(os.path.join(qdir, f"q{i:03d}.hll"))
+        if i in QUERY_COPIES:
+            sh.copyfile(hlls[QUERY_COPIES[i]], out[-1])
+        else:
+            HLL(14, est.ERTL_MLE, est.ERTL_MLE, regs[row]).write(out[-1])
+            row += 1
+    return out
+
+
+def _write_list(path: str, paths) -> str:
+    with open(path, "w") as fp:
+        fp.write("".join(x + "\n" for x in paths))
+    return path
+
+
+def _read_nn_tsv(path: str):
+    """(names, ids (n, nn), values (n, nn)) of a --nearest-neighbors TSV."""
+    lines = open(path).read().splitlines()
+    if lines[0] != "#File\tNeighbor ID:distance\t...":
+        fail(f"{path}: NN header {lines[0]!r}")
+    rows = [l.split("\t") for l in lines[1:]]
+    ids = np.array([[int(f.split(":")[0]) for f in r[1:]] for r in rows])
+    vals = np.array([[float(f.split(":")[1]) for f in r[1:]] for r in rows])
+    return [r[0] for r in rows], ids, vals
+
+
+def _read_nn_bin(path: str):
+    raw = open(path, "rb").read()
+    n, nn = np.frombuffer(raw[:8], "<u4")
+    rec = np.frombuffer(raw[8:], dtype=[("v", "<f4"), ("i", "<u4")])
+    if rec.shape != (n * nn,):
+        fail(f"{path}: {rec.shape} records for {n} x {nn}")
+    return rec["i"].reshape(n, nn).astype(np.int64), rec["v"].reshape(n, nn)
+
+
+_J_BINS = ((0, 1e-3), (1e-3, 1e-2), (1e-2, 1e-1), (1e-1, 1.01))
+
+
+def _by_jaccard(ji, **errs) -> str:
+    """'J in [lo, hi): n pairs, <name> <max err>, ...' over _J_BINS; an
+    error array may be NaN where it does not apply."""
+    out = []
+    for lo, hi in _J_BINS:
+        sel = (ji >= lo) & (ji < hi)
+        if sel.any():
+            out.append(f"J in [{lo:g}, {hi:g}): {int(sel.sum())} pairs" + "".join(
+                f", {k.replace('_', ' ')} {float(np.nanmax(v[sel], initial=0)):.3g}"
+                for k, v in errs.items()))
+    return "; ".join(out)
+
+
+def _corner_vs_cpu(hlls, queries, mash, mash_j, rows=64, cols=48):
+    """The first rows x cols of the -Q Mash matrices (queries x references;
+    `mash` from -M, `mash_j` from -J -M) against the port's plain versions
+    on the CPU, over the same tile window as the card's one 1000 x 500
+    tile.  Jaccard from the distance: J = r / (2 - r), r = exp(-k d).
+    -M: pairs with J >= 1e-3 within Jaccard 2e-6 and Mash rtol 1e-4, every
+    pair within Jaccard 1e-3 (an eighth of a p = 14 sketch's standard error
+    1/sqrt(m)); below 1e-3 the shared count is a difference of estimates
+    of up to ~4 million and carries the devices' last-bit differences in
+    exp and log.  -J: _joint_corner_cause."""
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    import torch
+    rr = pw._stack_regs([HLL.read(h) for h in hlls])
+    qq = pw._stack_regs([HLL.read(q) for q in queries])
+    p = 14
+    kmax, kmin = pw._pair_window(
+        pw._block_minmax(rr, len(rr), pw.DEFAULT_TILE)[0],
+        pw._block_minmax(qq, len(qq), pw.DEFAULT_TILE)[0], 64 - p)
+    cpu = torch.device("cpu")
+    a = pw._device_regs(rr[:cols], cpu)
+    b = pw._device_regs(qq[:rows], cpu)
+    want = pw.compare_tile(a, b, p, pw.MASH_DIST, 1.0 / 31, est.ERTL_MLE,
+                           est.ERTL_MLE, kmax, kmin).T.numpy()
+    got = mash[:rows, :cols]
+    ji = [_mash_ji(x) for x in (got, want)]
+    ji_err = np.abs(ji[0] - ji[1])
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    log(f"[e2e g] -M {rows}x{cols} corner vs the plain versions on the CPU "
+        f"(window kmin={kmin} K={kmax - kmin + 1}), by Jaccard: "
+        + _by_jaccard(ji[1], Jaccard_err=ji_err, Mash_rel_err=rel))
+    sure = ji[1] >= 1e-3
+    bad = int((sure & ((ji_err > 2e-6) | (rel > 1e-4))).sum()
+              + (ji_err > 1e-3).sum())
+    if bad:
+        fail(f"e2e (g) -M: {bad} pairs of the corner beyond the bars "
+             "(Jaccard 2e-6 and Mash rtol 1e-4 where J >= 1e-3, Jaccard "
+             "1e-3 everywhere)")
+    log(f"[e2e g] -M corner: the {int(sure.sum())} pairs with Jaccard >= "
+        f"1e-3 within Jaccard 2e-6 and Mash rtol 1e-4, all {got.size} "
+        "within Jaccard 1e-3")
+    _joint_corner_cause(a, b, mash_j[:rows, :cols], p, kmax, kmin)
+
+
+def _mash_ji(d):
+    """Jaccard (float64) from Mash distances at k = 31."""
+    r = np.exp(-31.0 * d.astype(np.float64))
+    return r / (2.0 - r)
+
+
+def _joint_corner_cause(a, b, got, p, kmax, kmin):
+    """The -J corner (`got`, queries b x references a) against the CPU.
+    First on the card: K5's plain version over the corner's statistics must
+    give the main path's distances bit for bit, the statistics (exact
+    counts) must equal the CPU's.  Then the plain version on the two
+    devices, each from its own marginal estimates, and on the CPU from the
+    card's (which leaves K5's own arithmetic).  K5 keeps its Newton result
+    only if its log-likelihood is not below the start's, else the start
+    (the inclusion-exclusion triple); for a near-disjoint pair the two
+    values can lie within float32 rounding of each other, so a last-bit
+    difference can flip that choice and move Jaccard by ~1e-5.  Pairs that
+    take the same branch on both devices must agree within Jaccard 2e-6
+    and, where J >= 1e-3, Mash rtol 1e-4; pairs that flip, within Jaccard
+    1e-3.  The log counts the flips and gives the errors by Jaccard."""
+    import torch
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
+
+    def inputs(x, y):
+        st = pw.pair_stats(x, y, kmax, kmin, joint=True)
+        return ([st[k].permute(2, 0, 1).contiguous()
+                 for k in ("eq", "gt_a", "gt_b")]
+                + [st["hist_a"].T.contiguous(), st["hist_b"].T.contiguous()]
+                + [um.estimate_rows(st[h], p=p, kmin=kmin,
+                                    method=est.ERTL_MLE)
+                   for h in ("hist_a", "hist_b")])
+
+    def mash(tri):
+        """(3, na, nb) triples -> (nb, na) Mash distances on the host."""
+        return pw.measure_from_triples(tri.permute(1, 2, 0), pw.MASH_DIST,
+                                       1.0 / 31).T.cpu().numpy()
+
+    card = inputs(a.cuda(), b.cuda())
+    host = inputs(a, b)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(card[:5], host[:5])):
+        fail("e2e (g) -J corner: the joint statistics or marginal "
+             "histograms differ between the card and the CPU")
+    plain = jm.joint_triples_plain(*card, p=p, kmin=kmin)
+    if not np.array_equal(mash(plain).view(np.uint32), got.view(np.uint32)):
+        fail("e2e (g) -J corner: the main path's distances differ from K5's "
+             "plain version on the card")
+    dc = [float(((x.cpu() - y).abs() / y).max()) for x, y in
+          zip(card[5:], host[5:])]
+    card_cpu = [t.cpu() for t in card]
+    runs = {"card": (plain.cpu(), jm.joint_triples_plain(
+        *card, p=p, kmin=kmin, iters=0).cpu())}
+    for tag, args in (("CPU", host), ("CPU from the card's marginals",
+                                      card_cpu)):
+        runs[tag] = (jm.joint_triples_plain(*args, p=p, kmin=kmin),
+                     jm.joint_triples_plain(*args, p=p, kmin=kmin, iters=0))
+
+    def ji(t):
+        t = t.double()
+        return (t[2] / t.sum(0)).numpy().T
+
+    kept = {k: ~(v == s).all(0).numpy().T for k, (v, s) in runs.items()}
+    J = ji(runs["card"][0])
+    log(f"[e2e g] -J -M {got.shape[0]}x{got.shape[1]} corner: bit for bit "
+        "equal to K5's plain version on the card; joint statistics equal "
+        "the CPU's; marginal estimates card vs CPU max rel diff "
+        f"{dc[0]:.3g} (references), {dc[1]:.3g} (queries); Newton result "
+        f"kept for {int(kept['card'].sum())} of {J.size} pairs on the card")
+    bad = 0
+    for tag in ("CPU", "CPU from the card's marginals"):
+        err = np.abs(ji(runs[tag][0]) - J)
+        rel = np.abs(mash(runs[tag][0]) - got) / np.maximum(np.abs(got),
+                                                            1e-30)
+        flip = kept[tag] != kept["card"]
+        log(f"[e2e g] -J -M corner, {tag} vs the card: {int(flip.sum())} "
+            "pairs keep the Newton result on one device only; by Jaccard: "
+            + _by_jaccard(J, same_branch_Jaccard_err=np.where(flip, np.nan,
+                                                             err),
+                          same_branch_Mash_rel_err=np.where(flip, np.nan,
+                                                            rel),
+                          flipped_Jaccard_err=np.where(flip, err, np.nan)))
+        bad += int((~flip & ((err > 2e-6) | ((J >= 1e-3) & (rel > 1e-4))))
+                   .sum() + (err > 1e-3).sum())
+    if bad:
+        fail(f"e2e (g) -J corner: {bad} pairs beyond the bars (same branch: "
+             "Jaccard 2e-6, Mash rtol 1e-4 where J >= 1e-3; every pair "
+             "Jaccard 1e-3)")
+
+
+def _e2e_query(dev, other, hlls, cond_m, genomes, tmp, counts):
+    """(g) query/reference `dist` on the card: e2e (d)'s 1000 .hll files as
+    references, N_QUERIES queries (rows of the `other` bank, and byte
+    copies of ten references).  -Q -M, --containment-index, -J -Q -M,
+    --nearest-neighbors 5 with and without -Q in TSV and binary,
+    --containment-dist without -Q (a 1000 x 1000 rect; with -H the query
+    half is read again, as the JAX CLI does), the same over 20 FASTA
+    genomes (the aliased half: each file sketched once), and -Q with the
+    references as queries against e2e (d)'s condensed -M matrix, bit for
+    bit.  Each run's kernels must launch; every value finite; a 64 x 48
+    corner of the -M and -J matrices against the port's plain versions on
+    the card and the CPU (_corner_vs_cpu, _joint_corner_cause)."""
+    import torch
+    from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    t_all = time.perf_counter()
+    nr, nq = len(hlls), N_QUERIES
+    queries = write_query_bank(os.path.join(tmp, "queries"), other, hlls)
+    qfile = _write_list(os.path.join(tmp, "q.txt"), queries)
+    rfile = _write_list(os.path.join(tmp, "r.txt"), hlls)
+    base = ["dist", "-k", "31", "-H"]
+
+    def run(tag, argv, pairs, kernels):
+        """Run the CLI with the counts at 0; fail unless each named
+        kernel launched; return (output path, launches)."""
+        out = os.path.join(tmp, f"g_{tag}.out")
+        eh.launches = um.launches = um.estimate_launches = 0
+        js.launches = js.cum_union_launches = jm.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if main(argv + ["-O", out, "-o", out + ".sizes"]) != 0:
+            fail(f"e2e (g) {tag} returned nonzero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"encode_hash": eh.launches, "estimate_rows":
+               um.estimate_launches, "cum_union_counts": js.cum_union_launches,
+               "union_triples": um.launches, "joint_pair_stats": js.launches,
+               "joint_triples": jm.launches}
+        missing = [k for k in kernels if got[k] == 0]
+        if missing:
+            fail(f"e2e (g) {tag}: {missing} not launched ({got})")
+        log(f"[e2e g] {tag}: wall {wall:.3f}s, {pairs / wall:.0f} pairs/s "
+            f"(sketch load and -o included); launches " + ", ".join(
+                f"{k} {v}" for k, v in got.items() if v))
+        return out, got
+
+    def rect(path, rows, cols):
+        mat = np.fromfile(path, np.float32)
+        if mat.shape != (rows * cols,) or not np.isfinite(mat).all():
+            fail(f"e2e (g) {path}: {mat.shape} values, expected finite "
+                 f"{rows} x {cols}")
+        return mat.reshape(rows, cols)
+
+    x_only = ("estimate_rows", "cum_union_counts", "union_triples")
+    joint = ("estimate_rows", "joint_pair_stats", "joint_triples")
+    path, got = run("-Q -M -b", base + ["-Q", qfile, "-M", "-b"] + hlls,
+                    nq * nr, x_only)
+    for k in ("cum_union_counts", "union_triples"):
+        counts["rect " + k] = got[k]
+    mash = rect(path, nq, nr)
+    path, _ = run("-Q --containment-index -b", base + [
+        "-Q", qfile, "--containment-index", "-b"] + hlls, nq * nr, x_only)
+    ci = rect(path, nq, nr)
+    worst = max(abs(float(ci[q, r]) - 1.0) for q, r in QUERY_COPIES.items())
+    if worst > 1e-5:
+        fail(f"e2e (g): a copied query's containment in its reference is "
+             f"{1 - worst}")
+    log(f"[e2e g] the {len(QUERY_COPIES)} copied queries: containment index "
+        f"in their reference within {worst:.3g} of 1")
+    path, got = run("-J -Q -M -b", base + ["-J", "-Q", qfile, "-M", "-b"]
+                    + hlls, nq * nr, joint)
+    for k in ("joint_pair_stats", "joint_triples"):
+        counts["rect " + k] = got[k]
+    mash_j = rect(path, nq, nr)
+    nn_out = {}
+    for tag, extra, rows in (("-Q", ["-Q", qfile], nq), ("", [], nr)):
+        for fmt in ("tsv", "bin"):
+            path, _ = run(f"--nearest-neighbors 5 {tag} {fmt}", base + [
+                "--nearest-neighbors", "5"] + extra
+                + (["-b"] if fmt == "bin" else []) + hlls, rows * nr, x_only)
+            nn_out[tag, fmt] = (_read_nn_tsv(path) if fmt == "tsv"
+                                else _read_nn_bin(path))
+        names, ids, vals = nn_out[tag, "tsv"]
+        ids_b, vals_b = nn_out[tag, "bin"]
+        if ids.shape != (rows, 5) or not np.array_equal(ids, ids_b) \
+                or not np.isfinite(vals_b).all():
+            fail(f"e2e (g) NN {tag}: TSV ids {ids.shape} differ from the "
+                 "binary ones or values are not finite")
+        if names != (queries if tag else hlls):
+            fail(f"e2e (g) NN {tag}: row names differ from the inputs")
+    ids = nn_out["-Q", "bin"][0]
+    for q, r in QUERY_COPIES.items():
+        if ids[q, 0] != r:
+            fail(f"e2e (g): query {q} (a copy of reference {r}) has first "
+                 f"neighbour {ids[q, 0]}")
+    if (nn_out["", "bin"][0] == np.arange(nr)[:, None]).any():
+        fail("e2e (g): an all-pairs neighbour list holds its own sketch")
+    log(f"[e2e g] NN: every copied query's first neighbour is its "
+        f"reference; no all-pairs row lists itself")
+    path, _ = run("--containment-dist -b (no -Q)", base + [
+        "--containment-dist", "-b"] + hlls, nr * nr, x_only)
+    cd = rect(path, nr, nr)
+    if (np.diag(cd) != 0).any():
+        fail("e2e (g): --containment-dist of a sketch against itself != 0")
+    path, got = run("--containment-dist -b, 20 FASTA genomes (aliased)", [
+        "dist", "-k", "31", "-S", "16", "--containment-dist", "-b",
+        "--avoid-sorting"] + genomes, len(genomes) ** 2,
+        ("encode_hash",) + x_only)
+    rect(path, len(genomes), len(genomes))
+    per_file = counts["encode_hash"] / 100    # e2e (b): 100 genomes, no -Q
+    if got["encode_hash"] > 1.01 * per_file * len(genomes):
+        fail(f"e2e (g): the aliased half launched K1 {got['encode_hash']} "
+             f"times for {len(genomes)} files (~{per_file:.0f} a file)")
+    path, _ = run("-Q references -M -b", base + ["-Q", rfile, "-M", "-b"]
+                  + hlls, nr * nr, x_only)
+    self_q = rect(path, nr, nr)
+    iu = np.triu_indices(nr, 1)
+    upper = np.ascontiguousarray(self_q.T[iu])
+    if not np.array_equal(upper.view(np.uint32), cond_m.view(np.uint32)):
+        diff = int((upper.view(np.uint32) != cond_m.view(np.uint32)).sum())
+        fail(f"e2e (g): -Q with the references as queries differs from e2e "
+             f"(d)'s condensed -M matrix in {diff} of {cond_m.size} pairs "
+             f"(max abs {float(np.abs(upper - cond_m).max())})")
+    log(f"[e2e g] -Q references x references: its {cond_m.size} pairs bit "
+        "for bit equal to e2e (d)'s condensed -M matrix")
+    _corner_vs_cpu(hlls, queries, mash, mash_j)
+    log(f"[e2e g] total {time.perf_counter() - t_all:.1f}s")
 
 
 def _phase_times(dev, paths, total_bases):
@@ -1740,8 +2179,9 @@ def main() -> int:
     phase_k2(dev, records)
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)
+    other = phase_rect(dev, bank, records)
     phase_bench(dev, counts)
-    phase_e2e(dev, bank, counts, records)
+    phase_e2e(dev, bank, other, counts, records)
     phase_e2e_fastq(dev)
     for r in records:
         r["launches"] = counts[r["counter"]]

@@ -53,6 +53,7 @@ class CommonOpts:
     seed: int = 1337
     use_counting_filter: bool = False
     sketch_by_fname: bool = False
+    number_neighbors: int = 0      # --nearest-neighbors (0: the matrix)
 
 
 def hll_p_from_S(S: int) -> int:
@@ -65,7 +66,6 @@ _REFUSED = {
     "--wj": "weighted Jaccard", "--wj-exact": "weighted Jaccard",
     "--wj-cm-sketch-size": "weighted Jaccard",
     "--wj-cm-nhashes": "weighted Jaccard",
-    "--nearest-neighbors": "nearest-neighbour mode",
     "-B": "b-bit MinHash (-B)", "--bbits": "b-bit MinHash",
     "-8": "non-HLL sketch types",
 }
@@ -115,6 +115,9 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         return True
     if flag in ("-J", "--ertl-joint-mle"):
         opts.jestim = est.ERTL_JOINT_MLE
+        return True
+    if flag == "--nearest-neighbors":
+        opts.number_neighbors = int(val)
         return True
     if flag in _REFUSED:
         raise NotPorted(_REFUSED[flag])
@@ -284,6 +287,15 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
     check_compatible(sketches)
     return pw.all_pairs_condensed(sketches, result_type, k, estim, jestim,
                                   device, out=out)
+
+
+def compare_rect(refs, queries, result_type: int, k: int, estim: int,
+                 jestim: int, device: torch.device) -> np.ndarray:
+    """Query x reference (nq, nr) matrix over HLL sketches, the reference
+    on the lhs of each pair's triples."""
+    check_compatible(list(refs) + list(queries))
+    return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
+                         device)
 
 
 def emit_cardinalities(fp, names: Sequence[str], sketches,

@@ -9,10 +9,11 @@ Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
 slice covers: HLL sketches of exact k-mers (contiguous or spaced, with or
 without minimizer windows, scored by value or by entropy) or of the
 ntHash and cyclic rolling hashes, count-min filtered or not (sketch -b/-f,
-dist -y), symmetric measures, the ORIGINAL/IMPROVED/MLE estimators and the
-joint MLE (-J); cardinalities (card, hll) and the HLL file tools (union,
-view, fold, printmat, flatten).  Everything else is refused with a "not
-yet ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
+dist -y), every measure, the ORIGINAL/IMPROVED/MLE estimators and the
+joint MLE (-J), query x reference rows (-Q) and k-nearest neighbours
+(--nearest-neighbors); cardinalities (card, hll) and the HLL file tools
+(union, view, fold, printmat, flatten).  Everything else is refused with
+a "not yet ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
 (default "cuda"); asking for CUDA without a card raises.  The file tools
 run on the host and never create a device.
 """
@@ -92,6 +93,7 @@ def dist_main(argv: List[str], device) -> int:
     use_scientific = False
     out_sizes: Optional[str] = None
     out_dists: Optional[str] = None
+    querypaths: List[str] = []
     if not argv:
         _dist_usage()
     optlist, positional = _getopts(argv, DIST_SHORT_OPTS, DIST_LONG)
@@ -104,13 +106,16 @@ def dist_main(argv: List[str], device) -> int:
             result_type = pw.FULL_MASH_DIST
         elif flag in ("-Z", "--sizes"):
             result_type = pw.SIZES
+        elif flag == "--containment-index":
+            result_type = pw.CONTAINMENT_INDEX
+        elif flag == "--containment-dist":
+            result_type = pw.CONTAINMENT_DIST
+        elif flag == "--full-containment-dist":
+            result_type = pw.FULL_CONTAINMENT_DIST
         elif flag == "--symmetric-containment-index":
             result_type = pw.SYMMETRIC_CONTAINMENT_INDEX
         elif flag == "--symmetric-containment-dist":
             result_type = pw.SYMMETRIC_CONTAINMENT_DIST
-        elif flag in ("--containment-index", "--containment-dist",
-                      "--full-containment-dist", "-Q", "--query-paths"):
-            raise NotPorted(f"{flag} (query/reference and asymmetric measures)")
         elif flag in ("-b", "--emit-binary"):
             emit_fmt = BINARY
         elif flag in ("-U", "--phylip"):
@@ -123,6 +128,8 @@ def dist_main(argv: List[str], device) -> int:
             out_sizes = val
         elif flag == "-O":
             out_dists = val
+        elif flag in ("-Q", "--query-paths"):
+            querypaths = paths.get_paths(val)
         elif flag in ("-h", "-?", "--help"):
             _dist_usage()
     core.validate_k(o)
@@ -130,14 +137,27 @@ def dist_main(argv: List[str], device) -> int:
     if not inpaths:
         eprint("No paths. See usage.")
         _dist_usage()
+    nq = len(querypaths)
+    if nq == 0 and not pw.is_symmetric(result_type):
+        eprint("Note: No query files provided, but an asymmetric distance was "
+               "requested. Switching to a query/reference format with all "
+               "references as queries.")
+        querypaths = list(inpaths)
+        nq = len(querypaths)
     if not o.presketched and not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
+        querypaths = paths.sort_paths_by_fsize(querypaths)
+    # queries that are the references: sketch each file once and alias the
+    # sketch objects as the query half
+    mirror_queries = (bool(querypaths) and querypaths == inpaths
+                      and not o.presketched)
+    allpaths = inpaths + ([] if mirror_queries else querypaths)
 
-    names = list(inpaths)
-    if o.presketched and len(inpaths) == 1:
+    names = list(allpaths)
+    if o.presketched and len(allpaths) == 1:
         # one presketched file may hold a stream of sketches
         sketches = []
-        with gzip.open(inpaths[0], "rb") as fp:
+        with gzip.open(allpaths[0], "rb") as fp:
             while True:
                 try:
                     sketches.append(core.read_hll(fp))
@@ -145,8 +165,11 @@ def dist_main(argv: List[str], device) -> int:
                     break
         names = [str(i) for i in range(len(sketches))]
     else:
-        with metrics.phase("sketch", items=len(inpaths), unit="files"):
-            sketches = core.sketch_paths(inpaths, o, device)
+        with metrics.phase("sketch", items=len(allpaths), unit="files"):
+            sketches = core.sketch_paths(allpaths, o, device)
+    if mirror_queries:
+        sketches = sketches + sketches       # the aliased query half
+        names = names + names
     for sk in sketches:
         sk.estim = o.estim
         sk.jestim = o.jestim
@@ -155,6 +178,13 @@ def dist_main(argv: List[str], device) -> int:
     core.emit_cardinalities(fp_sizes, names, sketches, device)
     if close_sizes:
         fp_sizes.close()
+
+    if o.number_neighbors > 0:
+        return _nn_emit(sketches, names, o, result_type, emit_fmt, out_dists,
+                        nq, device)
+    if nq:
+        return _rect_emit(sketches, names, o, result_type, emit_fmt,
+                          out_dists, nq, use_scientific, device)
 
     n = len(sketches)
     use_mmap = (emit_fmt == BINARY
@@ -188,6 +218,70 @@ def dist_main(argv: List[str], device) -> int:
     else:
         fp, close = core.open_output(out_dists)
         distmat.emit_ut_tsv(fp, names, cond, use_scientific)
+        if close:
+            fp.close()
+    return 0
+
+
+def _rect_emit(sketches, names, o: CommonOpts, result_type: int,
+               emit_fmt: int, out_dists: Optional[str], nq: int,
+               use_scientific: bool, device) -> int:
+    """Query x reference emission: headerless float32 rows (nq, nr) for
+    -b, with the .labels sidecar of every name (references, then
+    queries); otherwise one TSV row a query, whatever -T/-U say."""
+    nr = len(sketches) - nq
+    with metrics.phase("query/reference compare", items=nq * nr,
+                       unit="pairs"):
+        mat = core.compare_rect(sketches[:nr], sketches[nr:], result_type,
+                                o.k, o.estim, o.jestim, device)
+    if emit_fmt == BINARY:
+        fp, close = core.open_output(out_dists, binary=True)
+        fp.write(np.ascontiguousarray(mat, np.float32).tobytes())
+        if close:
+            fp.close()
+        _write_labels(out_dists, names)
+    else:
+        fp, close = core.open_output(out_dists)
+        distmat.emit_rect_tsv(fp, names[nr:], mat, use_scientific)
+        if close:
+            fp.close()
+    return 0
+
+
+def _nn_emit(sketches, names, o: CommonOpts, result_type: int, emit_fmt: int,
+             out_dists: Optional[str], nq: int, device) -> int:
+    """k-nearest-neighbour mode: TSV rows 'name\tid:value...' or binary
+    (u32 rows, u32 nn, then (f32 value, u32 id) records row by row).
+    Without -Q every sketch is a query against all the others."""
+    nn = o.number_neighbors
+    n = len(sketches)
+    nref = n - nq if nq else n
+    npairs = nq if nq else n
+    if nn > nref:
+        eprint(f"Only reporting {nref} rather than {nn} neighbors due to "
+               "their being only that many sets.")
+        nn = nref
+    refs = sketches[:nref] if nq else sketches
+    queries = sketches[nref:] if nq else sketches
+    with metrics.phase("nearest-neighbour compare", items=npairs * nref,
+                       unit="pairs"):
+        vals, order = pw.nn_topk(refs, queries, result_type, o.k, o.estim,
+                                 o.jestim, nn, exclude_self=not nq,
+                                 device=device)
+    if emit_fmt == BINARY:
+        fp, close = core.open_output(out_dists, binary=True)
+        fp.write(np.uint32(npairs).tobytes())
+        fp.write(np.uint32(nn).tobytes())
+        rec = np.zeros(npairs * nn, dtype=[("v", "<f4"), ("i", "<u4")])
+        rec["v"] = vals.reshape(-1)
+        rec["i"] = order.reshape(-1).astype(np.uint32)
+        fp.write(rec.tobytes())
+        if close:
+            fp.close()
+    else:
+        fp, close = core.open_output(out_dists)
+        fp.write("#File\tNeighbor ID:distance\t...\n")
+        distmat.emit_nn_tsv(fp, names[n - npairs:], vals, order)
         if close:
             fp.close()
     return 0
@@ -562,6 +656,10 @@ def _dist_usage():
         "  -o/-O FILE              cardinality / distance outputs\n"
         "  -M/--mash-dist, --full-mash-dist, --sizes, "
         "--symmetric-containment-*\n"
+        "  --containment-index, --containment-dist, --full-containment-dist"
+        "  asymmetric\n"
+        "  -Q/--query-paths FILE   query x reference rows (one path a line)\n"
+        "  --nearest-neighbors N   the N nearest references of each query\n"
         "  -b binary, -U phylip, -T full TSV (default upper-triangular TSV)\n"
         "  -E/-I/-m                estimator: original/improved/MLE\n"
         "  -J/--ertl-joint-mle     set comparisons by the joint MLE\n"
@@ -570,8 +668,8 @@ def _dist_usage():
         "least -c times [5, floored at 2]\n"
         "  -c/-q/-t/-R             threshold, rows, log2 counters a row "
         "[20], seed [1337]\n"
-        "Not yet ported (see ROADMAP.md): -Q and asymmetric measures, "
-        "-W, weighted Jaccard, non-HLL sketches\n")
+        "Not yet ported (see ROADMAP.md): -W, weighted Jaccard, non-HLL "
+        "sketches\n")
 
 
 def _sketch_usage():

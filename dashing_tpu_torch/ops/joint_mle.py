@@ -16,6 +16,8 @@ tensors; there is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
+
 import torch
 
 from ..sketch import estimators as est
@@ -30,9 +32,11 @@ KMAX = 66   # widest level window (pairwise._K_BUCKETS)
 def joint_triples_plain(eq: torch.Tensor, gt_a: torch.Tensor,
                         gt_b: torch.Tensor, ha: torch.Tensor,
                         hb: torch.Tensor, c_a: torch.Tensor,
-                        c_b: torch.Tensor, *, p: int, kmin: int
-                        ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, same layout in and out."""
+                        c_b: torch.Tensor, *, p: int, kmin: int,
+                        iters: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, same layout in and out;
+    `iters` Newton steps (default est.jmle_iters(p), the kernel's; 0 gives
+    the start)."""
     q = 64 - p
     hist_u = (eq + gt_a + gt_b).permute(1, 2, 0)
     c_u = est.improved_estimate_windowed(hist_u, p, kmin)
@@ -41,7 +45,8 @@ def joint_triples_plain(eq: torch.Tensor, gt_a: torch.Tensor,
              "lt_b": hb[:, None, :] - eq - gt_b}
     la, lb, lx = est.joint_mle_core(stats, (c_a[:, None], c_b[None, :], c_u),
                                     float(1 << p), q, kmin,
-                                    est.jmle_iters(p))
+                                    est.jmle_iters(p) if iters is None
+                                    else iters)
     return torch.stack([la, lb, lx])
 
 

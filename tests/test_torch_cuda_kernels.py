@@ -576,3 +576,124 @@ def test_pair_stats_on_the_card_calls_no_matmul(rng, cuda, monkeypatch):
     torch.cuda.synchronize()
     assert js.cum_union_launches == before + 2
     assert tile.shape == (70, 70) and torch.isfinite(tile).all()
+
+
+def _hll_bank(rng, n, p):
+    """n HLLs of overlapping content (a shared register vector under each
+    sketch's own), cardinalities spread by a per-sketch offset; sketch 0
+    repeated at 7 and 19."""
+    from dashing_tpu_torch.sketch.hll import HLL
+    m = 1 << p
+    shared = rng.geometric(0.5, size=m) - 1
+    own = rng.geometric(0.5, size=(n, m)) - 1 + rng.integers(0, 4, (n, 1))
+    regs = np.minimum(np.maximum(own, shared), 64 - p + 1).astype(np.uint8)
+    regs[7] = regs[19] = regs[0]
+    return [HLL.from_numpy(r, p) for r in regs]
+
+
+@pytest.mark.parametrize("jestim", [est.ERTL_MLE, est.ERTL_JOINT_MLE])
+def test_rect_on_the_card_matches_cpu(rng, cuda, jestim):
+    """rect_pairs and rect_triples on the card (references and queries two
+    uploads, ragged 32-wide tiles) against their runs on the CPU through
+    the plain versions: the tile's counts exactly, triples at rtol=2e-4
+    atol=5e-2, their Jaccard and the measures within 2e-6; the path's
+    kernels launch."""
+    refs = _hll_bank(rng, 70, 12)
+    queries = _hll_bank(rng, 45, 12)
+    cpu = torch.device("cpu")
+    before = (js.cum_union_launches, js.launches, um.launches, jm.launches)
+    got = pw.rect_triples(refs, queries, est.ERTL_MLE, jestim, cuda, tile=32)
+    after = (js.cum_union_launches, js.launches, um.launches, jm.launches)
+    tiles = 3 * 2
+    if jestim == est.ERTL_JOINT_MLE:
+        assert (after[1] - before[1], after[3] - before[3]) == (tiles, tiles)
+    else:
+        assert (after[0] - before[0], after[2] - before[2]) == (tiles, tiles)
+    want = pw.rect_triples(refs, queries, est.ERTL_MLE, jestim, cpu, tile=32)
+    assert got.shape == (45, 70, 3)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-2)
+    ji = [t[..., 2] / t.sum(-1) for t in (got, want)]
+    np.testing.assert_allclose(ji[0], ji[1], atol=2e-6)
+    for rt in (pw.JI, pw.CONTAINMENT_INDEX):
+        np.testing.assert_allclose(
+            pw.rect_pairs(refs, queries, rt, 21, est.ERTL_MLE, jestim, cuda,
+                          tile=32),
+            pw.rect_pairs(refs, queries, rt, 21, est.ERTL_MLE, jestim, cpu,
+                          tile=32), atol=2e-6)
+    a = pw._device_regs(pw._stack_regs(refs[32:64]), cuda)
+    b = pw._device_regs(pw._stack_regs(queries[:32]), cuda)
+    st = pw.pair_stats(a, b, 40, 0, joint=jestim == est.ERTL_JOINT_MLE)
+    st_cpu = pw.pair_stats(a.cpu(), b.cpu(), 40, 0,
+                           joint=jestim == est.ERTL_JOINT_MLE)
+    for key in st_cpu:
+        assert torch.equal(st[key].cpu(), st_cpu[key]), key
+
+
+@pytest.mark.parametrize("result_type", [pw.JI, pw.MASH_DIST])
+def test_nn_on_the_card_matches_cpu(rng, cuda, result_type):
+    """nn_topk on the card against its CPU run, all-pairs (self excluded)
+    and query x reference, one tile and several: the same neighbours,
+    values within rtol 1e-4 atol 2e-6; the copies of sketch 0 lead its
+    row in index order."""
+    sk = _hll_bank(rng, 60, 12)
+    cpu = torch.device("cpu")
+    for refs, queries, excl in ((sk, sk, True), (sk[:41], sk[41:], False)):
+        for tile in (1024, 16):
+            got = pw.nn_topk(refs, queries, result_type, 21, est.ERTL_MLE,
+                             est.ERTL_MLE, 6, excl, cuda, tile=tile)
+            want = pw.nn_topk(refs, queries, result_type, 21, est.ERTL_MLE,
+                              est.ERTL_MLE, 6, excl, cpu, tile=tile)
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=2e-6)
+            if excl:
+                assert list(got[1][0, :2]) == [7, 19]
+                assert list(got[1][7, :2]) == [0, 19]
+
+
+def test_tile_topk_on_the_card_keeps_the_lower_index(rng, cuda):
+    """The device top-k on tie-heavy blocks (equal values, both signed
+    zeros, the ±inf self sentinel, a ragged tile padded with (worst, -1))
+    equals its CPU run, values bit for bit; an all-equal row lists the
+    references in index order."""
+    vals = rng.choice(np.array([0.0, -0.0, 1.0, 0.5], np.float32),
+                      size=(300, 40))
+    vals[:, 3] = 0.5
+    block = torch.from_numpy(vals)
+    for sim in (True, False):
+        for nn, exclude in ((7, True), (300, False), (320, True)):
+            got = pw.tile_topk(block.to(cuda), 10, 4, nn, sim, exclude)
+            want = pw.tile_topk(block, 10, 4, nn, sim, exclude)
+            assert torch.equal(got[1].cpu(), want[1])
+            assert torch.equal(got[0].cpu().view(torch.int32),
+                               want[0].view(torch.int32))
+    flat = torch.full((50, 2), 0.25)
+    _, idx = pw.tile_topk(flat.to(cuda), 0, 100, 50, True, False)
+    assert idx.cpu().tolist() == [list(range(100, 150))] * 2
+
+
+def test_diagonal_nn_tile_one_bank_equals_two_banks(rng, cuda, monkeypatch):
+    """All-pairs NN on one list (one uploaded bank: the diagonal tiles take
+    K4's one-bank form and the marginals from its diagonal) equals the
+    same scan over a copy of the list (two banks) bit for bit."""
+    sk = _hll_bank(rng, 50, 12)
+    seen = []
+    real = pw.pair_stats
+
+    def spy(a, b, kmax, kmin=0, same=False, joint=False):
+        seen.append((a.data_ptr() == b.data_ptr(), same))
+        return real(a, b, kmax, kmin, same, joint)
+
+    monkeypatch.setattr(pw, "pair_stats", spy)
+    for result_type in (pw.JI, pw.MASH_DIST):
+        for tile in (1024, 16):
+            seen.clear()
+            one = pw.nn_topk(sk, sk, result_type, 21, est.ERTL_MLE,
+                             est.ERTL_MLE, 5, True, cuda, tile=tile)
+            assert (True, True) in seen
+            seen.clear()
+            two = pw.nn_topk(sk, list(sk), result_type, 21, est.ERTL_MLE,
+                             est.ERTL_MLE, 5, True, cuda, tile=tile)
+            assert not any(s for _, s in seen)
+            np.testing.assert_array_equal(one[1], two[1])
+            np.testing.assert_array_equal(one[0].view(np.uint32),
+                                          two[0].view(np.uint32))

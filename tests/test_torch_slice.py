@@ -409,9 +409,9 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--wj"], ["-Q", "queries.txt"], ["--containment-index"], ["-W"],
+    ["--wj"], ["--wj-cm-sketch-size", "12"], ["--use-bloom-filter"], ["-W"],
     ["--use-range-minhash"], ["-N", "--cache-sketches"],
-    ["--wj-exact"], ["--use-bb-minhash"], ["--nearest-neighbors", "3"],
+    ["--wj-exact"], ["--use-bb-minhash"], ["-8"],
 ])
 def test_out_of_slice_flags_refused(genomes, cpu_env, extra):
     with pytest.raises(SystemExit, match="not yet ported"):
