@@ -3,8 +3,9 @@
 
     python3 chip_profile.py [--reps 3] [--only NAME] [--fastq-reads N]
                             [--no-trace]
+    python3 chip_profile.py --other DIR [--reps N]
 
-Five workloads, each run `--reps` times untraced and then once under
+Six workloads, each run `--reps` times untraced and then once under
 torch.profiler (not with --no-trace):
   config 2   `dist -k 31 -S 16 -M -b -O ... -o ...` through the CLI entry on
              the 100 synthetic 5 Mbp genomes of chip_smoke.py (same seed),
@@ -34,6 +35,20 @@ torch.profiler (not with --no-trace):
              each tile's kernels, and the device top-k in NN mode),
              compare.pull (waiting for and copying each tile's result, or
              its (qt, nn) candidates), nn.merge (the host argsort merge).
+  smallfiles chip_smoke.py's e2e (h): its 1,000 FASTA genomes of 200 kbp,
+             the sketch phase alone (cli/core.sketch_paths, k21 S14: 16
+             banked K1 launches) with the buckets of every untraced run:
+             host.parse (the prefetch worker's parse and join),
+             host.pack2bit, sketch.dispatch (upload and launch of each
+             batch), sketch.pull; beside it the per-file loop
+             (pipeline.sketch_file_hll a file), in turns with it; and
+             the host time of writing the 1,000 sketches as `sketch -o`
+             writes them (one gzip stream at level 9) and as -W writes
+             them (one gzip file each, written then renamed).
+With --other DIR it runs none of them: it times the single register
+forms of K1 and K2 (csrc/encode_hash.cu) of the checkout at DIR against
+this one's, kernel alone, in turns (other, this, this, other) at
+chip_smoke.py's three encode/hash shapes.
 For the traced run it prints the profiler's table (top ops by self device
 time) and the device busy share of that one run: the union of the device
 activity intervals in the trace over the run's wall clock.  The profiler
@@ -45,6 +60,7 @@ non-zero without it.
 from __future__ import annotations
 
 import argparse
+import gzip
 import os
 import shutil
 import subprocess
@@ -356,7 +372,112 @@ def k4_orientation(bank, qs) -> None:
         "ms, X-only / joint): " + "; ".join(parts))
 
 
-WORKLOADS = ("config2", "n1024", "j1000", "fastq", "rect")
+def smallfiles(dev, reps: int, trace: bool) -> None:
+    import torch
+    import chip_smoke
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.cli import core
+    rng = np.random.default_rng(chip_smoke.SEED + 5)
+    tmp = tempfile.mkdtemp(prefix="dtt_profile_small_")
+    try:
+        genomes = chip_smoke._write_genomes(tmp, chip_smoke.SMALL_ANC,
+                                            chip_smoke.SMALL_LEN, rng)
+        paths = [g[0] for g in genomes]
+        n = len(paths)
+        opts = core.CommonOpts(k=21, sketch_size=14)
+        params = pipeline.SketchParams(k=21)
+        runs = {"banked": lambda: core.sketch_paths(paths, opts, dev),
+                "per-file": lambda: [pipeline.sketch_file_hll(
+                    q, params, 14, dev) for q in paths]}
+        for fn in runs.values():
+            fn()                  # warm-up: builds, first-touch
+        buckets()
+        for r in range(reps):
+            for label in ("banked", "per-file", "per-file", "banked"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[label]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                log(f"[smallfiles {label}] rep {r} wall {wall:.4f}s, "
+                    f"{n / wall:.0f} files/s; buckets: {buckets()}")
+        if trace:
+            for label, fn in runs.items():
+                traced(f"smallfiles {label}", fn)
+                buckets()
+        from dashing_tpu_torch.sketch.hll import HLL
+        sketches = runs["banked"]()
+        os.makedirs(os.path.join(tmp, "w"))
+        t0 = time.perf_counter()
+        with gzip.open(os.path.join(tmp, "db.gz"), "wb") as fp:
+            for sk in sketches:
+                sk.write_record(fp)
+        t_stream = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, sk in enumerate(sketches):
+            core.atomic_write_sketch(sk, os.path.join(tmp, "w", f"{i}.hll"))
+        t_files = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(n):
+            HLL.read(os.path.join(tmp, "w", f"{i}.hll"))
+        log(f"[smallfiles gzip] {n} p=14 sketches (host): one level-9 gzip "
+            f"stream {t_stream:.4f}s, {n} level-9 files {t_files:.4f}s, "
+            f"reading the files back {time.perf_counter() - t0:.4f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def encode_ab(dev, other: str, reps: int) -> None:
+    """K1 and K2's single register forms (csrc/encode_hash.cu) of this
+    checkout against those of the checkout at `other`, in turns (other,
+    this, this, other) `reps` times, kernel alone (chip_smoke.kernel_alone_ms)
+    at chip_smoke.py's ENC_SHAPES, on its chunks."""
+    import ctypes
+    import torch
+    import chip_smoke
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import _build
+    from dashing_tpu_torch.ops import encode_hash as eh
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs = {"this": eh._lib(), "other": _build.load("encode_hash_other", {
+        "dtt_encode_hash_regs": ([vp, vp, vp, ci, ci, ci, ci, ci, vp], ci),
+        "dtt_ascii_hash_regs": ([vp, vp, ci, ci, ci, ci, ci, vp], ci)},
+        src=os.path.join(other, "dashing_tpu_torch", "csrc",
+                         "encode_hash.cu"))}
+    this_lib = eh._lib
+    rng = np.random.default_rng(chip_smoke.SEED)
+    try:
+        for k, p in chip_smoke.ENC_SHAPES:
+            C = pipeline.CONTENT + k - 1
+            C += (-C) % 8
+            tile = chip_smoke._random_chunk(rng, pipeline.MAX_ROWS, C)
+            pk, vb = (torch.from_numpy(a).to(dev)
+                      for a in pipeline._pack_tile_host(tile))
+            t = torch.from_numpy(tile).to(dev)
+            ring = torch.zeros((chip_smoke.RING, 1 << p), dtype=torch.int32,
+                               device=dev)
+            forms = {
+                "K1": lambda i: eh.packed_to_registers(pk, vb, ring[i], k=k,
+                                                       p=p),
+                "K2": lambda i: eh.ascii_to_registers(t, ring[i], k=k, p=p)}
+            for form, launch in forms.items():
+                got = {"other": [], "this": []}
+                for _ in range(reps):
+                    for which in ("other", "this", "this", "other"):
+                        eh._lib = lambda which=which: libs[which]
+                        ms, _ = chip_smoke.kernel_alone_ms(
+                            launch, ring.zero_, f"{form} {which}")
+                        got[which].append(ms)
+                log(f"[encode_ab] {form} k={k} p={p} ({tile.shape[0]}x{C}), "
+                    "kernel alone ms in turns: " + "; ".join(
+                        f"{w} " + " ".join(f"{v:.4f}" for v in vals)
+                        for w, vals in got.items()))
+            del ring
+    finally:
+        eh._lib = this_lib
+
+
+WORKLOADS = ("config2", "n1024", "j1000", "fastq", "rect", "smallfiles")
 
 
 def main() -> int:
@@ -368,6 +489,9 @@ def main() -> int:
     ap.add_argument("--fastq-reads", type=int, default=1_000_000)
     ap.add_argument("--no-trace", action="store_true",
                     help="skip the torch.profiler runs")
+    ap.add_argument("--other", metavar="DIR",
+                    help="another checkout: time its K1/K2 (csrc/"
+                    "encode_hash.cu) against this one's in turns, alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -389,10 +513,14 @@ def main() -> int:
             "n1024": lambda: n1024(dev, args.reps, trace),
             "j1000": lambda: j1000(dev, args.reps, trace),
             "fastq": lambda: fastq(dev, args.reps, args.fastq_reads, trace),
-            "rect": lambda: rect(dev, args.reps, trace)}
-    for name in WORKLOADS:
-        if args.only in (None, name):
-            runs[name]()
+            "rect": lambda: rect(dev, args.reps, trace),
+            "smallfiles": lambda: smallfiles(dev, args.reps, trace)}
+    if args.other:
+        encode_ab(dev, args.other, args.reps)
+    else:
+        for name in WORKLOADS:
+            if args.only in (None, name):
+                runs[name]()
     _log_fp.close()
     return 0
 

@@ -46,6 +46,13 @@ Phases, each printing its own lines with seconds:
               form and K5 (all 1000 x 500 pairs, ha != hb), each bit for
               bit against its plain version, and the ten identical pairs
               at Jaccard 1 within 1e-5
+     banks    the banked forms of K1 and K2 (one launch folds rows into
+              the register banks of their files or records): K1 at the
+              1k-genome batch (64 files x 25 rows x 8224, k21 p14) and K2
+              at one sketch_by_seq batch (2,048 records padded to 4,096,
+              k21 p10), each bitwise equal to its plain version and to
+              every bank folded alone by the single-bank entry; timed
+              alone and as launched
   The build phase also prints SASS instruction counts: K1/K2 per window,
   and the Newton step of K3 (MLE) and K5 at K = 32 per level-step.
   6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
@@ -99,9 +106,36 @@ Phases, each printing its own lines with seconds:
                   to (d)'s condensed -M matrix; a 64 x 48 corner of the -M
                   and -J matrices against the plain versions on the CPU.
                   Each run's kernels must launch, every value be finite
+              (h) BASELINE.md's 1k-genome row from FASTA: 1,000 genomes of
+                  200 kbp (200 ancestors x the 5 RATES copies), `sketch -k
+                  21 -S 14 -o` (ceil(1000/64) banked K1 launches, no
+                  single-file one; ten files' registers equal to each
+                  sketched alone), `dist -M -b` with and without -J
+                  (planted pairs within 0.25 d + 0.001), `dist -W -P`
+                  twice (the second launches no K1, same bytes); the
+                  sketch phase in turns, per-file engine against the
+                  banked one, in files/s; the compare walls
+              (i) `mkdist --multik mk,17,33,4 -S 14 --jukes-cantor` over
+                  250 of (h)'s files: one upload a chunk, four K1 launches on
+                  it; each per-k matrix bit for bit a separate `dist -k K
+                  -S 14 --sizes -b` (the measure --jukes-cantor gives the
+                  passes); .bin finite, .jcd finite on related pairs at
+                  a planted d >= 0.005
+              (j) 5,000 records of 500-50,000 bases and 20 above
+                  MAX_RECORD_WIDTH cut from (h)'s genomes: `sketch_by_seq
+                  -k 21 -S 10` (banked K2; .names and record count; 20
+                  records' registers equal to each sketched alone),
+                  `dist_by_seq -b` over all pairs, and -q against 1,000
+                  other records (ten byte copies at Jaccard 1)
+              (k) `panel -k 21 -F` of 40 byte copies of (h)'s genomes and
+                  10 fresh copies of ancestors against (h)'s `-o`
+                  database: each copy's best match its genome at
+                  containment 1 (1e-5), each fresh copy's in its family;
+                  K4's joint form and K5 launch
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
-and -J -Q runs), times as CUDA-event means (K1 and K2 alone,
+and -J -Q runs; banked K1 from e2e (h)'s sketch, banked K2 from e2e (j)'s
+sketch_by_seq), times as CUDA-event means (K1 and K2 alone,
 with no host dispatch between launches), each kernel's bound
 and, where one PyTorch call computes the same function, that call's time:
 for K4 one float32 bmm of the stacked indicators; the log line beside it
@@ -313,12 +347,15 @@ def _sass_report(so: str, nvcc: str) -> None:
     funcs = _sass_functions(so, nvcc)
     if funcs is None:
         return
-    forms = {("0", "0"): "K1 packed->regs", ("1", "0"): "K2 ascii->regs",
-             ("1", "1"): "K2 ascii->keys"}
+    forms = {("0", "0", "0"): "K1 packed->regs",
+             ("1", "0", "0"): "K2 ascii->regs",
+             ("1", "1", "0"): "K2 ascii->keys",
+             ("0", "0", "1"): "K1 packed->banks",
+             ("1", "0", "1"): "K2 ascii->banks"}
     for name, (ins, loops) in funcs.items():
         if "encode_hash_kernel" not in name:
             continue
-        m = re.search(r"InE(\d)ELNS_3OutE(\d)E", name)
+        m = re.search(r"InE(\d)ELNS_3OutE(\d)ELb(\d)E", name)
         form = forms.get(m.groups() if m else None, name)
         best = None
         for j, i in loops:
@@ -688,6 +725,101 @@ def phase_k2(dev, records):
             f"{pack_ms:.4f} ms + upload {up_packed:.4f} ms "
             f"({packed.nbytes + vbits.nbytes} B) + K1 {k1_ms:.4f} ms = "
             f"{pack_ms + up_packed + k1_ms:.4f} ms")
+
+
+# Phase `banks`: the banked forms of K1 and K2 at the shapes the small-file
+# engine and sketch_by_seq give them: the 1k-genome batch (64 files of a
+# 200 kbp genome, 25 rows of 8224 each, k21 p14) and one record batch of
+# sketch_by_seq (2,048 records padded to width 4,096, k21 p10)
+BANK_K1 = (64, 25, 8224, 21, 14)
+BANK_K2 = (2048, 4096, 21, 10)
+
+
+def _check_banks(got, want, singles, what):
+    """The kernel's banks bitwise equal to the plain version's and to the
+    single-bank entry's fold of each bank's rows alone."""
+    import torch
+    torch.cuda.synchronize()
+    nz = int((want > 0).sum(dim=1).min())
+    if nz == 0:
+        fail(f"{what}: a bank of the plain version is empty")
+    for other, name in ((want, "the plain version"),
+                        (singles, "each bank folded alone")):
+        if not torch.equal(got, other):
+            fail(f"{what}: {int((got != other).sum())} registers differ "
+                 f"from {name}")
+    log(f"[banks] {what}: {got.shape[0]} banks bitwise equal to the plain "
+        f"version and to each bank folded alone by the single-bank entry "
+        f"(at least {nz} nonzero registers a bank)")
+
+
+def phase_banks(dev, records):
+    """Banked K1 and K2 against their plain versions on the card, bitwise,
+    and against the single-bank entry bank by bank; kernel-alone and
+    as-launched times into a ring of fresh banks.  Bounds as K1's and
+    K2's, plus the bank vector read once and one bank load a row."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    rng = np.random.default_rng(SEED + 4)
+    B, rows, C, k, p = BANK_K1
+    R = B * rows
+    tile = _random_chunk(rng, R, C)
+    packed, vbits = pipeline._pack_tile_host(tile)
+    bank = np.repeat(np.arange(B, dtype=np.int32), rows)
+    pk, vb, bk = (torch.from_numpy(a).to(dev) for a in (packed, vbits, bank))
+    got = torch.zeros((B, 1 << p), dtype=torch.int32, device=dev)
+    want, singles = torch.zeros_like(got), torch.zeros_like(got)
+    eh.packed_to_banks(pk, vb, bk, got, k=k, p=p)
+    eh.packed_to_banks_plain(pk, vb, bk, want, k=k, p=p, canon=True)
+    for j in range(B):
+        sl = slice(j * rows, (j + 1) * rows)
+        eh.packed_to_registers(pk[sl], vb[sl], singles[j], k=k, p=p)
+    _check_banks(got, want, singles, f"banked K1 k={k} p={p} ({B} files x "
+                 f"{rows} rows x {C})")
+    ring = torch.zeros((RING, B, 1 << p), dtype=torch.int32, device=dev)
+    ms, paced = kernel_alone_ms(
+        lambda i: eh.packed_to_banks(pk, vb, bk, ring[i], k=k, p=p),
+        ring.zero_, "banked K1")
+    del ring
+    plain_ms = cuda_ms(lambda: eh.packed_to_banks_plain(
+        pk, vb, bk, want.zero_(), k=k, p=p, canon=True), 5)
+    nbytes = packed.nbytes + vbits.nbytes + bank.nbytes + 2 * 4 * B * (1 << p)
+    ops = enc_ops(R, C, k, _valid_windows(tile, k), False) + R
+    _enc_log("banked K1", k, p, R, C, nbytes, ops, ms, paced, plain_ms, eh)
+    record(records, f"encode_hash_banks k={k} p={p} ({B}x{rows}x{C})",
+           K1_SRC, "dashing_tpu/ops/pallas_encode.py:99", "encode_hash_banks",
+           0.0, ms, plain_ms, nbytes, ops, INT32_OPS)
+
+    G, W, k, p = BANK_K2
+    tile = _random_chunk(rng, G, W)
+    # records of 500 bases to the full width, padded with N as
+    # pipeline._record_batches pads them
+    lens = np.exp(rng.uniform(np.log(500), np.log(W - 20), G)).astype(int)
+    tile[np.arange(W)[None, :] >= lens[:, None]] = ord("N")
+    t = torch.from_numpy(tile).to(dev)
+    bk = torch.arange(G, dtype=torch.int32, device=dev)
+    got = torch.zeros((G, 1 << p), dtype=torch.int32, device=dev)
+    want, singles = torch.zeros_like(got), torch.zeros_like(got)
+    eh.ascii_to_banks(t, bk, got, k=k, p=p)
+    eh.ascii_to_banks_plain(t, bk, want, k=k, p=p, canon=True)
+    for r in range(G):
+        eh.ascii_to_registers(t[r:r + 1], singles[r], k=k, p=p)
+    _check_banks(got, want, singles, f"banked K2 k={k} p={p} ({G} records "
+                 f"x {W})")
+    ring = torch.zeros((RING, G, 1 << p), dtype=torch.int32, device=dev)
+    ms, paced = kernel_alone_ms(
+        lambda i: eh.ascii_to_banks(t, bk, ring[i], k=k, p=p), ring.zero_,
+        "banked K2")
+    del ring
+    plain_ms = cuda_ms(lambda: eh.ascii_to_banks_plain(
+        t, bk, want.zero_(), k=k, p=p, canon=True), 5)
+    nbytes = tile.nbytes + 4 * G + 2 * 4 * G * (1 << p)
+    ops = enc_ops(G, W, k, _valid_windows(tile, k), True) + G
+    _enc_log("banked K2", k, p, G, W, nbytes, ops, ms, paced, plain_ms, eh)
+    record(records, f"ascii_hash_banks k={k} p={p} ({G}x{W})", K1_SRC,
+           K2_REPLACES, "ascii_hash_banks", 0.0, ms, plain_ms, nbytes, ops,
+           INT32_OPS)
 
 
 def _k3_bank(dev, p: int, n: int):
@@ -1217,14 +1349,18 @@ def _bench_device_time(dev, chunks):
         f"{'dispatch' if paced > 1.2 * queued else 'kernel'}-bound")
 
 
-def _write_genomes(root: str, n_anc: int, length: int, rng):
+def _write_genomes(root: str, n_anc: int, length: int, rng,
+                   ancestors=None):
     """n_anc ancestors x len(RATES) mutated copies, each a multi-record
     FASTA with N runs and one lowercase record.  Returns (paths, family,
-    copy index) per genome."""
+    copy index) per genome; the ancestors' codes go into `ancestors` when
+    a list is given."""
     lut = np.frombuffer(b"ACGT", np.uint8)
     out = []
     for a in range(n_anc):
         anc = rng.integers(0, 4, length, dtype=np.uint8)
+        if ancestors is not None:
+            ancestors.append(anc)
         for c, rate in enumerate(RATES):
             g = anc.copy()
             hit = np.flatnonzero(rng.random(length) < rate)
@@ -1483,7 +1619,7 @@ def _check_planted(path, genomes, what, wall, total_bases):
             if abs(got - d) > 0.25 * d + 0.001:
                 fail(f"e2e {what}: planted pair {i},{j}: Mash {got:.5f} vs "
                      f"d={d:.5f}")
-    log(f"[e2e {what}] {n} genomes S16 -M -b: {n * (n - 1) // 2} finite "
+    log(f"[e2e {what}] {n} genomes -M -b: {n * (n - 1) // 2} finite "
         f"distances, {planted} planted pairs within 0.25d+0.001 (worst at "
         f"{worst:.2f} of the bound); wall {wall:.2f}s, "
         f"{total_bases / wall / 1e6:.1f} M bases/s end to end")
@@ -2155,6 +2291,372 @@ def phase_e2e_fastq(dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# e2e (h)-(k): BASELINE.md's 1k-genome row (benchmarks/e2e_100.py:21-22),
+# 1,000 genomes of 200 kbp (200 ancestors x the 5 RATES copies), k21 S14
+SMALL_ANC, SMALL_LEN = 200, 200_000
+N_RECORDS, N_WIDE, N_OTHER = 5000, 20, 1000     # e2e (j)
+REC_LEN, WIDE_LEN = (500, 50_000), (70_000, 150_000)   # bases, log-uniform
+RECORD_COPIES = {3 + 100 * i: 11 + 500 * i for i in range(10)}   # other: rec
+PANEL_COPIES, PANEL_FRESH = 40, 10               # e2e (k)
+
+
+def _timed(argv, what):
+    """Run the CLI entry, synchronised; fail on a nonzero return.  Returns
+    the wall seconds."""
+    import torch
+    from dashing_tpu_torch.cli.main import main
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if main(list(argv)) != 0:
+        fail(f"{what} returned nonzero")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_e2e_small(dev, counts):
+    """e2e (h)-(k) over BASELINE.md's 1k-genome collection as FASTA."""
+    rng = np.random.default_rng(SEED + 5)
+    tmp = tempfile.mkdtemp(prefix="dtt_small_")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        ancestors: list = []
+        genomes = _write_genomes(tmp, SMALL_ANC, SMALL_LEN, rng, ancestors)
+        paths = [g[0] for g in genomes]
+        log(f"[e2e h] wrote {len(paths)} genomes of {SMALL_LEN} bases, "
+            f"{sum(os.path.getsize(q) for q in paths) / 1e6:.1f} MB of FASTA "
+            f"({time.perf_counter() - t0:.1f}s)")
+        os.chdir(tmp)                 # mkdist writes its matrices here
+        db = _e2e_small_sketch(dev, genomes, tmp, counts)
+        _e2e_mkdist(genomes, tmp)
+        _e2e_records(dev, paths, tmp, counts, rng)
+        _e2e_panel(genomes, ancestors, db, tmp, rng)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _e2e_small_sketch(dev, genomes, tmp, counts):
+    """(h) `sketch -k 21 -S 14 -o db.gz` of the 1,000 files: about
+    ceil(1000 / 64) banked K1 launches, no single-file launch, ten files'
+    registers equal to each sketched alone; `dist -M -b` with and without
+    -J (planted pairs within 0.25 d + 0.001); `dist -W -P` twice (the
+    second loads every sketch, launches no K1 and writes the same bytes);
+    the sketch phase in turns, the per-file engine (sketch_file_hll a
+    file) against the banked one (core.sketch_paths); the compare walls
+    with and without -J.  Returns the database path."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.cli import core
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch.hll import HLL
+    paths = [g[0] for g in genomes]
+    n = len(paths)
+    total = sum(os.path.getsize(q) for q in paths)
+    db = os.path.join(tmp, "db.gz")
+    eh.launches = eh.banks_launches = 0
+    wall = _timed(["sketch", "-k", "21", "-S", "14", "-o", db,
+                   "--avoid-sorting"] + paths, "e2e (h) sketch")
+    counts["encode_hash_banks"] = eh.banks_launches
+    want = -(-n // pipeline.small_batch_size(14))
+    log(f"[e2e h] sketch -k 21 -S 14 -o of {n} files: banked K1 launches "
+        f"{eh.banks_launches} (ceil({n}/{pipeline.small_batch_size(14)}) = "
+        f"{want}), single-file K1 {eh.launches}; wall {wall:.3f}s "
+        f"({n / wall:.0f} files/s)")
+    if eh.banks_launches != want or eh.launches:
+        fail("e2e (h): the small files did not go through the banked K1 "
+             "in batches")
+    with gzip.open(db, "rb") as fp:
+        regs = [HLL.read_record(fp).regs for _ in range(n)]
+    params = pipeline.SketchParams(k=21)
+    for i in range(0, n, n // 10):
+        alone = pipeline.sketch_file_hll(paths[i], params, 14, dev)
+        if not np.array_equal(alone, regs[i]) or not alone.any():
+            fail(f"e2e (h): {os.path.basename(paths[i])}: "
+                 f"{int((alone != regs[i]).sum())} registers differ from "
+                 "the file sketched alone")
+    log("[e2e h] ten files' registers bitwise equal to each sketched alone "
+        "(pipeline.sketch_file_hll)")
+    for tag, extra in (("-M", []), ("-J -M", ["-J"])):
+        out = os.path.join(tmp, "h.bin")
+        wall = _timed(["dist", "-k", "21", "-S", "14", "-M", "-b", "-O", out,
+                       "-o", out + ".sizes", "--avoid-sorting"] + extra
+                      + paths, f"e2e (h) {tag}")
+        _check_planted(out, genomes, f"(h) {tag}", wall, total)
+    cdir = os.path.join(tmp, "cache")
+    os.makedirs(cdir)
+    outs = []
+    for rep in range(2):
+        out = os.path.join(tmp, f"w{rep}.bin")
+        eh.launches = eh.banks_launches = 0
+        wall = _timed(["dist", "-k", "21", "-S", "14", "-M", "-b", "-W",
+                       "-P", cdir, "-O", out, "-o", out + ".sizes",
+                       "--avoid-sorting"] + paths, f"e2e (h) -W run {rep}")
+        launched = eh.launches + eh.banks_launches
+        log(f"[e2e h] dist -W -P run {rep + 1}: K1 launches {launched}, "
+            f"{len(os.listdir(cdir))} cache files; wall {wall:.3f}s")
+        if (launched == 0) != (rep == 1):
+            fail(f"e2e (h): -W run {rep + 1} launched K1 {launched} times")
+        outs.append(open(out, "rb").read())
+    if outs[0] != outs[1] or len(os.listdir(cdir)) != n:
+        fail("e2e (h): the -W rerun wrote other bytes, or the cache does "
+             "not hold every file")
+    log("[e2e h] the -W rerun loaded every sketch and wrote the same bytes")
+    opts = core.CommonOpts(k=21, sketch_size=14)
+    engines = {
+        "per-file": lambda: [pipeline.sketch_file_hll(q, params, 14, dev)
+                             for q in paths],
+        "banked": lambda: core.sketch_paths(paths, opts, dev)}
+    walls: dict = {"per-file": [], "banked": []}
+    for which in ("per-file", "banked", "banked", "per-file"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[which]()
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+    log("[e2e h] sketch phase in turns (per-file, banked, banked, per-file): "
+        + "; ".join(f"{k} " + " ".join(f"{w:.3f}s ({n / w:.0f} files/s)"
+                                       for w in v) for k, v in walls.items()))
+    sketches = core.sketch_paths(paths, opts, dev)
+    for tag, jestim in (("-M", est.ERTL_MLE), ("-J -M", est.ERTL_JOINT_MLE)):
+        run = lambda: pw.all_pairs_condensed(  # noqa: E731
+            sketches, pw.MASH_DIST, 21, est.ERTL_MLE, jestim, dev)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"[e2e h] compare {tag} of the {n} sketches: {wall:.4f}s "
+            f"({n * (n - 1) / 2 / wall:.0f} pairs/s)")
+    return db
+
+
+MKDIST_FILES = 250          # e2e (i): the first 50 ancestors' copies of (h)
+
+
+def _e2e_mkdist(genomes, tmp):
+    """(i) `mkdist --multik mk,17,33,4 -S 14 --jukes-cantor` over the first
+    MKDIST_FILES of (h)'s files (writing 4,000 gzip cache files at level 9
+    took 39 s for all 1,000): each chunk uploaded once for four K1
+    launches; each per-k
+    matrix bit for bit a separate `dist -k K -S 14 -b` with the options
+    mkdist gives its passes (--jukes-cantor makes them --sizes
+    --avoid-sorting); mk.bin finite, and mk.jcd finite for every pair of
+    one ancestor's copies at a planted d >= 0.005 (nearer pairs' size
+    estimates can rise with k, where the model has no distance: NaN, as
+    for unrelated genomes).  The working directory is the scratch
+    directory."""
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.io import distmat
+    from dashing_tpu_torch.ops import encode_hash as eh
+    ks = (17, 21, 25, 29)
+    genomes = genomes[:MKDIST_FILES]
+    paths = [g[0] for g in genomes]
+    n = len(paths)
+    sizes = ["-o", os.path.join(tmp, "sizes.txt")]
+    eh.launches = eh.banks_launches = 0
+    pipeline.chunk_uploads = 0
+    wall = _timed(["mkdist", "--multik", "mk,17,33,4", "-S", "14",
+                   "--jukes-cantor"] + sizes + paths, "e2e (i) mkdist")
+    log(f"[e2e i] mkdist --multik mk,17,33,4 -S 14 --jukes-cantor over {n} "
+        f"files: {pipeline.chunk_uploads} chunk uploads, K1 launches "
+        f"{eh.launches} ({eh.launches / max(pipeline.chunk_uploads, 1):.2f} "
+        f"an upload), banked {eh.banks_launches}; wall {wall:.3f}s")
+    if pipeline.chunk_uploads != n or eh.launches != len(ks) * n:
+        fail("e2e (i): not one upload a chunk and four K1 launches on it")
+    t_sep = 0.0
+    for k in ks:
+        out = f"d{k}.bin"
+        t_sep += _timed(["dist", "-k", str(k), "-S", "14", "--sizes", "-b",
+                         "-O", out, "--avoid-sorting"] + sizes + paths,
+                        f"e2e (i) dist k={k}")
+        if open(f"_mk_{k}", "rb").read() != open(out, "rb").read():
+            fail(f"e2e (i): mkdist's k={k} matrix differs from dist -k {k}")
+    log(f"[e2e i] the four per-k matrices bit for bit equal to separate "
+        f"dist -k K -S 14 --sizes -b runs ({t_sep:.3f}s for the four)")
+    nsets, got_ks, data = distmat.read_flattened("mk.bin")
+    m, jc = distmat.read_binary("mk.jcd")
+    if (nsets != n or list(got_ks) != list(ks) or m != n
+            or jc.shape != (n * (n - 1) // 2,)
+            or not np.isfinite(data).all()):
+        fail(f"e2e (i): mk.bin ({nsets}, {list(got_ks)}) or mk.jcd ({m}) "
+             "malformed, or a size not finite")
+    iu = np.triu_indices(n, 1)
+    fam = np.array([g[1] for g in genomes])
+    rate = np.array([RATES[g[2]] for g in genomes])
+    same = fam[iu[0]] == fam[iu[1]]
+    d = _expected_d(rate[iu[0]], rate[iu[1]])
+    far = same & (d >= 0.005)
+    bad = far & ~np.isfinite(jc)
+    if bad.any():
+        fail(f"e2e (i): {int(bad.sum())} Jukes-Cantor distances of related "
+             f"genomes at d >= 0.005 not finite (d {d[bad][:5]})")
+    near = same & ~far
+    ok = far & np.isfinite(jc)
+    log(f"[e2e i] mk.bin {data.shape} finite; mk.jcd: the {int(far.sum())} "
+        f"related pairs at d >= 0.005 finite, |JC - d| at most "
+        f"{float(np.abs(jc[ok] - d[ok]).max()):.5f}; "
+        f"{int(np.isfinite(jc[near]).sum())} of the {int(near.sum())} "
+        f"nearer pairs finite; {int(np.isnan(jc[~same]).sum())} of "
+        f"{int((~same).sum())} unrelated pairs NaN")
+
+
+def _fasta_seq(path: str) -> bytes:
+    with open(path, "rb") as fp:
+        return b"".join(line for line in fp.read().split(b"\n")
+                        if not line.startswith(b">"))
+
+
+def _e2e_records(dev, paths, tmp, counts, rng):
+    """(j) 5,000 records of 500-50,000 bases (log-uniform) and 20 above
+    MAX_RECORD_WIDTH, cut from (h)'s genomes: `sketch_by_seq -k 21 -S 10`
+    (the .names sidecar and the record count right, 20 records' registers
+    equal to each sketched alone on the card), `dist_by_seq -b` over all
+    pairs, and its -q form against 1,000 other records, ten of them byte
+    copies of records (Jaccard 1)."""
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    pool = [_fasta_seq(paths[i]) for i in range(0, len(paths), 10)]
+
+    def cut(lo, hi, n):
+        lens = np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(int)
+        out = []
+        for m in lens:
+            g = pool[int(rng.integers(len(pool)))]
+            s = int(rng.integers(0, len(g) - m))
+            out.append(g[s:s + m])
+        return out
+
+    recs = cut(*REC_LEN, N_RECORDS) + cut(*WIDE_LEN, N_WIDE)
+    other = cut(*REC_LEN, N_OTHER)
+    if min(map(len, recs[N_RECORDS:])) <= pipeline.MAX_RECORD_WIDTH:
+        fail("e2e (j): a wide record is not above MAX_RECORD_WIDTH")
+    for o, r in RECORD_COPIES.items():
+        other[o] = recs[r]
+    files = {}
+    for tag, seqs in (("rec", recs), ("other", other)):
+        files[tag] = os.path.join(tmp, f"{tag}.fa")
+        with open(files[tag], "wb") as fp:
+            for i, seq in enumerate(seqs):
+                fp.write(b">%s%d some words\n%s\n" % (tag.encode(), i, seq))
+    n = len(recs)
+    sbs = os.path.join(tmp, "rec.sbs")
+    eh.ascii_banks_launches = 0
+    wall = _timed(["sketch_by_seq", "-k", "21", "-S", "10", "-o", sbs,
+                   files["rec"]], "e2e (j) sketch_by_seq")
+    counts["ascii_hash_banks"] = eh.ascii_banks_launches
+    names = open(sbs + ".names").read().splitlines()
+    with gzip.open(sbs, "rb") as fp:
+        stream = fp.read()
+    if (names[0] != "#k=21:Names for sequences sketched"
+            or names[1:] != [f"rec{i}" for i in range(n)]
+            or len(stream) != n * (16 + 1024)):
+        fail(f"e2e (j): {len(names) - 1} names, {len(stream)} bytes of "
+             f"sketches for {n} records")
+    bases = sum(len(r) for r in recs)
+    log(f"[e2e j] sketch_by_seq -k 21 -S 10 of {n} records "
+        f"({bases / 1e6:.1f} Mbases, {N_WIDE} above MAX_RECORD_WIDTH): "
+        f"banked K2 launches {eh.ascii_banks_launches}; wall {wall:.3f}s "
+        f"({n / wall:.0f} records/s)")
+    if eh.ascii_banks_launches == 0:
+        fail("e2e (j): sketch_by_seq did not launch the banked K2")
+    params = pipeline.SketchParams(k=21)
+    idx = list(rng.choice(N_RECORDS, 10, replace=False)) + list(
+        range(N_RECORDS, n, 2))
+    for i in idx:
+        alone = pipeline.sketch_file_seq(recs[i], params, 10, dev)
+        off = 16 + i * (16 + 1024)
+        got = np.frombuffer(stream[off:off + 1024], np.uint8)
+        if not np.array_equal(alone, got) or not alone.any():
+            fail(f"e2e (j): record {i}: {int((alone != got).sum())} "
+                 "registers differ from the record sketched alone")
+    log(f"[e2e j] {len(idx)} records' registers ({N_WIDE // 2} of them "
+        "above MAX_RECORD_WIDTH) bitwise equal to each sketched alone")
+    out = os.path.join(tmp, "dbs.bin")
+    wall = _timed(["dist_by_seq", "-n", sbs + ".names", "-b", "-o", out,
+                   sbs], "e2e (j) dist_by_seq")
+    m, cond = _read_condensed(out)
+    if m != n or cond.shape != (n * (n - 1) // 2,) or \
+            not np.isfinite(cond).all():
+        fail(f"e2e (j): dist_by_seq matrix n={m} len={cond.shape}")
+    log(f"[e2e j] dist_by_seq -b over {cond.size:,} pairs: wall {wall:.3f}s "
+        f"({cond.size / wall:,.0f} pairs/s)")
+    osbs = os.path.join(tmp, "other.sbs")
+    _timed(["sbs", "-k", "21", "-S", "10", "-o", osbs, files["other"]],
+           "e2e (j) sbs of the queries")
+    out = os.path.join(tmp, "dbs_q.bin")
+    wall = _timed(["cmp_by_seq", "-n", sbs + ".names", "-q", osbs, "-b", "-o",
+                   out, sbs], "e2e (j) dist_by_seq -q")
+    mat = np.fromfile(out, "<f4")
+    if mat.shape != (N_OTHER * n,) or not np.isfinite(mat).all():
+        fail(f"e2e (j): dist_by_seq -q gave {mat.shape} values")
+    mat = mat.reshape(N_OTHER, n)
+    for o, r in RECORD_COPIES.items():
+        if abs(float(mat[o, r]) - 1.0) > 1e-5:
+            fail(f"e2e (j): query {o}, a copy of record {r}: Jaccard "
+                 f"{mat[o, r]}")
+    log(f"[e2e j] dist_by_seq -q of {N_OTHER} records x {n}: wall "
+        f"{wall:.3f}s ({mat.size / wall:,.0f} pairs/s); the ten copies at "
+        "Jaccard 1")
+
+
+def _e2e_panel(genomes, ancestors, db, tmp, rng):
+    """(k) `panel -k 21 -F` of 50 queries against (h)'s database: 40 byte
+    copies of database genomes (each one's best match the genome it
+    copies, containment 1 within 1e-5) and 10 fresh copies of ancestors
+    (best match a genome of that ancestor); K4's joint form and K5 must
+    launch."""
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import joint_stats as js
+    qdir = os.path.join(tmp, "panel")
+    os.makedirs(qdir)
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    queries, expect = [], []
+    step = len(genomes) // PANEL_COPIES
+    for j in range(PANEL_COPIES):
+        path, _, _ = genomes[j * step + j % 5]
+        queries.append(os.path.join(qdir, f"copy{j}.fa"))
+        shutil.copyfile(path, queries[-1])
+        expect.append(("copy", path))
+    for j in range(PANEL_FRESH):
+        a = j * (len(ancestors) // PANEL_FRESH)
+        g = ancestors[a].copy()
+        hit = np.flatnonzero(rng.random(g.size) < 0.01)
+        g[hit] = (g[hit] + 1) & 3
+        queries.append(os.path.join(qdir, f"fresh{j}.fa"))
+        with open(queries[-1], "wb") as fp:
+            fp.write(b">fresh\n" + lut[g].tobytes() + b"\n")
+        expect.append(("fresh", a))
+    qlist = _write_list(os.path.join(tmp, "panel.txt"), queries)
+    out = os.path.join(tmp, "panel.tsv")
+    js.launches = jm.launches = 0
+    wall = _timed(["panel", "-k", "21", "-F", "-o", out, db, qlist],
+                  "e2e (k) panel")
+    rows = [line.split("\t") for line in open(out).read().splitlines()[1:]]
+    family = {g[0]: g[1] for g in genomes}
+    if len(rows) != len(queries):
+        fail(f"e2e (k): {len(rows)} rows for {len(queries)} queries")
+    worst = 0.0
+    for (kind, want), (q, best, cont, ji) in zip(expect, rows):
+        if kind == "copy":
+            worst = max(worst, abs(float(cont) - 1.0))
+            if best != want or abs(float(cont) - 1.0) > 1e-5:
+                fail(f"e2e (k): {q} (a copy of {want}): best {best} "
+                     f"containment {cont}")
+        elif family[best] != want:
+            fail(f"e2e (k): {q} (ancestor {want}): best {best}")
+    log(f"[e2e k] panel of {len(queries)} queries x {len(genomes)} genomes: "
+        f"every copy's best match the genome it copies (containment within "
+        f"{worst:.1e} of 1), every fresh copy's a genome of its ancestor; "
+        f"K4 joint launches {js.launches}, K5 {jm.launches}; wall "
+        f"{wall:.3f}s")
+    if js.launches == 0 or jm.launches == 0:
+        fail("e2e (k): panel did not launch K4's joint form and K5")
+
+
 def main() -> int:
     t_all = time.perf_counter()
     try:
@@ -2177,12 +2679,14 @@ def main() -> int:
     counts: dict = {}
     phase_k1(dev, records)
     phase_k2(dev, records)
+    phase_banks(dev, records)
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)
     other = phase_rect(dev, bank, records)
     phase_bench(dev, counts)
     phase_e2e(dev, bank, other, counts, records)
     phase_e2e_fastq(dev)
+    phase_e2e_small(dev, counts)
     for r in records:
         r["launches"] = counts[r["counter"]]
     log(f"[total] {time.perf_counter() - t_all:.1f}s")

@@ -8,16 +8,19 @@ from __future__ import annotations
 
 import dataclasses
 import gzip
+import itertools
 import math
+import os
 import sys
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import NotPorted, metrics, pipeline
-from ..io import paths
+from ..io import cache, paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
 from ..sketch.hll import HLL, BadMagic, batch_reports
@@ -54,6 +57,7 @@ class CommonOpts:
     use_counting_filter: bool = False
     sketch_by_fname: bool = False
     number_neighbors: int = 0      # --nearest-neighbors (0: the matrix)
+    cache_sketch: bool = False     # -W: load/write sketches beside the inputs
 
 
 def hll_p_from_S(S: int) -> int:
@@ -62,7 +66,6 @@ def hll_p_from_S(S: int) -> int:
 
 # Options of the JAX CLI that the slice refuses, with the name to report.
 _REFUSED = {
-    "-W": "sketch caching (-W)", "--cache-sketches": "sketch caching (-W)",
     "--wj": "weighted Jaccard", "--wj-exact": "weighted Jaccard",
     "--wj-cm-sketch-size": "weighted Jaccard",
     "--wj-cm-nhashes": "weighted Jaccard",
@@ -104,6 +107,8 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "--countmin": ("use_counting_filter", True),
         "-N": ("sketch_by_fname", True),
         "--sketch-by-fname": ("sketch_by_fname", True),
+        "-W": ("cache_sketch", True),
+        "--cache-sketches": ("cache_sketch", True),
         "--use-nthash": ("encoding", "nthash"),
         "--use-cyclic-hash": ("encoding", "cyclic"),
     }
@@ -199,15 +204,103 @@ def read_sketch_auto(path: str) -> HLL:
     return HLL.read(path)
 
 
+def _cache_fname(path: str, opts: CommonOpts) -> str:
+    """The -W cache file name of a path (cache.make_fname, the `.w.`
+    quirk included)."""
+    sp = sketch_params(opts).spacer()
+    return cache.make_fname(path, hll_p_from_S(opts.sketch_size), sp.w,
+                            opts.k, sp.c, opts.spacing, opts.suffix,
+                            opts.prefix, opts.encoding, HLL_EXT)
+
+
+def atomic_write_sketch(sk: HLL, fname: str) -> None:
+    """Write then rename: concurrent writers of one cache file each make a
+    whole file and the last rename wins."""
+    tmp = f"{fname}.tmp.{os.getpid()}"
+    sk.write(tmp)
+    os.replace(tmp, fname)
+
+
+def _prefetched_tiles(indexed_paths, sp, lookahead: int = 2):
+    """Yield (index, tiles) per file, tiles() giving its row chunks, while
+    a worker thread parses and joins the next `lookahead` files (files
+    large enough to stream are parsed ahead by their own producer
+    thread, pipeline._readahead)."""
+    ex = ThreadPoolExecutor(max_workers=1)
+    try:
+        futs = {}
+        for pos, (i, path) in enumerate(indexed_paths):
+            for j, nxt in indexed_paths[pos:pos + 1 + lookahead]:
+                if j not in futs and not pipeline.should_stream(nxt):
+                    futs[j] = ex.submit(pipeline._read_joined, nxt, sp.halo)
+            fut = futs.pop(i, None)
+            joined = None if fut is None else fut.result()
+
+            def tiles(path=path, joined=joined):
+                # a filtered file's second pass re-tiles a prefetched join
+                if joined is None:
+                    return pipeline._file_tiles(path, sp)
+                return pipeline._joined_tiles(joined, sp.halo)
+
+            yield i, tiles
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def sketch_jobs(files, params, p: int, device: torch.device, filt=None):
+    """The HLL sketch jobs over (index, tiles) pairs: yields (indices,
+    device registers or None), not synchronised.  Consecutive single-chunk
+    files go into one launch that folds them into a (B, 2^p) bank
+    (pipeline.sketch_small_batch_async), up to small_batch_size(p) files;
+    a multi-chunk file, or every file once batching is off (p >= 22),
+    folds alone into (2^p,) registers; an empty file yields None (zero
+    registers).  A batch holds files of one tile width and any row counts
+    (the JAX package also flushes on a change of row count; the registers
+    are the same either way).  `filt(index)` gives a file's count-min
+    filter parameters, or None: a filtered file takes its two passes
+    alone."""
+    batch = pipeline.small_batch_size(p)
+    ids: List[int] = []
+    chunks: List[np.ndarray] = []
+
+    def flush():
+        if not ids:
+            return []
+        job = (tuple(ids), pipeline.sketch_small_batch_async(
+            chunks, params, p, device))
+        ids.clear()
+        chunks.clear()
+        return [job]
+
+    for i, tiles in files:
+        fparams = filt(i) if filt is not None else None
+        if fparams is not None:
+            yield from flush()
+            yield (i,), pipeline.sketch_hll_async(tiles, fparams, p, device)
+            continue
+        it = iter(tiles())
+        first = next(it, None)
+        second = None if first is None else next(it, None)
+        if first is None:
+            yield (i,), None
+        elif second is None and batch:
+            if chunks and chunks[0].shape[1] != first.shape[1]:
+                yield from flush()
+            ids.append(i)
+            chunks.append(first)
+            if len(ids) >= batch:
+                yield from flush()
+        else:
+            yield from flush()
+            rest = [first] if second is None else [first, second]
+            yield (i,), pipeline.sketch_hll_async(
+                lambda: itertools.chain(rest, it), params, p, device)
+    yield from flush()
+
+
 def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
-                    filter_idx=None, filt_min_count: Optional[int] = None,
-                    lookahead: int = 2
-                    ) -> Iterator[Tuple[int, torch.Tensor]]:
-    """The HLL sketch engine over (index, path) pairs: yields (index,
-    (2^p,) int32 registers on `device`, not synchronised).  A worker
-    thread parses and joins the next `lookahead` files while this one
-    uploads and sketches; files large enough to stream are parsed ahead
-    by their own producer thread (pipeline._readahead).
+                    filter_idx=None, filt_min_count: Optional[int] = None):
+    """sketch_jobs over (index, path) pairs with the parse prefetch.
 
     filter_idx: the indices whose file is count-min filtered (None: all of
     them under opts.use_counting_filter, none otherwise); filt_min_count:
@@ -226,41 +319,72 @@ def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
     if filt_min_count <= 1:
         filter_idx = frozenset()
     sp = pipeline.check_supported(base)
-    ex = ThreadPoolExecutor(max_workers=1)
-    try:
-        futs = {}
-        for pos, (i, path) in enumerate(indexed_paths):
-            for j, nxt in indexed_paths[pos:pos + 1 + lookahead]:
-                if j not in futs and not pipeline.should_stream(nxt):
-                    futs[j] = ex.submit(pipeline._read_joined, nxt, sp.halo)
-            fut = futs.pop(i, None)
-            joined = None if fut is None else fut.result()
-
-            def tiles(path=path, joined=joined):
-                # a filtered file's second pass re-tiles a prefetched join
-                if joined is None:
-                    return pipeline._file_tiles(path, sp)
-                return pipeline._joined_tiles(joined, sp.halo)
-
-            yield i, pipeline.sketch_hll_async(
-                tiles, filt if i in filter_idx else plain, p, device)
-    finally:
-        ex.shutdown(wait=True, cancel_futures=True)
+    yield from sketch_jobs(_prefetched_tiles(indexed_paths, sp), plain, p,
+                           device, lambda i: filt if i in filter_idx else None)
 
 
 def device_hll_run(indexed_paths, opts: CommonOpts, put,
                    device: torch.device, filter_idx=None,
                    filt_min_count: Optional[int] = None):
-    """device_hll_jobs, calling put(index, (2^p,) uint8 registers) as each
-    file lands."""
-    for i, regs in device_hll_jobs(indexed_paths, opts, device, filter_idx,
-                                   filt_min_count):
-        put(i, pipeline.registers_to_numpy(regs))
+    """The HLL sketch engine: calls put(index, (2^p,) uint8 registers) as
+    each file lands.  -W (opts.cache_sketch) loads a file's sketch from
+    its cache file when there is one and writes the others'.  Jobs stay
+    queued on the device until more than window_cap files are in flight,
+    each file's registers 4 * 2^p bytes, about 256 MiB in all (the JAX
+    package's bounded dispatch window); then the oldest job is pulled.
+    Strictly more: at a full batch of window_cap files `>=` would pull the
+    job just queued and serialise the host parse with the device."""
+    p = hll_p_from_S(opts.sketch_size)
+    window_cap = max(4, min(64, (256 << 20) // (4 << p)))
+    fnames = ({i: _cache_fname(path, opts) for i, path in indexed_paths}
+              if opts.cache_sketch else {})
+    todo = []
+    for i, path in indexed_paths:
+        if i in fnames and os.path.isfile(fnames[i]):
+            put(i, read_sketch_auto(fnames[i]).regs)
+        else:
+            todo.append((i, path))
+
+    def land(i, regs):
+        if i in fnames:
+            atomic_write_sketch(HLL(p, opts.estim, opts.jestim, regs),
+                                fnames[i])
+        put(i, regs)
+
+    queued: deque = deque()
+    inflight = 0
+
+    def drain():
+        nonlocal inflight
+        ids, dev = queued.popleft()
+        inflight -= len(ids)
+        if dev is None:
+            land(ids[0], np.zeros(1 << p, np.uint8))
+            return
+        with metrics.accum("sketch.pull"):
+            regs = pipeline.registers_to_numpy(dev)
+        if regs.ndim == 1:
+            land(ids[0], regs)
+        else:
+            for slot, i in enumerate(ids):
+                land(i, regs[slot])
+
+    for job in device_hll_jobs(todo, opts, device, filter_idx,
+                               filt_min_count):
+        queued.append(job)
+        inflight += len(job[0])
+        while inflight > window_cap and queued:
+            drain()
+    while queued:
+        drain()
 
 
 def sketch_paths(paths_list: List[str], opts: CommonOpts,
                  device: torch.device) -> List[HLL]:
-    """Sketch or load many logical paths into HLLs."""
+    """Sketch or load many logical paths into HLLs.  Under -W a sketch
+    whose registers mkdist parked on the device carries them as
+    `dev_regs`, so the compare stacks its bank there
+    (ops/pairwise._device_regs_for)."""
     if opts.presketched:
         return [read_sketch_auto(path) for path in paths_list]
     p = hll_p_from_S(opts.sketch_size)
@@ -269,6 +393,11 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
                    lambda i, regs: out.__setitem__(
                        i, HLL(p, opts.estim, opts.jestim, regs)),
                    device)
+    if opts.cache_sketch:
+        for path, sk in zip(paths_list, out):
+            dev = pipeline.device_rows_get(_cache_fname(path, opts))
+            if dev is not None:
+                sk.dev_regs = dev
     return out
 
 

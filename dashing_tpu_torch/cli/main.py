@@ -3,35 +3,47 @@
     python -m dashing_tpu_torch.cli sketch [opts] genomes...
     python -m dashing_tpu_torch.cli dist   [opts] genomes...
     python -m dashing_tpu_torch.cli card|cardcmp|hll [opts] genomes...
+    python -m dashing_tpu_torch.cli mkdist --multik pref,k0,k1[,step] ...
+    python -m dashing_tpu_torch.cli sketch_by_seq|dist_by_seq|panel ...
     python -m dashing_tpu_torch.cli union|view|fold|printmat|flatten ...
 
 Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
 slice covers: HLL sketches of exact k-mers (contiguous or spaced, with or
 without minimizer windows, scored by value or by entropy) or of the
 ntHash and cyclic rolling hashes, count-min filtered or not (sketch -b/-f,
-dist -y), every measure, the ORIGINAL/IMPROVED/MLE estimators and the
-joint MLE (-J), query x reference rows (-Q) and k-nearest neighbours
-(--nearest-neighbors); cardinalities (card, hll) and the HLL file tools
-(union, view, fold, printmat, flatten).  Everything else is refused with
-a "not yet ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
+dist -y), cached beside the inputs (dist -W, sketch -c), every measure,
+the ORIGINAL/IMPROVED/MLE estimators and the joint MLE (-J), query x
+reference rows (-Q) and k-nearest neighbours (--nearest-neighbors);
+per-k matrices (mkdist, with --jukes-cantor), one sketch a record
+(sketch_by_seq/sbs) and their compare (dist_by_seq/cmp_by_seq), a query
+screen against a sketch database (panel); cardinalities (card, hll) and
+the HLL file tools (union, view, fold, printmat, flatten).  Everything
+else (readfilt, the non-HLL sketch families) is refused with a "not yet
+ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
 (default "cuda"); asking for CUDA without a card raises.  The file tools
 run on the host and never create a device.
 """
 from __future__ import annotations
 
+import dataclasses
 import getopt
 import gzip
+import itertools
 import os
+import shutil
 import struct
 import sys
+import tempfile
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
 
 from .. import __version__, device as devmod, metrics, pipeline
-from ..io import cache, distmat, fasta, paths
+from ..background import mkmat2jcdistmat
+from ..io import distmat, fasta, paths
 from ..ops import pairwise as pw
+from ..sketch import estimators as est
 from ..sketch.hll import HLL, batch_reports
 from . import core
 from .core import CommonOpts, NotPorted, eprint
@@ -305,6 +317,7 @@ def _write_labels(out_dists: Optional[str], names):
 def sketch_main(argv: List[str], device) -> int:
     o = CommonOpts()
     o.mincount = 1
+    skip_cached = False
     output_file = ""
     optlist, positional = _getopts(argv, SKETCH_SHORT_OPTS, SKETCH_LONG)
     for flag, val in optlist:
@@ -327,7 +340,8 @@ def sketch_main(argv: List[str], device) -> int:
             o.nhashes = int(val)
             continue
         if flag in ("-c", "--skip-cached"):
-            raise NotPorted(f"{flag} (skip cached sketches)")
+            skip_cached = True
+            continue
         if flag == "-o":
             output_file = val
             continue
@@ -342,27 +356,29 @@ def sketch_main(argv: List[str], device) -> int:
         _sketch_usage()
     if not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
-    sp = core.sketch_params(o).spacer()
     p = core.hll_p_from_S(o.sketch_size)
-    fnames = {i: cache.make_fname(path, p, sp.w, o.k, sp.c, o.spacing,
-                                  o.suffix, o.prefix, o.encoding,
-                                  core.HLL_EXT)
-              for i, path in enumerate(inpaths)}
+    fnames = {i: core._cache_fname(path, o) for i, path in enumerate(inpaths)}
     results: dict = {}
+    todo = []
+    for i, path in enumerate(inpaths):
+        # -c: a file whose sketch file exists is not sketched again
+        if skip_cached and os.path.isfile(fnames[i]):
+            if output_file:
+                results[i] = core.read_sketch_auto(fnames[i])
+            continue
+        todo.append((i, path))
 
     def put(i, regs):
         sk = HLL(p, o.estim, o.jestim, regs)
         if output_file:
             results[i] = sk
         else:
-            tmp = f"{fnames[i]}.tmp.{os.getpid()}"
-            sk.write(tmp)
-            os.replace(tmp, fnames[i])
+            core.atomic_write_sketch(sk, fnames[i])
 
     # -b filters every file, -f the FASTQ ones, at the threshold -n
     core.device_hll_run(
-        list(enumerate(inpaths)), o, put, device,
-        filter_idx={i for i, path in enumerate(inpaths)
+        todo, o, put, device,
+        filter_idx={i for i, path in todo
                     if o.use_counting_filter
                     or (o.sketch_by_fname and fasta.fname_is_fq(path))},
         filt_min_count=o.mincount)
@@ -446,18 +462,23 @@ def hll_main(argv: List[str], device) -> int:
     core.validate_k(o)
     p = core.hll_p_from_S(o.sketch_size)
     regs = np.zeros(1 << p, np.uint8)
-    # every file max-folded into one register set, with at most 4 files'
-    # device registers (64 MiB each at p = 24) in flight before the oldest
-    # is pulled
+    # every file max-folded into one register set, with at most 4 jobs'
+    # device registers (64 MiB a file at p = 24) in flight before the
+    # oldest is pulled; a batch of small files folds its bank's rows in
+    def fold(dev_regs):
+        got = pipeline.registers_to_numpy(dev_regs)
+        np.maximum(regs, got.max(axis=0) if got.ndim == 2 else got, out=regs)
+
     inflight: deque = deque()
     for _, dev_regs in core.device_hll_jobs(list(enumerate(inpaths)), o,
                                             device):
+        if dev_regs is None:                 # an empty file
+            continue
         inflight.append(dev_regs)
         if len(inflight) >= 4:
-            np.maximum(regs, pipeline.registers_to_numpy(inflight.popleft()),
-                       out=regs)
+            fold(inflight.popleft())
     for dev_regs in inflight:
-        np.maximum(regs, pipeline.registers_to_numpy(dev_regs), out=regs)
+        fold(dev_regs)
     h = HLL(p, o.estim, o.jestim, regs)
     batch_reports([h], device)
     print(f"Estimated number of unique exact matches: {h.report():f}")
@@ -639,6 +660,384 @@ def flatten_main(argv: List[str]) -> int:
 
 
 # ===========================================================================
+# mkdist (--multik): per-k matrices, flattened, in process
+# ===========================================================================
+
+def _mkdist_presketch(rest: List[str], ks: List[int], device):
+    """Sketch every input at every k not yet cached, from one parse and
+    one upload a chunk (pipeline.sketch_file_hll_multik), into the -W
+    cache that the per-k dist passes then read, with each register row
+    parked on the device for their compares.  Returns (extra dist
+    arguments, cleanup), or (None, None) where the run cannot be fused
+    (queries, a count-min filter, presketched inputs, the rolling hashes,
+    entropy minimizers, k outside 4..32): the per-k passes then sketch
+    alone.  Unlike the JAX package, which falls back to per-k sketching on
+    any exception here, a device or kernel error raises."""
+    o = CommonOpts()
+    try:
+        optlist, positional = _getopts(list(rest), DIST_SHORT_OPTS, DIST_LONG)
+    except SystemExit:
+        return None, None
+    for flag, val in optlist:
+        if core.parse_common(o, flag, val):
+            continue
+        if flag in ("-Q", "--query-paths"):
+            return None, None
+    if (o.use_counting_filter or o.presketched or o.sketch_by_fname
+            or o.encoding != "bonsai" or o.entropy_min):
+        return None, None
+    if not ks or not all(4 <= k <= 32 for k in ks):
+        return None, None
+    inpaths = core.gather_inpaths(o, positional)
+    if not inpaths:
+        return None, None
+    extra: List[str] = []
+    cleanup = None
+    if not o.cache_sketch:
+        # no -W from the user: a private cache, threaded through the per-k
+        # passes and removed at the end
+        tmpdir = tempfile.mkdtemp(prefix="dashing_tpu_torch_mkdist_")
+        o.prefix, o.cache_sketch = tmpdir, True
+        extra = ["-W", "-P", tmpdir]
+        def cleanup():
+            shutil.rmtree(tmpdir, ignore_errors=True)
+    p = core.hll_p_from_S(o.sketch_size)
+    try:
+        for path in inpaths:
+            todo = []
+            for k in ks:
+                o_k = dataclasses.replace(o, k=k)
+                fname = core._cache_fname(path, o_k)
+                if not os.path.isfile(fname):     # a user's cache file wins
+                    todo.append((core.sketch_params(o_k), fname))
+            if not todo:
+                continue
+            regs_list, dev_list = pipeline.sketch_file_hll_multik(
+                path, [t[0] for t in todo], p, device, keep_device=True)
+            for (_, fname), regs, dev in zip(todo, regs_list, dev_list):
+                core.atomic_write_sketch(HLL(p, o.estim, o.jestim, regs),
+                                         fname)
+                pipeline.device_rows_put(fname, dev)
+    except BaseException:
+        if cleanup:
+            cleanup()
+        raise
+    return extra, cleanup
+
+
+def mkdist_main(argv: List[str], device) -> int:
+    """`mkdist --multik <outpref>,<start>,<end>[,<step>] [--jukes-cantor]
+    <dist options>`: one binary matrix a k (`_<outpref>_<k>`), flattened
+    into <outpref>.bin; with --jukes-cantor the sizes matrices also give
+    Jukes-Cantor distances in <outpref>.jcd."""
+    multik = None
+    jukes_cantor = False
+    rest: List[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--multik":
+            multik = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith("--multik="):
+            multik = a.split("=", 1)[1]
+        elif a == "--jukes-cantor":
+            jukes_cantor = True
+        else:
+            rest.append(a)
+        i += 1
+    if not multik:
+        eprint("mkdist: --multik <outpref>,<start>,<end>[,<step>] plus dist "
+               "options")
+        return 1
+    parts = multik.split(",")
+    outpref, start, end = parts[0], int(parts[1]), int(parts[2])
+    step = int(parts[3]) if len(parts) > 3 else (1 if end > start else -1)
+    if (end > start) != (step > 0):
+        step = -step
+    ks = list(range(start, end, step))
+    fpaths = []
+    # the per-k passes read every input again: keep the joined bytes
+    pipeline.set_join_cache(True)
+    cleanup = None
+    try:
+        extra, cleanup = _mkdist_presketch(rest, ks, device)
+        for k in ks:
+            outp = f"_{outpref}_{k}"
+            # the per-k flags after the user's: getopt keeps the last, so
+            # a user's -k or -O cannot override the pass's own, and the
+            # private cache's -W -P come last of all
+            args = rest + ["-b", "-O", outp, "-k", str(k)] + (extra or [])
+            if jukes_cantor:
+                # Jukes-Cantor needs the intersection sizes and the paths'
+                # own order, each added on its own
+                if "--sizes" not in args and "-Z" not in args:
+                    args = ["--sizes"] + args
+                if "--avoid-sorting" not in args and "-n" not in args:
+                    args = ["--avoid-sorting"] + args
+            rc = dist_main(args, device)
+            if rc != 0:
+                return rc
+            fpaths.append(outp)
+    finally:
+        pipeline.set_join_cache(False)
+        pipeline.device_rows_clear()
+        if cleanup:
+            cleanup()
+    eprint("Finished distance matrix calculations. Now flattening")
+    rc = distmat.flatten_all(fpaths, outpref + ".bin", ks)
+    if rc != 0 or not jukes_cantor:
+        return rc
+    optlist, gpaths = _getopts(rest, DIST_SHORT_OPTS, DIST_LONG)
+    for flag, val in optlist:
+        if flag in ("-F", "--paths"):
+            gpaths = paths.get_paths(val)
+    jc = mkmat2jcdistmat(outpref + ".bin", gpaths)
+    distmat.write_binary(outpref + ".jcd", jc, len(gpaths))
+    eprint(f"Wrote Jukes-Cantor distances to {outpref}.jcd")
+    return 0
+
+
+# ===========================================================================
+# sketch_by_seq / dist_by_seq (HLL)
+# ===========================================================================
+
+def sketch_by_seq_main(argv: List[str], device) -> int:
+    """One HLL a FASTA/FASTQ record, into one gzip stream, with a .names
+    sidecar headed '#k=<k>:'.  With -b -n N a record keeps the k-mers it
+    holds at least N times, counted exactly within the record."""
+    o = CommonOpts()
+    o.mincount = 1
+    outpath = "/dev/stdout"
+    optlist, positional = _getopts(
+        argv, "o:n:P:p:x:R:s:S:k:w:H:q:B:8JbfjEIcCeh?", SKETCH_LONG)
+    for flag, val in optlist:
+        if flag == "-o":
+            outpath = val
+        elif flag == "-b":
+            o.use_counting_filter = True
+        elif flag == "-n":
+            o.mincount = int(val)
+        elif flag == "-q":
+            o.cmsketchsize = int(val)
+        elif flag == "-H":
+            o.nhashes = int(val)
+        elif core.parse_common(o, flag, val):
+            continue
+        elif flag in ("-h", "-?", "--help"):
+            eprint("sketch_by_seq [opts] input.fa")
+            return 1
+    core.validate_k(o)
+    inpath = positional[0] if positional else "/dev/stdin"
+    params = core.sketch_params(o)
+    namepath = ("stdout.names" if outpath == "/dev/stdout"
+                else outpath + ".names")
+    p = core.hll_p_from_S(o.sketch_size)
+    use_filter = o.use_counting_filter and o.mincount > 1
+    raw_params = dataclasses.replace(params, rehash=False)
+    records = fasta.iter_records_full(inpath)
+    with open(namepath, "w") as namefp, gzip.open(outpath, "wb") as ofp:
+        namefp.write(f"#k={o.k}:Names for sequences sketched\n")
+        while True:
+            batch = list(itertools.islice(records, 2048))
+            if not batch:
+                break
+            for name, _, _, _ in batch:
+                namefp.write(name.decode() + "\n")
+            seqs = [seq for _, _, seq, _ in batch]
+            if use_filter:
+                # within-record multiplicity, counted exactly on the raw
+                # k-mers (WangHash is a bijection), as the JAX CLI does
+                for raw in pipeline.records_kmer_hashes(seqs, raw_params,
+                                                        device):
+                    vals, cnts = np.unique(raw, return_counts=True)
+                    h = HLL(p, o.estim, o.jestim)
+                    h.addh_np(vals[cnts >= o.mincount])
+                    h.write_record(ofp)
+            else:
+                for row in pipeline.sketch_records_hll(seqs, params, p,
+                                                       device):
+                    HLL(p, o.estim, o.jestim, row).write_record(ofp)
+    return 0
+
+
+# dist_by_seq's sketch-type letters, refused by name
+_DBS_TYPES = {"-B": "bloom filter", "-S": "b-bit MinHash",
+              "-8": "b-bit MinHash", "-K": "k-mer hash set",
+              "-r": "range MinHash"}
+
+
+def dist_by_seq_main(argv: List[str], device) -> int:
+    """Compare the per-record sketches of one sketch_by_seq stream: all
+    pairs (condensed), or with -q the records of a second stream as
+    queries (rows)."""
+    o = CommonOpts()
+    outpath = "/dev/stdout"
+    namefile = ""
+    otherpath = ""
+    emit_fmt = UT_TSV
+    result_type = pw.JI
+    k = -1
+    long_opts = ["containment-index", "containment-dist", "mash-dist",
+                 "symmetric-containment-index", "symmetric-containment-dist",
+                 "sizes", "help"]
+    optlist, positional = _getopts(argv, "q:o:k:n:p:EIJMBbS8KCTrUh?",
+                                   long_opts)
+    for flag, val in optlist:
+        if flag in _DBS_TYPES:
+            raise NotPorted(f"dist_by_seq {flag} ({_DBS_TYPES[flag]} "
+                            "sketches)")
+        if flag == "-p":
+            o.nthreads = int(val)
+        elif flag == "-o":
+            outpath = val
+        elif flag == "-E":
+            o.estim = o.jestim = est.ORIGINAL
+        elif flag == "-I":
+            o.estim = o.jestim = est.ERTL_IMPROVED
+        elif flag == "-J":
+            o.jestim = est.ERTL_JOINT_MLE
+        elif flag in ("-M", "--mash-dist"):
+            result_type = pw.MASH_DIST
+        elif flag == "--containment-index":
+            result_type = pw.CONTAINMENT_INDEX
+        elif flag == "--containment-dist":
+            result_type = pw.CONTAINMENT_DIST
+        elif flag == "--symmetric-containment-index":
+            result_type = pw.SYMMETRIC_CONTAINMENT_INDEX
+        elif flag == "--symmetric-containment-dist":
+            result_type = pw.SYMMETRIC_CONTAINMENT_DIST
+        elif flag in ("-Z", "--sizes"):
+            result_type = pw.SIZES
+        elif flag == "-k":
+            k = int(val)
+        elif flag == "-n":
+            namefile = val
+        elif flag == "-q":
+            otherpath = val
+        elif flag == "-b":
+            emit_fmt = BINARY
+        elif flag == "-T":
+            emit_fmt = FULL_TSV
+        elif flag == "-U":
+            emit_fmt = PHYLIP
+        elif flag in ("-h", "-?", "--help"):
+            _dbs_usage()
+    if len(positional) != 1 or not namefile:
+        _dbs_usage()
+    labels = paths.get_paths(namefile)
+    if labels and labels[0].startswith("#k="):
+        if k <= 0:
+            try:
+                k = int(labels[0][3:].split(":")[0])
+            except ValueError:
+                k = 31
+        labels = labels[1:]
+    if k <= 0:
+        k = 31
+    with gzip.open(positional[0], "rb") as fp:
+        sketches = [core.read_hll(fp) for _ in labels]
+    if otherpath:
+        qnames = [q for q in paths.get_paths(otherpath + ".names")
+                  if not q.startswith("#k=")]
+        with gzip.open(otherpath, "rb") as qfp:
+            qsketches = [core.read_hll(qfp) for _ in qnames]
+    for sk in sketches:
+        sk.estim = o.estim
+        sk.jestim = o.jestim
+    if otherpath:
+        mat = core.compare_rect(sketches, qsketches, result_type, k,
+                                o.estim, o.jestim, device)
+        fp, close = core.open_output(outpath, binary=(emit_fmt == BINARY))
+        if emit_fmt == BINARY:
+            fp.write(np.ascontiguousarray(mat, np.float32).tobytes())
+        else:
+            distmat.emit_rect_tsv(fp, qnames, mat)
+    else:
+        if not pw.is_symmetric(result_type):
+            raise SystemExit("Can't perform asymmetric comparison without "
+                             "query paths")
+        cond = core.compare_condensed(sketches, result_type, k, o.estim,
+                                      o.jestim, device)
+        fp, close = core.open_output(outpath, binary=(emit_fmt == BINARY))
+        if emit_fmt == BINARY:
+            distmat.write_binary(fp, cond, len(labels))
+        elif emit_fmt == PHYLIP:
+            distmat.emit_phylip(fp, labels, cond)
+        elif emit_fmt == FULL_TSV:
+            distmat.emit_full_tsv(
+                fp, labels, distmat.condensed_to_square(cond, len(labels)))
+        else:
+            distmat.emit_ut_tsv(fp, labels, cond)
+    if close:
+        fp.close()
+    return 0
+
+
+# ===========================================================================
+# panel: query genomes against a sketch database
+# ===========================================================================
+
+def panel_main(argv: List[str], device) -> int:
+    """`panel <db> <query> [-F] [-o out]`: each query's best match in a
+    `sketch -o` database by containment (the joint MLE), one row a query:
+    '#Query BestMatch Containment Jaccard'."""
+    o = CommonOpts()
+    outpath = "/dev/stdout"
+    filesinfile = False
+    optlist, positional = _getopts(argv, "p:o:k:S:Fh?", ["help"])
+    for flag, val in optlist:
+        if flag == "-o":
+            outpath = val
+        elif flag == "-F":
+            filesinfile = True
+        else:
+            core.parse_common(o, flag, val)
+    if len(positional) != 2:
+        eprint("panel <sketch-db> <query> [-F: query is a file of paths] "
+               "[-o out]")
+        return 1
+    dbpath, inpath = positional
+    labels_path = (dbpath + ".labels" if os.path.exists(dbpath + ".labels")
+                   else dbpath + ".labels.gz")
+    if labels_path.endswith(".gz"):
+        with gzip.open(labels_path, "rt") as lf:
+            labels = [line.strip() for line in lf if line.strip()]
+    else:
+        labels = [line for line in paths.get_paths(labels_path) if line]
+    with gzip.open(dbpath, "rb") as fp:
+        refs = [HLL.read_record(fp) for _ in labels]
+    qpaths = paths.get_paths(inpath) if filesinfile else [inpath]
+    o.sketch_size = refs[0].p
+    core.validate_k(o)
+    p = refs[0].p
+    # the queries through the sketch engine, then one query x reference
+    # pass of the joint MLE (K4's joint form and K5)
+    queries: List = [None] * len(qpaths)
+    core.device_hll_run(
+        list(enumerate(qpaths)), o,
+        lambda i, regs: queries.__setitem__(
+            i, HLL(p, o.estim, est.ERTL_JOINT_MLE, regs)), device)
+    tri = pw.rect_triples(refs, queries, o.estim, est.ERTL_JOINT_MLE, device)
+    # lhs = reference, so t1 is the query's own mass
+    shared = tri[..., 2]
+    cont = np.where(tri[..., 1] + shared > 0,
+                    shared / np.maximum(tri[..., 1] + shared, 1e-30), 0.0)
+    union = tri.sum(-1)
+    ji = np.where(union > 0, shared / np.maximum(union, 1e-30), 0.0)
+    fp, close = core.open_output(outpath)
+    fp.write("#Query\tBestMatch\tContainment\tJaccard\n")
+    for qi, qp in enumerate(qpaths):
+        best = int(np.argmax(cont[qi]))          # the first maximum
+        fp.write(f"{qp}\t{labels[best]}\t{cont[qi, best]:.6g}"
+                 f"\t{ji[qi, best]:.6g}\n")
+    if close:
+        fp.close()
+    return 0
+
+
+# ===========================================================================
 # usage + dispatcher
 # ===========================================================================
 
@@ -668,7 +1067,9 @@ def _dist_usage():
         "least -c times [5, floored at 2]\n"
         "  -c/-q/-t/-R             threshold, rows, log2 counters a row "
         "[20], seed [1337]\n"
-        "Not yet ported (see ROADMAP.md): -W, weighted Jaccard, non-HLL "
+        "  -W/--cache-sketches     load and write sketches beside the "
+        "inputs\n"
+        "Not yet ported (see ROADMAP.md): weighted Jaccard, non-HLL "
         "sketches\n")
 
 
@@ -677,6 +1078,10 @@ def _sketch_usage():
                      "options; -o writes all sketches to one stream; -b "
                      "count-min filters every file, -f the FASTQ ones, at "
                      "-n [1] with -q log2 counters a row and -H rows")
+
+
+def _dbs_usage():
+    raise SystemExit("Usage: dist_by_seq -n namefile [opts] sketchstream.gz")
 
 
 def _union_usage():
@@ -692,6 +1097,12 @@ SUBCOMMANDS = {
     "card": card_main,
     "cardcmp": card_main,
     "hll": hll_main,
+    "mkdist": mkdist_main,
+    "sketch_by_seq": sketch_by_seq_main,
+    "sbs": sketch_by_seq_main,
+    "dist_by_seq": dist_by_seq_main,
+    "cmp_by_seq": dist_by_seq_main,
+    "panel": panel_main,
 }
 # the file tools: run on the host, take no device
 HOST_SUBCOMMANDS = {

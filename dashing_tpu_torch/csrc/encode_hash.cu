@@ -11,6 +11,14 @@
 //      kernel's own output, for holding the kernel bitwise) or REGS
 //      (`dtt_ascii_hash_regs`, the fused form the benchmark and the ASCII
 //      route use).
+// Both REGS forms also come banked (`dtt_encode_hash_banks`,
+// `dtt_ascii_hash_banks`): an int32 vector bank[R] sends row r's ranks to
+// the registers regs + (bank[r] << p) of a (B, 2^p) bank, so one launch
+// folds many small files (or sequence records) at once.  That replaces
+// the JAX package's keys form plus a scatter-max with bank offsets
+// (dashing_tpu/pipeline.py `_banks_from_idx_rank`, the `vmap` of
+// `_records_to_registers`).  It costs one load a row; a row whose bank
+// lies outside [0, B) folds nothing (the JAX scatter's mode="drop").
 // The TPU kernels built k-mers by log-doubling over whole rows and wrote a
 // key per window to HBM.  Here the REGS form folds each rank straight into
 // the registers, so no key reaches device memory.
@@ -65,7 +73,8 @@
 // is base r*C + n of one flat stream; any data pointer is taken (a
 // row-offset view included): the staged bytes start at the 16-byte
 // boundary at or below the segment's first byte, and the aligned loads
-// never leave the 16-byte blocks that hold the segment's bytes.  KEYS is
+// never leave the 16-byte blocks that hold the segment's bytes.  The banked
+// forms take BANK (R,) int32 and REGS (nbanks, 2^p) int32, row-major.  KEYS is
 // (R, C-k+1) int32 `bucket << 6 | rank`, rank 0 on invalid windows (the
 // bucket is still that of the hash of the window's codes), p <= 25 so the
 // key fits int32.
@@ -188,11 +197,15 @@ __device__ __forceinline__ uint64_t window_hash(const uint32_t* scode, int sc,
     return wang_hash(canon && rc < fwd ? rc : fwd);
 }
 
-template <In IN, Out OUT>
+// BANKS: the banked REGS form (a template parameter, so that the single
+// forms compile without the per-row bank load and branch)
+template <In IN, Out OUT, bool BANKS>
 __global__ void __launch_bounds__(THREADS)
 encode_hash_kernel(const uint8_t* __restrict__ a,
-                   const uint8_t* __restrict__ v, int32_t* __restrict__ out,
-                   int R, int C, int k, int p, int canon, int seg) {
+                   const uint8_t* __restrict__ v,
+                   const int32_t* __restrict__ bank, int nbanks,
+                   int32_t* __restrict__ out, int R, int C, int k, int p,
+                   int canon, int seg) {
     __shared__ __align__(16) uint32_t scode[CODE_WORDS];
     __shared__ __align__(16) uint32_t svalid[VALID_WORDS];
     const int W = C - k + 1;
@@ -204,6 +217,13 @@ encode_hash_kernel(const uint8_t* __restrict__ a,
     const uint32_t kmask = k == 32 ? ~0u : ((1u << k) - 1);
     const int fshift = 64 - 2 * k;
     for (int row = blockIdx.y; row < R; row += gridDim.y) {
+        // the row's registers: the one array, or its bank's row
+        int32_t* regs = out;
+        if constexpr (BANKS) {
+            const int b = __ldg(bank + row);
+            if (b < 0 || b >= nbanks) continue;     // uniform in the block
+            regs = out + ((size_t)b << p);
+        }
         const size_t g0 = (size_t)row * C + w0;
         int s0c, s0v;
         if constexpr (IN == In::PACKED) {
@@ -242,10 +262,10 @@ encode_hash_kernel(const uint8_t* __restrict__ a,
                 int cur[GROUP];
 #pragma unroll
                 for (int g = 0; g < GROUP; ++g)
-                    cur[g] = rank[g] ? out[bucket[g]] : 0;
+                    cur[g] = rank[g] ? regs[bucket[g]] : 0;
 #pragma unroll
                 for (int g = 0; g < GROUP; ++g)
-                    if (rank[g] > cur[g]) atomicMax(out + bucket[g], rank[g]);
+                    if (rank[g] > cur[g]) atomicMax(regs + bucket[g], rank[g]);
             }
         }
         __syncthreads();                    // before the next row's staging
@@ -264,15 +284,15 @@ Geometry geometry(int R, int C, int k) {
     return {seg, (W + seg - 1) / seg, R < MAX_GRID_Y ? R : MAX_GRID_Y};
 }
 
-template <In IN, Out OUT>
-int launch(const void* a, const void* v, void* out, int R, int C, int k,
-           int p, int canon, void* stream) {
+template <In IN, Out OUT, bool BANKS = false>
+int launch(const void* a, const void* v, const void* bank, int nbanks,
+           void* out, int R, int C, int k, int p, int canon, void* stream) {
     if (R <= 0 || C - k + 1 <= 0) return (int)cudaGetLastError();
     const Geometry g = geometry(R, C, k);
-    encode_hash_kernel<IN, OUT>
+    encode_hash_kernel<IN, OUT, BANKS>
         <<<dim3(g.grid_x, g.grid_y), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint8_t*)a, (const uint8_t*)v, (int32_t*)out, R, C, k, p,
-            canon, g.seg);
+            (const uint8_t*)a, (const uint8_t*)v, (const int32_t*)bank,
+            nbanks, (int32_t*)out, R, C, k, p, canon, g.seg);
     return (int)cudaGetLastError();
 }
 
@@ -282,24 +302,43 @@ int launch(const void* a, const void* v, void* out, int R, int C, int k,
 extern "C" int dtt_encode_hash_regs(const void* packed, const void* vbits,
                                     void* regs, int R, int C, int k, int p,
                                     int canon, void* stream) {
-    return launch<In::PACKED, Out::REGS>(packed, vbits, regs, R, C, k, p,
-                                         canon, stream);
+    return launch<In::PACKED, Out::REGS>(packed, vbits, nullptr, 0, regs, R,
+                                         C, k, p, canon, stream);
+}
+
+// K1 banked: packed rows -> the (nbanks, 2^p) registers of bank[row]
+extern "C" int dtt_encode_hash_banks(const void* packed, const void* vbits,
+                                     const void* bank, int nbanks,
+                                     void* regs, int R, int C, int k, int p,
+                                     int canon, void* stream) {
+    return launch<In::PACKED, Out::REGS, true>(packed, vbits, bank, nbanks,
+                                               regs, R, C, k, p, canon,
+                                               stream);
 }
 
 // K2 fused: ASCII -> registers
 extern "C" int dtt_ascii_hash_regs(const void* tile, void* regs, int R,
                                    int C, int k, int p, int canon,
                                    void* stream) {
-    return launch<In::ASCII, Out::REGS>(tile, nullptr, regs, R, C, k, p,
-                                        canon, stream);
+    return launch<In::ASCII, Out::REGS>(tile, nullptr, nullptr, 0, regs, R,
+                                        C, k, p, canon, stream);
+}
+
+// K2 banked: ASCII rows -> the (nbanks, 2^p) registers of bank[row]
+extern "C" int dtt_ascii_hash_banks(const void* tile, const void* bank,
+                                    int nbanks, void* regs, int R, int C,
+                                    int k, int p, int canon, void* stream) {
+    return launch<In::ASCII, Out::REGS, true>(tile, nullptr, bank, nbanks,
+                                              regs, R, C, k, p, canon,
+                                              stream);
 }
 
 // K2 as the TPU kernel: ASCII -> (R, C-k+1) int32 keys
 extern "C" int dtt_ascii_hash_keys(const void* tile, void* keys, int R,
                                    int C, int k, int p, int canon,
                                    void* stream) {
-    return launch<In::ASCII, Out::KEYS>(tile, nullptr, keys, R, C, k, p,
-                                        canon, stream);
+    return launch<In::ASCII, Out::KEYS>(tile, nullptr, nullptr, 0, keys, R,
+                                        C, k, p, canon, stream);
 }
 
 // The launch geometry for (R, C, k): windows a block, grid x, grid y and

@@ -5,7 +5,8 @@ uint32 pairs for the TPU.  Here a uint64 value lives in an int64 tensor
 with the same bit pattern: additions and left shifts wrap identically in
 two's complement, and right shifts are made logical with a mask (torch has
 no CPU `>>` for uint64).  `wang_hash_np` is the host version on uint64
-arrays (the rolling hashes' tables and the benchmark's host baseline).
+arrays (the rolling hashes' tables, the benchmark's host baseline and the
+host HLL inserts, with `clz64_np`).
 """
 from __future__ import annotations
 
@@ -59,3 +60,15 @@ def clz64(x: torch.Tensor) -> torch.Tensor:
         n = n + z.to(x.dtype) * s
         x = torch.where(z, x << s, x)
     return n
+
+
+def clz64_np(x: np.ndarray) -> np.ndarray:
+    """Leading zeros of nonzero uint64s (host; JAX `hashes.clz64_np`),
+    by the same 6-step search on shifts."""
+    y = np.atleast_1d(np.asarray(x, np.uint64)).copy()
+    cnt = np.zeros(len(y), np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        zt = (y >> np.uint64(64 - s)) == 0
+        cnt += np.where(zt, s, 0)
+        y = np.where(zt, y << np.uint64(s), y)
+    return cnt

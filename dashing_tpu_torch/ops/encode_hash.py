@@ -12,6 +12,12 @@ register max; the benchmark calls it) and
 `encode_hash_keys` (the TPU kernel's own int32 keys, to hold the kernel
 bitwise).
 
+Both register forms also come banked, `packed_to_banks` and
+`ascii_to_banks`: a per-row int32 bank index sends row r into row bank[r]
+of a (B, 2^p) register bank, so one launch folds many small files or
+sequence records (the JAX package's keys plus a scatter-max at bucket +
+bank * 2^p, `_banks_from_idx_rank`).
+
 For a CUDA tensor each entry launches the hand-written kernel and counts
 the launch; for a CPU tensor it runs its plain PyTorch version beside it.
 There is no fallback from one to the other.  `launch_geometry` reports
@@ -27,13 +33,16 @@ import torch
 from ..hashes import wang_hash
 from . import _build
 from .encode import base_codes, canonical, kmers_contiguous
-from .hll_update import bucket_rank, update_registers
+from .hll_update import bucket_rank, update_banks, update_registers
 
 # launches of each CUDA entry since the last reset (chip_smoke.py reads
-# them): K1 packed -> registers, K2 ASCII -> registers, K2 ASCII -> keys
+# them): K1 packed -> registers, K2 ASCII -> registers, K2 ASCII -> keys,
+# K1 packed -> register banks, K2 ASCII -> register banks
 launches = 0
 ascii_launches = 0
 keys_launches = 0
+banks_launches = 0
+ascii_banks_launches = 0
 
 
 def unpack_2bit(packed: torch.Tensor, vbits: torch.Tensor, C: int):
@@ -208,6 +217,103 @@ def ascii_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, k: int,
     return regs
 
 
+def _check_banks(bank, regs, R, p, device):
+    if regs.dtype != torch.int32 or regs.dim() != 2 \
+            or regs.shape[1] != 1 << p:
+        raise TypeError(f"a register bank is (B, {1 << p}) int32, got "
+                        f"{tuple(regs.shape)} {regs.dtype}")
+    if bank.dtype != torch.int32 or bank.shape != (R,):
+        raise TypeError(f"bank indices are ({R},) int32, got "
+                        f"{tuple(bank.shape)} {bank.dtype}")
+    if not (bank.device == regs.device == device):
+        raise ValueError("rows, bank indices and registers must share a "
+                         "device")
+    if not regs.is_contiguous():
+        raise ValueError("registers must be contiguous (updated in place)")
+
+
+def packed_to_banks_plain(packed: torch.Tensor, vbits: torch.Tensor,
+                          bank: torch.Tensor, regs: torch.Tensor, *, k: int,
+                          p: int, canon: bool) -> torch.Tensor:
+    """Plain PyTorch version of banked K1: unpack, k-mers, WangHash,
+    scatter_reduce("amax") at bucket + bank[row] * 2^p, in place."""
+    code, valid = unpack_2bit(packed, vbits, packed.shape[1] * 4)
+    h, wvalid = _hashes(code, valid, k, canon)
+    return update_banks(regs, h, wvalid, bank, p)
+
+
+def packed_to_banks(packed: torch.Tensor, vbits: torch.Tensor,
+                    bank: torch.Tensor, regs: torch.Tensor, *, k: int, p: int,
+                    canon: bool = True) -> torch.Tensor:
+    """Fold packed rows (R rows of C = 4 * packed.shape[1] bases) into a
+    (B, 2^p) int32 register bank IN PLACE, row r into regs[bank[r]], and
+    return it.  A row whose bank lies outside [0, B) folds nothing.
+    2 <= p <= 31, 1 <= k <= 32."""
+    _check_kp(k, p)
+    if packed.dtype != torch.uint8 or vbits.dtype != torch.uint8:
+        raise TypeError("packed codes and validity bits must be uint8")
+    R, C4 = packed.shape
+    if vbits.shape != (R, C4 // 2) or C4 % 2:
+        raise ValueError(f"validity bits {tuple(vbits.shape)} do not match "
+                         f"packed codes {tuple(packed.shape)} (C % 8 == 0)")
+    if packed.device != vbits.device:
+        raise ValueError("packed and vbits must share a device")
+    _check_banks(bank, regs, R, p, packed.device)
+    if regs.device.type == "cpu":
+        return packed_to_banks_plain(packed, vbits, bank, regs, k=k, p=p,
+                                     canon=canon)
+    if regs.device.type != "cuda":
+        raise ValueError(f"unsupported device {regs.device}")
+    packed, vbits, bank = (t.contiguous() for t in (packed, vbits, bank))
+    lib = _lib()
+    stream = torch.cuda.current_stream(regs.device).cuda_stream
+    with torch.cuda.device(regs.device):
+        err = lib.dtt_encode_hash_banks(
+            packed.data_ptr(), vbits.data_ptr(), bank.data_ptr(),
+            regs.shape[0], regs.data_ptr(), R, C4 * 4, k, p,
+            int(bool(canon)), stream)
+    _build.check(err, "encode_hash_banks", lib)
+    global banks_launches
+    banks_launches += 1
+    return regs
+
+
+def ascii_to_banks_plain(tile: torch.Tensor, bank: torch.Tensor,
+                         regs: torch.Tensor, *, k: int, p: int,
+                         canon: bool) -> torch.Tensor:
+    """Plain PyTorch version of banked K2: base codes, k-mers, WangHash,
+    scatter_reduce("amax") at bucket + bank[row] * 2^p, in place."""
+    code, valid = base_codes(tile)
+    h, wvalid = _hashes(code, valid, k, canon)
+    return update_banks(regs, h, wvalid, bank, p)
+
+
+def ascii_to_banks(tile: torch.Tensor, bank: torch.Tensor,
+                   regs: torch.Tensor, *, k: int, p: int,
+                   canon: bool = True) -> torch.Tensor:
+    """Fold (R, C) uint8 ASCII rows (any R, C) into a (B, 2^p) int32
+    register bank IN PLACE, row r into regs[bank[r]], and return it.  A
+    row whose bank lies outside [0, B) folds nothing.  2 <= p <= 31,
+    1 <= k <= 32."""
+    _check_kp(k, p)
+    _check_tile(tile)
+    _check_banks(bank, regs, tile.shape[0], p, tile.device)
+    if tile.device.type == "cpu":
+        return ascii_to_banks_plain(tile, bank, regs, k=k, p=p, canon=canon)
+    tile, bank = tile.contiguous(), bank.contiguous()
+    lib = _lib()
+    R, C = tile.shape
+    stream = torch.cuda.current_stream(regs.device).cuda_stream
+    with torch.cuda.device(regs.device):
+        err = lib.dtt_ascii_hash_banks(tile.data_ptr(), bank.data_ptr(),
+                                       regs.shape[0], regs.data_ptr(), R, C,
+                                       k, p, int(bool(canon)), stream)
+    _build.check(err, "ascii_hash_banks", lib)
+    global ascii_banks_launches
+    ascii_banks_launches += 1
+    return regs
+
+
 def launch_geometry(R: int, C: int, k: int) -> dict:
     """The kernel's launch for an (R, C) chunk at k, as the source computes
     it: windows a block (`segment`), grid x (segments a row), grid y,
@@ -224,6 +330,10 @@ def _lib():
         "dtt_encode_hash_regs": ([vp, vp, vp, ci, ci, ci, ci, ci, vp], ci),
         "dtt_ascii_hash_regs": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
         "dtt_ascii_hash_keys": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
+        "dtt_encode_hash_banks": ([vp, vp, vp, ci, vp, ci, ci, ci, ci, ci,
+                                   vp], ci),
+        "dtt_ascii_hash_banks": ([vp, vp, ci, vp, ci, ci, ci, ci, ci, vp],
+                                 ci),
         "dtt_encode_hash_geometry": ([ci, ci, ci, ctypes.POINTER(ci)], ci)})
 
 

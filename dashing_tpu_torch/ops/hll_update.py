@@ -39,3 +39,20 @@ def update_registers(regs: torch.Tensor, h: torch.Tensor, valid: torch.Tensor,
     idx, rank = bucket_rank(h, p)
     rank = torch.where(valid, rank, 0).to(regs.dtype)
     return regs.scatter_reduce_(0, idx.reshape(-1), rank.reshape(-1), "amax")
+
+
+def update_banks(regs: torch.Tensor, h: torch.Tensor, valid: torch.Tensor,
+                 bank: torch.Tensor, p: int) -> torch.Tensor:
+    """Scatter-max (R, W) hashes into a (B, 2^p) int32 register bank, in
+    place: row r into regs[bank[r]] (the JAX package's
+    `_banks_from_idx_rank`, an index offset by bank * 2^p).  A row whose
+    bank lies outside [0, B) folds nothing, as the JAX scatter's
+    mode="drop" drops it."""
+    idx, rank = bucket_rank(h, p)
+    bank = bank.to(torch.int64)
+    ok = (bank >= 0) & (bank < regs.shape[0])
+    rank = torch.where(valid & ok[:, None], rank, 0).to(regs.dtype)
+    flat = idx + (torch.where(ok, bank, 0) << p)[:, None]
+    regs.view(-1).scatter_reduce_(0, flat.reshape(-1), rank.reshape(-1),
+                                  "amax")
+    return regs

@@ -184,6 +184,18 @@ def _device_regs(regs: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.minimum(regs, 127).astype(np.int8)).to(device)
 
 
+def _device_regs_for(sketches, regs: np.ndarray,
+                     device: torch.device) -> torch.Tensor:
+    """The int8 device bank of a sketch list: when every sketch carries a
+    device row (`dev_regs`, parked by mkdist's multi-k sketch), stack them
+    on the device, with no upload; else upload the host stack.  The rows
+    are clamped alike, so the compare is bitwise the same either way."""
+    devs = [getattr(s, "dev_regs", None) for s in sketches]
+    if not devs or any(d is None for d in devs):
+        return _device_regs(regs, device)
+    return torch.stack(devs).to(device)
+
+
 # Bucketed window widths, as in the JAX package (there they bound jit
 # variants; here they keep the two packages' windows, and hence their
 # float summation, identical).
@@ -259,7 +271,7 @@ def _bank(sketches, device: torch.device):
     """(host int32 register stack, its int8 upload on `device`)."""
     with metrics.accum("compare.stack_upload"):
         regs = _stack_regs(sketches)
-        return regs, _device_regs(regs, device)
+        return regs, _device_regs_for(sketches, regs, device)
 
 
 def _dispatch(fn, *args, **kwargs):

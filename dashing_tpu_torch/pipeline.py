@@ -20,6 +20,11 @@ over its tiles, the first counting every k-mer's hash into a count-min
 sketch on the device, the second admitting the k-mers whose estimated
 count reaches the threshold (`_count_filtered_tiles`).  Filtered tiles
 take the ASCII route, since the count-min needs the 64-bit hashes.
+Many small files fold in one launch into a (B, 2^p) register bank
+(`sketch_small_batch_async`: the banked K1, or the PyTorch encoders and a
+banked scatter-max), and so do a batch of sequence records
+(`sketch_records_hll`: the banked K2).  `sketch_file_hll_multik` sketches
+one file at several k from one upload a chunk (mkdist).
 No mesh: the TPU banks and sharded steps are not ported.
 """
 from __future__ import annotations
@@ -28,7 +33,8 @@ import dataclasses
 import os
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, List, Tuple
+from collections import OrderedDict
+from typing import Callable, Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +46,9 @@ from .io.paths import split_subpaths
 from .ops import rolling
 from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
                          tile_sequence)
-from .ops.encode_hash import packed_to_registers
-from .ops.hll_update import update_registers
+from .ops.encode_hash import ascii_to_banks, packed_to_banks, \
+    packed_to_registers
+from .ops.hll_update import update_banks, update_registers
 
 # Tile geometry: CONTENT bases of payload per row + halo; rows per upload.
 CONTENT = 8192
@@ -51,6 +58,18 @@ MAX_ROWS = 256
 STREAM_THRESHOLD = 128 * 10 ** 6
 
 ENCODINGS = ("bonsai", "nthash", "cyclic")
+
+# host -> device uploads of tiles (one a chunk, whatever its arrays) since
+# the last reset; chip_smoke.py reads it to show one upload serving
+# several k (sketch_file_hll_multik)
+chunk_uploads = 0
+
+
+def _upload(*arrays: np.ndarray, device: torch.device):
+    """Upload one chunk's host arrays to `device` (counted once)."""
+    global chunk_uploads
+    chunk_uploads += 1
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +120,10 @@ def _encode_kw(params: SketchParams, sp: Spacer) -> dict:
 
 
 def packed_ok(params: SketchParams, sp: Spacer, p: int) -> bool:
-    """Whether a tile takes the packed upload to K1: the exact encoding of
-    contiguous k-mers with WangHash and no window, 2 <= p <= 31 (K1's
-    range; the JAX package stops at p = 25, where its int32 keys end)."""
+    """Whether a tile takes the packed upload to K1 (and a record batch
+    the ASCII upload to K2): the exact encoding of contiguous k-mers with
+    WangHash and no window, 2 <= p <= 31 (the kernels' range; the JAX
+    package stops at p = 25, where its int32 keys end)."""
     return (params.encoding == "bonsai" and not params.entropy
             and params.rehash and sp.w == sp.c and not sp.spaced
             and 2 <= p <= 31)
@@ -133,6 +153,14 @@ def tile_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, p: int,
     return update_registers(regs, h, valid, p)
 
 
+def tile_to_banks(tile: torch.Tensor, bank: torch.Tensor,
+                  regs: torch.Tensor, *, p: int, **kw) -> torch.Tensor:
+    """The ASCII route into a (B, 2^p) register bank: `tile_hashes(tile,
+    **kw)`, then row r's ranks into regs[bank[r]] in place."""
+    h, valid = tile_hashes(tile, **kw)
+    return update_banks(regs, h, valid, bank, p)
+
+
 def _pack_tile_host(tile: np.ndarray):
     """ASCII (R, C) -> (2-bit codes packed 4/byte, validity bits packed
     8/byte, little bit order); C % 8 == 0.  Native C++ packer, numpy when
@@ -159,7 +187,7 @@ def _pack_tile_host_inner(tile: np.ndarray):
     return packed, vbits
 
 
-def _read_joined(path: str, sep_len: int) -> np.ndarray:
+def _read_joined_uncached(path: str, sep_len: int) -> np.ndarray:
     """Logical path (sub-paths joined by the repo's separator) -> one
     separator-joined uint8 array; native C++ loader first."""
     with metrics.accum("host.parse"):
@@ -180,6 +208,65 @@ def _read_joined(path: str, sep_len: int) -> np.ndarray:
                 glued.append(sep)
             glued.append(arr)
         return np.concatenate(glued) if glued else np.zeros(0, np.uint8)
+
+
+# Joined-bytes cache (JAX `set_join_cache`): mkdist's per-k passes read
+# every file again.  Record separators need at least `halo` invalid bytes
+# and longer ones change no window, so one join at _CACHE_SEP serves any
+# sep_len <= _CACHE_SEP.  Opt-in (mkdist turns it on around its passes),
+# bounded by DASHING_TPU_JOIN_CACHE_MB (default 512), least recently used
+# out first; entries carry the file's (mtime_ns, size), so a rewritten
+# file is read again.
+_CACHE_SEP = 63
+_join_cache: "OrderedDict[str, tuple]" = OrderedDict()
+_join_cache_on = False
+_join_lock = threading.Lock()
+
+
+def _join_cache_limit() -> int:
+    return int(float(os.environ.get("DASHING_TPU_JOIN_CACHE_MB", "512"))
+               * 1e6)
+
+
+def set_join_cache(enabled: bool) -> None:
+    """Turn the joined-bytes cache on or off (off drops it)."""
+    global _join_cache_on
+    with _join_lock:
+        _join_cache_on = enabled
+        if not enabled:
+            _join_cache.clear()
+
+
+def _path_stamp(path: str):
+    try:
+        return tuple((st.st_mtime_ns, st.st_size)
+                     for st in (os.stat(sub) for sub in split_subpaths(path)))
+    except OSError:
+        return None
+
+
+def _read_joined(path: str, sep_len: int) -> np.ndarray:
+    """Logical path -> one separator-joined uint8 array, through the
+    joined-bytes cache when it is on (a cached array is read-only)."""
+    limit = _join_cache_limit()
+    if not _join_cache_on or sep_len > _CACHE_SEP or limit <= 0:
+        return _read_joined_uncached(path, sep_len)
+    stamp = _path_stamp(path)
+    with _join_lock:
+        hit = _join_cache.pop(path, None)       # pop and reinsert: LRU order
+    if hit is not None and stamp is not None and hit[0] == stamp:
+        arr = hit[1]
+    else:
+        arr = _read_joined_uncached(path, _CACHE_SEP)
+        if stamp is None or arr.nbytes > limit:
+            return arr
+        arr.setflags(write=False)
+    with _join_lock:
+        _join_cache[path] = (stamp, arr)
+        total = sum(a.nbytes for _, a in _join_cache.values())
+        while total > limit and len(_join_cache) > 1:
+            total -= _join_cache.popitem(last=False)[1][1].nbytes
+    return arr
 
 
 def _row_chunks(tiles: np.ndarray) -> Iterable[np.ndarray]:
@@ -205,9 +292,13 @@ def _joined_tiles(joined: np.ndarray, halo: int) -> Iterable[np.ndarray]:
 
 
 def should_stream(path: str) -> bool:
+    """Whether a file streams: above STREAM_THRESHOLD on disk, unless the
+    joined-bytes cache is on and could hold it."""
     try:
         total = sum(os.stat(s).st_size for s in split_subpaths(path))
     except OSError:
+        return False
+    if _join_cache_on and total <= _join_cache_limit():
         return False
     return total > STREAM_THRESHOLD
 
@@ -312,7 +403,9 @@ def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
                         p: int, device: torch.device) -> torch.Tensor:
     """Fold a stream of (rows, C) ASCII tiles into (2^p,) int32 registers
     on `device` (returned without synchronising): the packed upload to K1
-    where `packed_ok`, else the ASCII tile to `tile_to_registers`."""
+    where `packed_ok`, else the ASCII tile to `tile_to_registers` (JAX
+    `_sketch_chunk_stream`, and `sketch_chunks_async` for the small-file
+    batcher's multi-chunk files)."""
     sp = check_supported(params)
     regs = torch.zeros(1 << p, dtype=torch.int32, device=device)
     packed_route = packed_ok(params, sp, p)
@@ -321,14 +414,131 @@ def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
         if packed_route:
             packed, vbits = _pack_tile_host(tile)
             with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                packed_to_registers(torch.from_numpy(packed).to(device),
-                                    torch.from_numpy(vbits).to(device), regs,
-                                    k=sp.k, p=p, canon=params.canon)
+                packed_to_registers(*_upload(packed, vbits, device=device),
+                                    regs, k=sp.k, p=p, canon=params.canon)
         else:
             with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                tile_to_registers(torch.from_numpy(tile).to(device), regs,
+                tile_to_registers(_upload(tile, device=device)[0], regs,
                                   **kw, p=p)
     return regs
+
+
+# ---------------------------------------------------------------------------
+# Small-file batching (JAX pipeline.py:776-882): one launch folds the
+# single-chunk tiles of B files into a (B, 2^p) register bank, each row
+# into its file's bank by a per-row bank index.  One launch and one pull a
+# batch instead of one a file: at a collection of small genomes the
+# per-file dispatch and pull held the sketch phase.
+# ---------------------------------------------------------------------------
+
+def small_batch_size(p: int) -> int:
+    """Files a batched launch: the bank bounded at 64 MB (4 B * B * 2^p),
+    a multiple of 8, at most 64.  0 turns batching off (p >= 22, where 8
+    banks would pass the bound)."""
+    b = min(64, (64 << 20) // (4 << p))
+    return (b // 8) * 8
+
+
+def sketch_small_batch_async(chunks: Sequence[np.ndarray],
+                             params: SketchParams, p: int,
+                             device: torch.device) -> torch.Tensor:
+    """The single-chunk tiles of B files, (R_i, C) uint8 of one width C,
+    -> (B, 2^p) int32 register banks on `device`, not synchronised: one
+    upload and one launch.  Row counts may differ (the JAX package stacks
+    equal shapes and pads a partial group with all-N chunks to bound its
+    jit variants; the bank vector makes both unnecessary here)."""
+    sp = check_supported(params)
+    B = len(chunks)
+    flat = np.concatenate(chunks) if B > 1 else chunks[0]
+    bank = np.repeat(np.arange(B, dtype=np.int32),
+                     [c.shape[0] for c in chunks])
+    regs = torch.zeros((B, 1 << p), dtype=torch.int32, device=device)
+    if packed_ok(params, sp, p):
+        packed, vbits = _pack_tile_host(flat)
+        with metrics.accum("sketch.dispatch", items=flat.nbytes):
+            pk, vb, bk = _upload(packed, vbits, bank, device=device)
+            packed_to_banks(pk, vb, bk, regs, k=sp.k, p=p,
+                            canon=params.canon)
+    else:
+        with metrics.accum("sketch.dispatch", items=flat.nbytes):
+            tile, bk = _upload(flat, bank, device=device)
+            tile_to_banks(tile, bk, regs, **_encode_kw(params, sp), p=p)
+    return regs
+
+
+# ---------------------------------------------------------------------------
+# Device register rows (JAX pipeline.py:538-563): mkdist's multi-k sketch
+# already holds every (path, k) register row on the device; parked here
+# under its -W cache file name, they let each per-k compare stack a bank
+# on the device instead of uploading one (ops/pairwise._device_regs_for).
+# Rows are int8, clamped as pairwise._device_regs clamps, so the compare
+# is bitwise the same either way.  Bounded by DASHING_TPU_DEVICE_BANK_MB
+# (default 1024); past it a put is dropped and the compare uploads.
+# ---------------------------------------------------------------------------
+
+_dev_rows: dict = {}
+_dev_rows_bytes = 0
+
+
+def device_rows_put(fname: str, dev: torch.Tensor) -> None:
+    global _dev_rows_bytes
+    cap = int(float(os.environ.get("DASHING_TPU_DEVICE_BANK_MB", "1024"))
+              * 1e6)
+    nbytes = dev.numel() * dev.element_size()
+    if _dev_rows_bytes + nbytes > cap:
+        return
+    _dev_rows[fname] = dev
+    _dev_rows_bytes += nbytes
+
+
+def device_rows_get(fname: str):
+    return _dev_rows.get(fname)
+
+
+def device_rows_clear() -> None:
+    global _dev_rows_bytes
+    _dev_rows.clear()
+    _dev_rows_bytes = 0
+
+
+def sketch_file_hll_multik(path: str, params_list: Sequence[SketchParams],
+                           p: int, device: torch.device,
+                           keep_device: bool = False):
+    """Sketch one path at several k from one parse and one upload a chunk
+    (mkdist): tiles are cut with the largest halo, each chunk is packed
+    and uploaded once (and its ASCII form once, for parameters off the
+    packed route), then K1 runs once per k on that upload into that k's
+    registers.  The wider halo repeats a few windows at the row seams for
+    the smaller k, which the register max absorbs, so this is exact for
+    HLL only.  Returns uint8 registers in params_list order, bitwise those
+    of sketch_file_hll per k; with keep_device, (those, the int8 device
+    rows) for device_rows_put."""
+    device = devmod.resolve(device)
+    sps = [check_supported(pa) for pa in params_list]
+    sp_big = max(sps, key=lambda sp: sp.halo)
+    regs = [torch.zeros(1 << p, dtype=torch.int32, device=device)
+            for _ in params_list]
+    routes = [packed_ok(pa, sp, p) for pa, sp in zip(params_list, sps)]
+    for tile in _file_tiles(path, sp_big):
+        dev_packed = dev_ascii = None
+        for r, pa, sp, packed_route in zip(regs, params_list, sps, routes):
+            with metrics.accum("sketch.dispatch", items=tile.nbytes):
+                if packed_route:
+                    if dev_packed is None:
+                        dev_packed = _upload(*_pack_tile_host(tile),
+                                             device=device)
+                    packed_to_registers(*dev_packed, r, k=sp.k, p=p,
+                                        canon=pa.canon)
+                else:
+                    if dev_ascii is None:
+                        dev_ascii = _upload(tile, device=device)[0]
+                    tile_to_registers(dev_ascii, r, **_encode_kw(pa, sp),
+                                      p=p)
+    host = [registers_to_numpy(r) for r in regs]
+    if keep_device:
+        # ranks are at most 65 - p, so the clamp changes no valid register
+        return host, [r.clamp(max=127).to(torch.int8) for r in regs]
+    return host
 
 
 # ---------------------------------------------------------------------------
@@ -497,3 +707,117 @@ def file_raw_kmers(path: str, params: SketchParams,
     """The encoded k-mers themselves, unhashed (JAX `file_raw_kmers`)."""
     return file_kmer_hashes(path, dataclasses.replace(params, rehash=False),
                             device)
+
+
+# ---------------------------------------------------------------------------
+# Per-record sketching (JAX pipeline.py:1283-1480): one sketch a sequence
+# record, a batch of records a launch, each record's row into its own
+# register bank.
+# ---------------------------------------------------------------------------
+
+MAX_RECORD_WIDTH = 65536
+# the register bank of one record batch at most (a batch of 2048 records
+# would pin 8 GiB at p = 20)
+_RECORD_BANK_BYTES = 256 << 20
+
+
+def _record_batches(seqs: Sequence[bytes], halo: int, batch: int):
+    """Group records into batches by length.  Yields (take, tiles): `take`
+    indexes seqs; `tiles` is a (len(take), width) N-padded uint8 array,
+    width = the longest record + halo (at least 128), or None for the
+    records whose width would pass MAX_RECORD_WIDTH (callers sketch each
+    alone).  Sorting by length keeps the padding small.  (The JAX package
+    pads rows and width to powers of two for its jit variants, and sends
+    a whole batch alone when one record is too wide; the registers are the
+    same either way.)"""
+    lens = np.fromiter((len(s) for s in seqs), np.int64, len(seqs))
+    order = np.argsort(lens, kind="stable")
+    fit = int(np.searchsorted(lens[order] + halo, MAX_RECORD_WIDTH,
+                              side="right"))
+    for pos in range(0, fit, batch):
+        take = order[pos:pos + batch]
+        width = max(int(lens[take[-1]]) + halo, halo + 1, 128)
+        tiles = np.full((len(take), width), ord("N"), np.uint8)
+        for row, i in enumerate(take):
+            tiles[row, :lens[i]] = np.frombuffer(seqs[i], np.uint8)
+        yield take, tiles
+    if fit < len(seqs):
+        yield order[fit:], None
+
+
+def sketch_records_hll(seqs: Sequence[bytes], params: SketchParams, p: int,
+                       device: torch.device, batch: int = 2048) -> np.ndarray:
+    """Per-record HLL registers -> (n, 2^p) uint8.  A batch of records is
+    one ASCII upload and one banked K2 launch (the exact contiguous
+    k-mers), or the PyTorch encoders and a banked scatter-max; a record
+    wider than MAX_RECORD_WIDTH takes sketch_file_seq."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    kw = _encode_kw(params, sp)
+    fused = packed_ok(params, sp, p)
+    batch = max(1, min(batch, _RECORD_BANK_BYTES // (4 << p)))
+    out = np.zeros((len(seqs), 1 << p), np.uint8)
+    for take, tiles in _record_batches(seqs, sp.halo, batch):
+        if tiles is None:
+            for i in take:
+                out[i] = sketch_file_seq(seqs[i], params, p, device)
+            continue
+        regs = torch.zeros((len(take), 1 << p), dtype=torch.int32,
+                           device=device)
+        with metrics.accum("sketch.dispatch", items=tiles.nbytes):
+            tile, = _upload(tiles, device=device)
+            bank = torch.arange(len(take), dtype=torch.int32, device=device)
+            if fused:
+                ascii_to_banks(tile, bank, regs, k=sp.k, p=p,
+                               canon=params.canon)
+            else:
+                tile_to_banks(tile, bank, regs, **kw, p=p)
+        out[take] = registers_to_numpy(regs)
+    return out
+
+
+def records_kmer_hashes(seqs: Sequence[bytes], params: SketchParams,
+                        device: torch.device, batch: int = 512
+                        ) -> List[np.ndarray]:
+    """Each record's window values (hashed, or the raw k-mers when not
+    `params.rehash`) as host uint64, a batch of records a device pass
+    (the per-record count filter of sketch_by_seq)."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    kw = _encode_kw(params, sp)
+    out: List = [None] * len(seqs)
+    for take, tiles in _record_batches(seqs, sp.halo, batch):
+        if tiles is None:
+            for i in take:
+                out[i] = seq_kmer_hashes(seqs[i], params, device)
+            continue
+        h, valid = _hashed_tile(tiles, kw, device)
+        hv = h.cpu().numpy().view(np.uint64)
+        vv = valid.cpu().numpy()
+        for slot, i in enumerate(take):
+            out[i] = hv[slot][vv[slot]]
+    return out
+
+
+def seq_kmer_hashes(seq: bytes, params: SketchParams,
+                    device: torch.device) -> np.ndarray:
+    """Every window value of ONE long sequence, host uint64 (its tiles
+    unpadded, as the JAX package cuts them: a minimizer window over pad
+    columns would add values)."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    kw = _encode_kw(params, sp)
+    tiles = _row_chunks(tile_sequence(np.frombuffer(seq, np.uint8), CONTENT,
+                                      sp.halo))
+    outs = [h[v].cpu().numpy().view(np.uint64) for h, v in
+            (_hashed_tile(t, kw, device) for t in tiles)]
+    return np.concatenate(outs) if outs else np.zeros(0, np.uint64)
+
+
+def sketch_file_seq(seq: bytes, params: SketchParams, p: int,
+                    device: torch.device) -> np.ndarray:
+    """One long sequence -> 2^p uint8 registers, tile by tile."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    tiles = _joined_tiles(np.frombuffer(seq, np.uint8), sp.halo)
+    return registers_to_numpy(sketch_chunk_stream(tiles, params, p, device))

@@ -16,6 +16,7 @@ from typing import IO, Optional, Union
 import numpy as np
 import torch
 
+from ..hashes import clz64_np, wang_hash_np
 from ..ops.union_mle import estimate_rows
 from . import estimators as est
 
@@ -68,6 +69,20 @@ class HLL:
 
     def clear(self):
         self.regs[:] = 0
+        self._card = None
+
+    def addh_np(self, values: np.ndarray):
+        """WangHash raw 64-bit values and insert them (host)."""
+        self.add_np(wang_hash_np(values))
+
+    def add_np(self, hashes: np.ndarray):
+        """Insert 64-bit hashes (host): bucket = the top p bits, rank =
+        the leading zeros of the rest (a guard bit planted) plus one."""
+        hashes = np.asarray(hashes, np.uint64)
+        idx = (hashes >> np.uint64(64 - self.p)).astype(np.int64)
+        rest = (hashes << np.uint64(self.p)) | np.uint64(1 << (self.p - 1))
+        rank = clz64_np(rest) + 1
+        np.maximum.at(self.regs, idx, rank.astype(np.uint8))
         self._card = None
 
     def _check_same_p(self, other: "HLL"):

@@ -10,7 +10,9 @@ registers at 0 and at q+1, windows reaching
 q+1, empty histograms and sketches, the widest joint window, both forms
 of K4 bitwise at p = 4 to 18 and 1 to 1000 rows; K3 and K5 bitwise at
 every window width, on ragged blocks, single pairs and row-offset
-views).  Marked `cuda`: they skip without a card.  Run them on one:
+views; both banked forms at one and 64 banks, bank indices in no order
+or out of range, rows across segment edges, p = 10, 14 and 21, and more
+rows than one grid dimension).  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -241,6 +243,59 @@ def test_ascii_regs_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     assert torch.equal(got, want)
     del got, want
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("form", ["packed", "ascii"])
+@pytest.mark.parametrize("B,p,rows,C,k", [
+    (1, 14, 25, 8224, 21),         # one bank: a 200 kbp genome's chunk
+    (64, 14, 1600, 8224, 21),      # 64 banks of 25 rows: the 1k-genome batch
+    (7, 10, 30, 16400, 31),        # each row across a segment edge
+    (8, 21, 16, 4104, 17),         # p = 21, the last p that batches
+    (5, 10, 70000, 40, 12),        # more rows than one grid dimension
+])
+def test_banked_kernels_match_plain(rng, cuda, form, B, p, rows, C, k):
+    """Both banked forms bitwise equal to their plain versions, with bank
+    indices in no order and two rows outside [0, B) that fold nothing, and
+    each bank equal to its rows folded alone by the single-bank entry."""
+    bank = rng.permutation(np.arange(rows) % B).astype(np.int32)
+    if rows > 2:
+        bank[[1, rows - 2]] = [-3, B]
+    bk = torch.from_numpy(bank).to(cuda)
+    got = torch.zeros((B, 1 << p), dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    t = _ascii(rng, rows, C, cuda)
+    if form == "packed":
+        pk, vb = (torch.from_numpy(a).to(cuda)
+                  for a in pipeline._pack_tile_host(t.cpu().numpy()))
+        before = eh.banks_launches
+        eh.packed_to_banks(pk, vb, bk, got, k=k, p=p)
+        assert eh.banks_launches == before + 1
+        eh.packed_to_banks_plain(pk, vb, bk, want, k=k, p=p, canon=True)
+    else:
+        before = eh.ascii_banks_launches
+        eh.ascii_to_banks(t, bk, got, k=k, p=p)
+        assert eh.ascii_banks_launches == before + 1
+        eh.ascii_to_banks_plain(t, bk, want, k=k, p=p, canon=True)
+    torch.cuda.synchronize()
+    assert int((want > 0).sum(dim=1).min()) > 0
+    assert torch.equal(got, want)
+    one = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+    for j in range(B):
+        rows_j = torch.from_numpy(np.flatnonzero(bank == j)).to(cuda)
+        one.zero_()
+        eh.ascii_to_registers(t[rows_j], one, k=k, p=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got[j], one), j
+    del got, want, one
+    torch.cuda.empty_cache()
+
+
+def test_banked_kernels_reject_mixed_devices(cuda):
+    t = torch.zeros((2, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        eh.ascii_to_banks(t, torch.zeros(2, dtype=torch.int32),
+                          torch.zeros((2, 16), dtype=torch.int32,
+                                      device=cuda), k=3, p=4)
 
 
 def test_ascii_kernel_rejects_mixed_devices(cuda):

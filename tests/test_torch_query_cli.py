@@ -159,10 +159,14 @@ def test_asymmetric_without_queries_matches_jax_cli(genomes, tmp_path,
     """No -Q: the note, then every reference as a query through the
     aliased half, each file sketched once; an (n, n) rect whose diagonal
     is each sketch against itself; .labels names twice."""
-    calls = []
+    calls = []              # files sketched, one by one or a batch a call
     real = pipeline.sketch_hll_async
     monkeypatch.setattr(pipeline, "sketch_hll_async",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    batched = pipeline.sketch_small_batch_async
+    monkeypatch.setattr(pipeline, "sketch_small_batch_async",
+                        lambda chunks, *a, **kw: calls.extend([1] * len(chunks))
+                        or batched(chunks, *a, **kw))
     args = ["dist", "-k", str(K), "-S", str(S), flag, "-b"] + genomes[:5]
     capfd.readouterr()
     out = _run_both(tmp_path, args, binary=True)

@@ -413,9 +413,25 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
     ["--use-range-minhash"], ["-N", "--cache-sketches"],
     ["--wj-exact"], ["--use-bb-minhash"], ["-8"],
 ])
-def test_out_of_slice_flags_refused(genomes, cpu_env, extra):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain.main(["dist", "-k", str(K)] + extra + genomes[:2])
+def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
+                                    extra):
+    """Flags outside the slice stop with "not yet ported".  The sketch
+    cache flags (-W, --cache-sketches), refused before the sketch engine
+    was ported, now run: the same matrix as without them, and a cache file
+    beside each input (under -P)."""
+    if extra[-1] not in ("-W", "--cache-sketches"):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tmain.main(["dist", "-k", str(K)] + extra + genomes[:2])
+        return
+    monkeypatch.chdir(tmp_path)
+    base = ["dist", "-k", str(K), "-S", str(S), "-M", "-b", "-P", "c"]
+    os.mkdir("c")
+    assert tmain.main(base + ["-O", "plain.bin"] + genomes[:2]) == 0
+    assert not os.listdir("c")
+    for run in ("first.bin", "second.bin"):     # writes, then loads
+        assert tmain.main(base + extra + ["-O", run] + genomes[:2]) == 0
+        assert open(run, "rb").read() == open("plain.bin", "rb").read()
+        assert len(os.listdir("c")) == 2
 
 
 @pytest.fixture(scope="module")
@@ -491,7 +507,6 @@ def test_sketch_count_min_parameters(genomes, fastq, tmp_path, cpu_env):
 
 
 def test_out_of_slice_subcommands_refused(cpu_env):
-    for cmd in ("mkdist", "readfilt", "panel", "sketch_by_seq", "sbs",
-                "dist_by_seq", "cmp_by_seq"):
+    for cmd in ("readfilt",):
         with pytest.raises(SystemExit, match="not yet ported"):
             tmain.main([cmd, "x"])
