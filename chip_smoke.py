@@ -1101,17 +1101,20 @@ def check_cum_union(a, b, kmin, kmax, same, what, records, reps=5):
            nbytes, macs, B1_MACS["rate"], lib_ms)
 
 
-def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
+def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5,
+             c_u=None):
     """K5 vs its plain version on the K-first statistics `st` restricted to
-    row slice `rows`: bit for bit (max abs err 0, non-finite entries
-    alike), and within the old bars (rtol=K3_RTOL atol=K3_ATOL on
-    triples, JI_ATOL on Jaccard) as well.  Returns the kernel's
-    triples."""
+    row slice `rows` (given the union seeds `c_u` if any): bit for bit
+    (max abs err 0, non-finite entries alike), and within the old bars
+    (rtol=K3_RTOL atol=K3_ATOL on triples, JI_ATOL on Jaccard) as well.
+    Returns the kernel's triples."""
     import torch
     from dashing_tpu_torch.ops import joint_mle as jm
     from dashing_tpu_torch.sketch import estimators as est
     args = [st[key][:, rows].contiguous() for key in ("eq", "gt_a", "gt_b")]
     args += [ha[:, rows].contiguous(), hb, c_a[rows].contiguous(), c_b]
+    if c_u is not None:
+        args.append(c_u[rows].contiguous())
     K, na, nb = args[0].shape
     got = jm.joint_triples(*args, p=p, kmin=kmin)
     want = jm.joint_triples_plain(*args, p=p, kmin=kmin)
@@ -1144,11 +1147,14 @@ def check_k5(st, rows, ha, hb, c_a, c_b, p, kmin, what, records, reps=5):
         f"{K3_RTOL} atol={K3_ATOL}, Jaccard {JI_ATOL}: max err "
         f"{ji_err:.3g}); kernel {ms:.4f} ms ({na * nb / ms / 1e3:.1f} M "
         f"pairs/s), plain {plain_ms:.4f} ms")
-    # bytes: three (K, na, nb) stacks, the marginals and cardinalities in,
-    # (3, na, nb) out; operations: k5_ops at the float32 rate
+    # bytes: three (K, na, nb) stacks, the marginals and cardinalities
+    # (and the seeds) in, (3, na, nb) out; operations: k5_ops at the
+    # float32 rate
+    seeds = 0 if c_u is None else na * nb
     record(records, f"joint_triples {what} ({na}x{nb} p={p} K={K})", K5_SRC,
            K5_REPLACES, "joint_triples", max_err, ms, plain_ms,
-           4 * (3 * K * na * nb + K * (na + nb) + na + nb + 3 * na * nb),
+           4 * (3 * K * na * nb + K * (na + nb) + na + nb + seeds
+                + 3 * na * nb),
            k5_ops(na * nb, K, iters, eq_levels), FP32_OPS)
     return got
 
@@ -2287,8 +2293,521 @@ def phase_e2e_fastq(dev):
         _step(f"20,000 reads filtered at 2^{FQ_CM_LOG2} x 4 counters in "
               f"process, registers bitwise equal to the CPU run "
               f"({time.perf_counter() - t:.1f}s on the CPU)", wall, 20_000)
+        _e2e_weighted(dev, quarters)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# readfilt: kernel phase `sparse` and e2e (l); weighted Jaccard: e2e (m)
+# ---------------------------------------------------------------------------
+
+RF_PAIRS = 500_000          # e2e (l): 1,000,000 reads in two FASTQ files
+RF_LEN = 150                # bases a mate
+RF_INSERT = 400             # fragment: mate 2 is its end, reverse-complemented
+RF_K, RF_P = 21, 16         # readfilt -k, the reference's sketch -S
+RF_CHECK_BATCHES = 2        # readfilt batches of e2e (l) held against the CPU
+# of those pairs (16,384), card against CPU, at most: pairs further apart
+# than 1e-3 in CI where both devices took the same keep-or-restart branch
+# (189 on these pairs on an H100; 246 of the first 20,000 in batches of
+# 4,096), and pairs kept on one device only with CI further than 1e-3
+# from the cut (7 on these pairs)
+RF_NONFLIP_FAR_MAX = 300
+RF_KEPT_DIFFER_MAX = 16
+RF_WIDE = 20                # FASTA records of 70-150 kbp (ertl_joint each)
+RF_BATCHES = (1024, 4096, 8192)     # records a batch, timed in turns
+# foreign pairs kept at most: on the CPU the port keeps 0.105 of such
+# pairs, the JAX package 0.11 (tests/test_torch_readfilt.py::
+# test_readfilt_5mbp_witness)
+RF_FOREIGN_MAX = 0.2
+LUT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def fq_genome() -> np.ndarray:
+    """e2e (f)'s 5 Mbp genome: the first draw of write_reads from its
+    seed."""
+    return np.random.default_rng(SEED + 3).integers(0, 4, FQ_GENOME).astype(
+        np.uint8)
+
+
+def foreign_genome() -> np.ndarray:
+    return np.random.default_rng(SEED + 8).integers(0, 4, FQ_GENOME).astype(
+        np.uint8)
+
+
+def read_pairs(rng, genome, foreign, b0: int, n: int):
+    """Pairs b0..b0+n of RF_LEN-base mates from RF_INSERT-base fragments:
+    even pairs from `genome`, odd ones from `foreign`, FQ_ERR
+    substitutions a base; mate 2 is the fragment's end reverse-
+    complemented.  Returns (mate 1, mate 2) codes, (n, RF_LEN) uint8."""
+    mates = np.empty((2, n, RF_LEN), np.uint8)
+    src = (b0 + np.arange(n)) % 2
+    starts = rng.integers(0, FQ_GENOME - RF_INSERT, n)
+    ar = np.arange(RF_LEN)
+    for s, g in ((0, genome), (1, foreign)):
+        st = starts[src == s][:, None]
+        mates[0, src == s] = g[st + ar]
+        mates[1, src == s] = 3 - g[st + RF_INSERT - 1 - ar]
+    flat = mates.reshape(-1)
+    hit = rng.integers(0, flat.size, rng.binomial(flat.size, FQ_ERR))
+    flat[hit] = (flat[hit] + rng.integers(1, 4, hit.size)) & 3
+    return mates[0], mates[1]
+
+
+def pair_seqs(m1, m2):
+    """The engine's records: mates joined by N x (k - 1), as readfilt
+    joins them."""
+    sep = b"N" * (RF_K - 1)
+    return [LUT[a].tobytes() + sep + LUT[b].tobytes() for a, b in zip(m1, m2)]
+
+
+def write_pairs(paths, rng, genome, foreign, n, keep, batch=100_000):
+    """Two FASTQ files of n pairs (`@R<7 digits>/1` for a pair from the
+    genome, `@F...` from the foreign one), array by array.  Returns the
+    first `keep` pairs' codes."""
+    width = 1 + 8 + 2 + 1 + RF_LEN + 3 + RF_LEN + 1
+    kept = None
+    fps = [open(p, "wb") for p in paths]
+    try:
+        for b0 in range(0, n, batch):
+            nb = min(batch, n - b0)
+            mates = read_pairs(rng, genome, foreign, b0, nb)
+            if kept is None:
+                kept = tuple(m[:keep].copy() for m in mates)
+            ids = np.arange(b0, b0 + nb)
+            for mate, (codes, fp) in enumerate(zip(mates, fps)):
+                rec = np.empty((nb, width), np.uint8)
+                rec[:, 0] = ord("@")
+                rec[:, 1] = np.where(ids % 2 == 0, ord("R"), ord("F"))
+                for d in range(7):
+                    rec[:, 8 - d] = ord("0") + (ids // 10 ** d) % 10
+                rec[:, 9:12] = np.frombuffer(b"/%d\n" % (mate + 1), np.uint8)
+                rec[:, 12:12 + RF_LEN] = LUT[codes]
+                tail = 12 + RF_LEN
+                rec[:, tail:tail + 3] = np.frombuffer(b"\n+\n", np.uint8)
+                rec[:, tail + 3:tail + 3 + RF_LEN] = ord("I")
+                rec[:, -1] = ord("\n")
+                fp.write(rec.tobytes())
+    finally:
+        for fp in fps:
+            fp.close()
+    return kept
+
+
+def reference_registers(dev, genome):
+    """The genome sketched at k=RF_K, p=RF_P in process (what `sketch -k
+    21 -S 16` of its FASTA writes): uint8 registers."""
+    from dashing_tpu_torch import pipeline
+    return pipeline.sketch_joined_hll(LUT[genome], pipeline.SketchParams(
+        k=RF_K), RF_P, dev)
+
+
+def phase_sparse(dev, records, genome):
+    """Kernel phase `sparse`: one readfilt batch (READFILT_BATCH pairs of
+    2 x RF_LEN bases, half of them from a foreign genome) against the
+    genome sketched at p = 16, at the shapes the engine gives its
+    kernels: K2's keys bitwise equal to the plain version; the sparse
+    statistics on the card bitwise equal to the same code on the CPU; the
+    row-estimate kernel's direct form on hist_a and hist_u within
+    rtol=EST_RTOL; K5 given c_u, (kb, READFILT_BATCH, 1), and without
+    c_u, bit for bit; K4's joint form on one 100 kbp record against the
+    reference (ertl_joint's 1 x 1 tile over [0, q+1]) bitwise.  Their
+    records count launches from e2e (l)."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch import sparse
+    t0 = time.perf_counter()
+    n0 = len(records)
+    p, k, q = RF_P, RF_K, 64 - RF_P
+    regs = reference_registers(dev, genome)
+    rng = np.random.default_rng(SEED + 7)
+    B = pipeline.READFILT_BATCH
+    seqs = pair_seqs(*read_pairs(rng, genome, foreign_genome(), 0, B))
+    (_, tiles), = list(pipeline._record_batches(seqs, k - 1, B))
+    t = torch.from_numpy(tiles).to(dev)
+    R, C = tiles.shape
+    log(f"[sparse] reference: {FQ_GENOME} bases at k={k} p={p} "
+        f"({int((regs > 0).sum())} registers set); batch {R} pairs as a "
+        f"({R}, {C}) tile ({time.perf_counter() - t0:.1f}s)")
+    keys = eh.encode_hash_keys(t, k=k, p=p)
+    if not torch.equal(keys, eh.encode_hash_keys_plain(t, k=k, p=p)):
+        fail("K2 keys (readfilt batch): differ from the plain version")
+    ms, paced = kernel_alone_ms(lambda i: eh.encode_hash_keys(t, k=k, p=p),
+                                lambda: None, "K2 keys readfilt")
+    plain_ms = cuda_ms(lambda: eh.encode_hash_keys_plain(t, k=k, p=p), 3)
+    W = R * (C - k + 1)
+    _enc_log("K2 keys readfilt", k, p, R, C, tiles.nbytes + 4 * W,
+             enc_ops(R, C, k, W, True), ms, paced, plain_ms, eh)
+    record(records, f"encode_hash_keys readfilt batch ({R}x{C} k={k} p={p})",
+           K1_SRC, K2_REPLACES, "encode_hash_keys", 0.0, ms, plain_ms,
+           tiles.nbytes + 4 * W, enc_ops(R, C, k, W, True), INT32_OPS)
+    idx, rank = keys >> 6, keys & 63
+    kb = sparse.level_window_bins(max(int(rank.max()), int(regs.max())), q)
+    regs_d = torch.from_numpy(regs.astype(np.int32)).to(dev)
+    hist_d = torch.from_numpy(np.bincount(regs, minlength=q + 2).astype(
+        np.float32)).to(dev)[:kb].contiguous()
+    st = sparse.stats_kfirst(idx, rank, regs_d, hist_d, p, kb)
+    cpu = torch.device("cpu")
+    st_cpu = sparse.stats_kfirst(idx.to(cpu), rank.to(cpu), regs_d.to(cpu),
+                                 hist_d.to(cpu), p, kb)
+    for key, v in st.items():
+        if not torch.equal(v.cpu(), st_cpu[key]):
+            fail(f"sparse statistics {key}: the card differs from the CPU")
+    st_ms = cuda_ms(lambda: sparse.stats_kfirst(idx, rank, regs_d, hist_d, p,
+                                                kb), 10)
+    t1 = time.perf_counter()
+    sparse.stats_kfirst(idx.to(cpu), rank.to(cpu), regs_d.to(cpu),
+                        hist_d.to(cpu), p, kb)
+    log(f"[sparse] statistics ({R} pairs x {keys.shape[1]} windows, window "
+        f"kb={kb}): bitwise equal to the CPU run; PyTorch ops on the card "
+        f"{st_ms:.4f} ms (sort, run ends, gather, 7 scatter_add_), on the "
+        f"CPU {(time.perf_counter() - t1) * 1e3:.1f} ms")
+    shape = f"{R} rows p={p} K={kb}"
+    c_a = _check_estimates(st["hist_a"].T.contiguous(), p, 0, est.ERTL_MLE,
+                           est.WINDOW_MLE_ITERS, "readfilt hist_a", shape,
+                           records)
+    c_u = _check_estimates(st["hist_u"].T.contiguous(), p, 0, est.ERTL_MLE,
+                           est.WINDOW_MLE_ITERS, "readfilt hist_u", shape,
+                           records)
+    c_b = um.estimate_rows(hist_d[None], p=p, kmin=0, method=est.ERTL_MLE)
+    kst = {key: st[key][:, :, None] for key in ("eq", "gt_a", "gt_b")}
+    hb = hist_d[:, None].contiguous()
+    tri = check_k5(kst, slice(None), st["hist_a"], hb, c_a, c_b, p, 0,
+                   "readfilt batch with c_u", records, c_u=c_u[:, None])
+    args = [kst[key] for key in ("eq", "gt_a", "gt_b")]
+    args += [st["hist_a"], hb, c_a, c_b]
+    got = jm.joint_triples(*args, p=p, kmin=0)
+    if not torch.equal(got, jm.joint_triples_plain(*args, p=p, kmin=0)):
+        fail("K5 without c_u (readfilt batch): not bit for bit its plain "
+             "version")
+    ci = (tri[2] / (tri[0] + tri[2]).clamp(min=1e-30))[:, 0].cpu().numpy()
+    log(f"[sparse] K5 without c_u on the same statistics: bit for bit; kept "
+        f"at CI >= 0.5: {(ci[0::2] >= 0.5).mean():.3f} of the genome's "
+        f"pairs, {(ci[1::2] >= 0.5).mean():.3f} of the foreign ones")
+    # ertl_joint's statistics: one record of 100 kbp against the reference
+    rec = torch.zeros((1, 1 << p), dtype=torch.int32, device=dev)
+    one = torch.from_numpy(LUT[genome[:100_000]][None].copy()).to(dev)
+    eh.ascii_to_registers(one, rec[0], k=k, p=p)
+    check_k4(rec.to(torch.int8), regs_d.to(torch.int8)[None], 0, q + 1,
+             False, "1x1 ertl_joint", records)
+    for r in records[n0:]:
+        r["counter"] = "readfilt " + r["counter"]
+
+
+def _rf_starts(seqs, regs_d, hist_d, dev):
+    """Per pair, the start of the joint MLE (its inclusion-exclusion
+    point from the three direct-MLE cardinalities) as the engine computes
+    it on `dev`: the engine's batches (all of one length, so in order)."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch import estimators as est
+    from dashing_tpu_torch.sketch import sparse
+    p, q = RF_P, 64 - RF_P
+    ref_max = int(regs_d.max())
+    out = []
+    for _, tiles in pipeline._record_batches(seqs, RF_K - 1,
+                                             pipeline.READFILT_BATCH):
+        keys = eh.encode_hash_keys(torch.from_numpy(tiles).to(dev), k=RF_K,
+                                   p=p)
+        idx, rank = keys >> 6, keys & 63
+        kb = sparse.level_window_bins(max(int(rank.max()), ref_max), q)
+        hist = hist_d[:kb].contiguous()
+        st = sparse.stats_kfirst(idx, rank, regs_d, hist, p, kb)
+        mle = lambda h: um.estimate_rows(h.contiguous(), p=p, kmin=0,  # noqa
+                                         method=est.ERTL_MLE)
+        start = jm.joint_triples_plain(
+            st["eq"][:, :, None], st["gt_a"][:, :, None],
+            st["gt_b"][:, :, None], st["hist_a"], hist[:, None],
+            mle(st["hist_a"].T), mle(hist[None]), mle(st["hist_u"].T)[:, None],
+            p=p, kmin=0, iters=0)
+        out.append(start[:, :, 0].T.cpu().numpy())
+    return np.concatenate(out).astype(np.float64)
+
+
+def _ci(t):
+    d = t[:, 0] + t[:, 2]
+    return np.where(d > 0, t[:, 2] / np.maximum(d, 1e-300), 0.0)
+
+
+def phase_e2e_readfilt(dev, counts, genome):
+    """e2e (l): `readfilt -k 21 -s ref.hll -f 0.5 r1.fq r2.fq -o out.fq` of
+    RF_PAIRS pairs of 2 x RF_LEN bases (half from the genome at FQ_ERR
+    substitutions, half from a foreign 5 Mbp genome) against the genome's
+    `sketch -k 21 -S 16`: reads/s, the metrics buckets, the kept share of
+    each half; K2's keys form, the row-estimate kernel and K5 must
+    launch.  The first RF_CHECK_BATCHES batches on the card against the
+    CPU run of the same code; RF_WIDE FASTA records of 70-150 kbp cut from
+    the genome, each through ertl_joint (K4's joint form on a 1 x 1 tile, K5
+    given c_u), each contained at CI >= 0.95; records a batch timed in
+    turns."""
+    import torch
+    from dashing_tpu_torch import metrics, pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    tmp = tempfile.mkdtemp(prefix="dtt_readfilt_")
+    try:
+        t0 = time.perf_counter()
+        ref_fa = os.path.join(tmp, "ref.fa")
+        with open(ref_fa, "wb") as fp:
+            fp.write(b">ref\n" + LUT[genome].tobytes() + b"\n")
+        wall = _timed(["sketch", "-k", str(RF_K), "-S", str(RF_P), "-P",
+                       tmp + "/", ref_fa], "e2e (l) sketch of the reference")
+        ref_hll = os.path.join(tmp, f"ref.fa.w.{RF_K}.spacing.{RF_P}.hll")
+        rng = np.random.default_rng(SEED + 9)
+        r1, r2 = (os.path.join(tmp, f"r{m}.fq") for m in (1, 2))
+        m1, m2 = write_pairs((r1, r2), rng, genome, foreign_genome(),
+                             RF_PAIRS, 100_000)
+        size = os.path.getsize(r1) + os.path.getsize(r2)
+        log(f"[e2e l] reference sketched in {wall:.3f}s; {2 * RF_PAIRS:,} "
+            f"reads ({RF_PAIRS:,} pairs of 2 x {RF_LEN}, {size / 1e6:.1f} MB "
+            f"of FASTQ) written ({time.perf_counter() - t0:.1f}s)")
+        from dashing_tpu_torch.sketch.hll import HLL
+        ref = HLL.read(ref_hll)
+        regs_d = torch.from_numpy(ref.regs.astype(np.int32)).to(dev)
+        hist_d = torch.from_numpy(ref.histogram()).to(dev)
+        params = pipeline.SketchParams(k=RF_K)
+
+        # 1. records a batch, in turns, on 100,000 pairs in process
+        seqs = pair_seqs(m1, m2)
+        walls = {b: [] for b in RF_BATCHES}
+        for b in RF_BATCHES + RF_BATCHES[::-1]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pipeline.records_joint_triples(seqs, params, regs_d, hist_d, RF_P,
+                                           dev, batch=b)
+            walls[b].append(time.perf_counter() - t)
+        log(f"[e2e l] records_joint_triples of {len(seqs):,} pairs by batch "
+            "size (in turns): " + "; ".join(
+                f"{b}: " + " ".join(f"{w:.3f}s" for w in ws)
+                for b, ws in walls.items()) + f"; the engine's batch "
+            f"{pipeline.READFILT_BATCH}")
+
+        # 2. the CLI over the whole read set, buckets on
+        out = os.path.join(tmp, "out.fq")
+        metrics._ENABLED = True
+        metrics._totals.clear()
+        eh.keys_launches = um.estimate_launches = jm.launches = 0
+        js.launches = 0
+        try:
+            wall = _timed(["readfilt", "-k", str(RF_K), "-s", ref_hll, "-f",
+                           "0.5", "-o", out, r1, r2], "e2e (l) readfilt")
+            buckets = dict(metrics._totals)
+        finally:
+            metrics._ENABLED = False
+            metrics._totals.clear()
+            metrics._counts.clear()
+        counts["readfilt encode_hash_keys"] = eh.keys_launches
+        counts["readfilt estimate_rows"] = um.estimate_launches
+        counts["readfilt joint_triples"] = jm.launches
+        if 0 in (eh.keys_launches, um.estimate_launches, jm.launches):
+            fail(f"e2e (l): readfilt launched K2 keys {eh.keys_launches}, "
+                 f"row estimates {um.estimate_launches}, K5 {jm.launches}")
+        if js.launches:
+            fail("e2e (l): a read took the dense ertl_joint path")
+        kept = {"R": 0, "F": 0}
+        cis = {}
+        with open(out) as fp:
+            for line in fp:
+                if line.startswith("@") and "/1 |CI:" in line:
+                    kept[line[1]] += 1
+                    cis[int(line[2:9])] = float(line.split("|CI:")[1]
+                                                .split("|")[0])
+        share = {s: kept[s] / (RF_PAIRS // 2) for s in kept}
+        log(f"[e2e l] readfilt -k {RF_K} -f 0.5 of {2 * RF_PAIRS:,} reads: "
+            f"wall {wall:.3f}s, {2 * RF_PAIRS / wall:,.0f} reads/s; kept "
+            f"{share['R']:.4f} of the genome's pairs, {share['F']:.4f} of the "
+            f"foreign ones; launches K2 keys {eh.keys_launches}, row "
+            f"estimates {um.estimate_launches}, K5 {jm.launches}; buckets "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in sorted(buckets.items())))
+        if share["R"] < 0.8 or share["F"] > RF_FOREIGN_MAX:
+            fail(f"e2e (l): kept {share['R']} of the genome's pairs (at "
+                 f"least 0.8), {share['F']} of the foreign ones (at most "
+                 f"{RF_FOREIGN_MAX})")
+
+        # 3. the first pairs on the card against the CPU: whole CLI
+        # batches, so that the CLI's windows are the engine's
+        n_check = RF_CHECK_BATCHES * pipeline.READFILT_BATCH
+        seqs = seqs[:n_check]
+        cpu = torch.device("cpu")
+        tri = {}
+        devs = {"card": dev, "cpu": cpu}
+        for name, d in devs.items():
+            t = time.perf_counter()
+            tri[name] = pipeline.records_joint_triples(
+                seqs, params, regs_d.to(d), hist_d.to(d), RF_P, d)
+            log(f"[e2e l] {n_check} pairs on the {name}: "
+                f"{time.perf_counter() - t:.2f}s")
+        if not np.isfinite(tri["card"]).all():
+            fail("e2e (l): a triple on the card is not finite")
+        ci_g, ci_c = _ci(tri["card"]), _ci(tri["cpu"])
+        cli = np.array([cis.get(i, -1.0) for i in range(n_check)])
+        emitted = cli >= 0
+        if not (np.abs(cli[emitted] - ci_g[emitted]) <= 5e-7).all() or \
+                not (emitted == (ci_g >= 0.5)).all():
+            fail("e2e (l): the CLI's output differs from the engine's "
+                 "triples on the card")
+        # K5 and the sparse statistics equal their plain versions on the
+        # card bit for bit (phase `sparse`); the CPU's plain version runs
+        # the CPU's exp, log and expm1, and the row estimates part at
+        # rtol ~1e-6.  A read's 8 Newton steps against a 5 Mbp reference
+        # do not converge (its start, c_u - c_b of two estimates near
+        # 5e6, moves by units with them), and its float32 likelihood
+        # guard ties, so last-bit differences move some reads' CI far
+        # (the JAX package parts from the port alike on the CPU:
+        # tests/test_torch_readfilt.py::test_readfilt_5mbp_witness).
+        # Held by count: the pairs further than 1e-3 that took the same
+        # branch on both devices, and the kept sets outside 1e-3 of the
+        # cut
+        err = np.abs(ci_g - ci_c)
+        far = err > 1e-3
+        at_start = {name: (tri[name] == _rf_starts(
+            seqs, regs_d.to(d), hist_d.to(d), d)).all(1)
+            for name, d in devs.items()}
+        flip = at_start["card"] ^ at_start["cpu"]
+        near = np.abs(ci_c - 0.5) < 1e-3
+        differ = (ci_g >= 0.5) != (ci_c >= 0.5)
+        nonflip_far = int((far & ~flip).sum())
+        differ_far = int((differ & ~near).sum())
+        log(f"[e2e l] {n_check} pairs, card against CPU: CI within 1e-3 for "
+            f"{int((~far).sum())}, within 1e-2 for {int((err <= 1e-2).sum())}"
+            f" (max difference {err.max():.4f}); {int(flip.sum())} pairs "
+            f"where one device kept its start ({int((far & flip).sum())} of "
+            f"them further than 1e-3), {nonflip_far} further than 1e-3 on "
+            f"the same branch (max {err[~flip].max():.4f}); at their start "
+            f"{int(at_start['card'].sum())} on the card, "
+            f"{int(at_start['cpu'].sum())} on the CPU; kept sets differ in "
+            f"{int(differ.sum())} pairs ({int((differ & near).sum())} within "
+            f"1e-3 of the cut, {int((differ & flip).sum())} flips)")
+        if nonflip_far > RF_NONFLIP_FAR_MAX or \
+                differ_far > RF_KEPT_DIFFER_MAX:
+            fail(f"e2e (l): {nonflip_far} pairs on the same branch further "
+                 f"than 1e-3 in CI from the CPU's (at most "
+                 f"{RF_NONFLIP_FAR_MAX}); kept sets differ in {differ_far} "
+                 f"pairs away from the cut (at most {RF_KEPT_DIFFER_MAX})")
+
+        # 4. FASTA records above MAX_RECORD_WIDTH: ertl_joint each
+        lens = np.exp(rng.uniform(np.log(70_000), np.log(150_000),
+                                  RF_WIDE)).astype(int)
+        wide = os.path.join(tmp, "wide.fa")
+        with open(wide, "wb") as fp:
+            for i, m in enumerate(lens):
+                s = int(rng.integers(0, FQ_GENOME - m))
+                fp.write(b">w%d cut\n%s\n" % (i, LUT[genome[s:s + m]]
+                                              .tobytes()))
+        if lens.min() <= pipeline.MAX_RECORD_WIDTH:
+            fail("e2e (l): a wide record is not above MAX_RECORD_WIDTH")
+        out = os.path.join(tmp, "wide.out")
+        js.launches = jm.launches = 0
+        wall = _timed(["readfilt", "-k", str(RF_K), "-s", ref_hll, "-f",
+                       "0.0", "-o", out, wide], "e2e (l) readfilt wide")
+        counts["readfilt joint_pair_stats"] = js.launches
+        ci_w = [float(line.rsplit("|", 1)[1]) for line in open(out)
+                if line.startswith(">")]
+        log(f"[e2e l] {RF_WIDE} FASTA records of {lens.min()}-{lens.max()} "
+            f"bases through ertl_joint: wall {wall:.3f}s, K4 joint "
+            f"launches {js.launches}, K5 {jm.launches}; CI min "
+            f"{min(ci_w):.6f}")
+        if len(ci_w) != RF_WIDE or min(ci_w) < 0.95 or \
+                js.launches != RF_WIDE or jm.launches != RF_WIDE:
+            fail(f"e2e (l): wide records {ci_w}, K4 joint {js.launches}, K5 "
+                 f"{jm.launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _e2e_weighted(dev, quarters):
+    """e2e (m): `dist -k 31 -S 14 --wj-exact -M -b` (the device route) and
+    `--wj` (count-min counts, the host route) over e2e (f)'s four
+    quarters: walls, finite matrices of n(n-1)/2, K4's X-only form and K3
+    launched, each flag's route alone (metrics buckets `wj.device` /
+    `wj.host`); one quarter's --wj-exact registers on the card bitwise
+    equal to the host route's (weighted_elements + HLL.add_np), its peak
+    device memory a valid k-mer within WJ_BYTES_PER_WINDOW."""
+    import torch
+    from dashing_tpu_torch import metrics, pipeline
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch.hll import HLL
+    from dashing_tpu_torch.sketch.weighted import weighted_elements
+    tmp = os.path.dirname(quarters[0])
+    for flag in ("--wj-exact", "--wj"):
+        out = os.path.join(tmp, f"wj{flag}.bin")
+        js.cum_union_launches = um.launches = 0
+        metrics._ENABLED = True
+        metrics._totals.clear()
+        try:
+            wall = _timed(["dist", "-k", "31", "-S", "14", flag, "-M", "-b",
+                           "-O", out, "--avoid-sorting"] + quarters,
+                          f"e2e (m) dist {flag}")
+            buckets = dict(metrics._totals)
+        finally:
+            metrics._ENABLED = False
+            metrics._totals.clear()
+            metrics._counts.clear()
+        n, cond = _read_condensed(out)
+        if n != 4 or cond.shape != (6,) or not np.isfinite(cond).all():
+            fail(f"e2e (m) dist {flag}: bad matrix n={n} {cond}")
+        if js.cum_union_launches == 0 or um.launches == 0:
+            fail(f"e2e (m) dist {flag}: K4's X-only form or K3 did not "
+                 "launch")
+        route = "wj.device" if flag == "--wj-exact" else "wj.host"
+        other = "wj.host" if flag == "--wj-exact" else "wj.device"
+        if route not in buckets or other in buckets:
+            fail(f"e2e (m) dist {flag}: the {route} route must run alone; "
+                 f"buckets {sorted(buckets)}")
+        log(f"[e2e m] dist -k 31 -S 14 {flag} -M over 4 x 250,000 reads: "
+            f"wall {wall:.3f}s; Mash " + " ".join(f"{v:.5f}" for v in cond)
+            + "; buckets " + ", ".join(
+                f"{k} {v:.3f}s" for k, v in sorted(buckets.items())
+                if k.startswith(("wj", "host", "sketch", "cardinality"))))
+    params = pipeline.SketchParams(k=31)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics._ENABLED = True
+    metrics._counts.clear()
+    t = time.perf_counter()
+    try:
+        got = pipeline.sketch_file_wj_hll(quarters[0], params, 14, dev)
+        windows = metrics._counts.get("wj.device", 0.0)
+    finally:
+        metrics._ENABLED = False
+        metrics._totals.clear()
+        metrics._counts.clear()
+    dev_s = time.perf_counter() - t
+    if got is None or not windows:
+        fail("e2e (m): a quarter did not fit the --wj-exact device route")
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t = time.perf_counter()
+    raw = pipeline.file_raw_kmers(quarters[0], params, dev)
+    h = HLL(14)
+    h.add_np(weighted_elements(raw, exact=True))
+    # the route is chosen by WJ_BYTES_PER_WINDOW before any launch, as if
+    # every window held a k-mer: the peak a valid k-mer must stay within it
+    log(f"[e2e m] --wj-exact device route of one quarter: {windows:,.0f} "
+        f"windows, {raw.size:,} valid k-mers, peak {peak:,} bytes above "
+        f"what was allocated before: {peak / windows:.2f} a window, "
+        f"{peak / max(raw.size, 1):.2f} a valid k-mer (WJ_BYTES_PER_WINDOW "
+        f"{pipeline.WJ_BYTES_PER_WINDOW})")
+    if peak > pipeline.WJ_BYTES_PER_WINDOW * raw.size:
+        fail(f"e2e (m): --wj-exact took {peak / raw.size:.2f} bytes a valid "
+             f"k-mer, above WJ_BYTES_PER_WINDOW "
+             f"{pipeline.WJ_BYTES_PER_WINDOW}")
+    if not np.array_equal(got, h.regs) or not got.any():
+        fail(f"e2e (m): --wj-exact registers on the card differ from the "
+             f"host route in {int((got != h.regs).sum())} places")
+    log(f"[e2e m] one quarter's --wj-exact registers: device route "
+        f"{dev_s:.3f}s, host route {time.perf_counter() - t:.3f}s, bitwise "
+        "equal")
 
 
 # e2e (h)-(k): BASELINE.md's 1k-genome row (benchmarks/e2e_100.py:21-22),
@@ -2683,9 +3202,12 @@ def main() -> int:
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)
     other = phase_rect(dev, bank, records)
+    genome = fq_genome()
+    phase_sparse(dev, records, genome)
     phase_bench(dev, counts)
     phase_e2e(dev, bank, other, counts, records)
     phase_e2e_fastq(dev)
+    phase_e2e_readfilt(dev, counts, genome)
     phase_e2e_small(dev, counts)
     for r in records:
         r["launches"] = counts[r["counter"]]

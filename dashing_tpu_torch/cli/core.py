@@ -58,6 +58,15 @@ class CommonOpts:
     sketch_by_fname: bool = False
     number_neighbors: int = 0      # --nearest-neighbors (0: the matrix)
     cache_sketch: bool = False     # -W: load/write sketches beside the inputs
+    # weighted Jaccard (--wj: count-min counts, --wj-exact: exact counts)
+    weighted_jaccard: bool = False
+    exact_weighted: bool = False
+    wj_cmsize: int = 22            # --wj-cm-sketch-size, log2 counters a row
+    wj_nhashes: int = 10           # --wj-cm-nhashes
+
+    @property
+    def weighted(self) -> bool:
+        return self.weighted_jaccard or self.exact_weighted
 
 
 def hll_p_from_S(S: int) -> int:
@@ -66,9 +75,6 @@ def hll_p_from_S(S: int) -> int:
 
 # Options of the JAX CLI that the slice refuses, with the name to report.
 _REFUSED = {
-    "--wj": "weighted Jaccard", "--wj-exact": "weighted Jaccard",
-    "--wj-cm-sketch-size": "weighted Jaccard",
-    "--wj-cm-nhashes": "weighted Jaccard",
     "-B": "b-bit MinHash (-B)", "--bbits": "b-bit MinHash",
     "-8": "non-HLL sketch types",
 }
@@ -111,6 +117,8 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "--cache-sketches": ("cache_sketch", True),
         "--use-nthash": ("encoding", "nthash"),
         "--use-cyclic-hash": ("encoding", "cyclic"),
+        "--wj": ("weighted_jaccard", True),
+        "--wj-exact": ("exact_weighted", True),
     }
     if flag in flags:
         name, v = flags[flag]
@@ -123,6 +131,14 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         return True
     if flag == "--nearest-neighbors":
         opts.number_neighbors = int(val)
+        return True
+    if flag in ("--wj-cm-sketch-size", "--wj-cm-nhashes"):
+        # either implies weighted mode, as in the JAX CLI
+        if flag == "--wj-cm-sketch-size":
+            opts.wj_cmsize = int(val)
+        else:
+            opts.wj_nhashes = int(val)
+        opts.weighted_jaccard = True
         return True
     if flag in _REFUSED:
         raise NotPorted(_REFUSED[flag])
@@ -204,13 +220,20 @@ def read_sketch_auto(path: str) -> HLL:
     return HLL.read(path)
 
 
-def _cache_fname(path: str, opts: CommonOpts) -> str:
+def _cache_fname(path: str, opts: CommonOpts, wj_ext: bool = True) -> str:
     """The -W cache file name of a path (cache.make_fname, the `.w.`
-    quirk included)."""
+    quirk included); a weighted sketch's extension is `.wj.exact.hll` or
+    `.wj.hll` unless `wj_ext` is off (`sketch` names its outputs without
+    it, as the JAX CLI does)."""
     sp = sketch_params(opts).spacer()
+    ext = HLL_EXT
+    if wj_ext and opts.exact_weighted:
+        ext = ".wj.exact" + ext
+    elif wj_ext and opts.weighted_jaccard:
+        ext = ".wj" + ext
     return cache.make_fname(path, hll_p_from_S(opts.sketch_size), sp.w,
                             opts.k, sp.c, opts.spacing, opts.suffix,
-                            opts.prefix, opts.encoding, HLL_EXT)
+                            opts.prefix, opts.encoding, ext)
 
 
 def atomic_write_sketch(sk: HLL, fname: str) -> None:
@@ -323,6 +346,64 @@ def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
                            device, lambda i: filt if i in filter_idx else None)
 
 
+def weighted_registers(path: str, tiles, opts: CommonOpts,
+                       params: pipeline.SketchParams, device: torch.device
+                       ) -> np.ndarray:
+    """The weighted-Jaccard HLL registers of one path (JAX
+    `_build_weighted`): --wj-exact on the device where the card's memory
+    allows (pipeline.sketch_file_wj_hll), else, and for --wj's count-min
+    estimates always, the host route: the raw k-mers pulled, labelled by
+    weighted.weighted_elements and inserted on the host."""
+    from ..sketch.weighted import weighted_elements
+    p = hll_p_from_S(opts.sketch_size)
+    if opts.exact_weighted:
+        regs = pipeline.sketch_file_wj_hll(path, params, p, device, tiles)
+        if regs is not None:
+            return regs
+    with metrics.accum("wj.host"):
+        raw = pipeline.file_raw_kmers(path, params, device, tiles)
+        h = HLL(p)
+        h.add_np(weighted_elements(raw, exact=opts.exact_weighted,
+                                   cmsize_log2=opts.wj_cmsize,
+                                   nhashes=opts.wj_nhashes, seed=opts.seed))
+    return h.regs
+
+
+def weighted_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
+                 filter_idx=None, filt_min_count: Optional[int] = None):
+    """device_hll_run for weighted sketches: calls put(index, (2^p,) uint8
+    registers) file by file, in order, the next files' parse prefetched
+    behind each build; -W loads and writes `.wj[.exact].hll` cache files.
+    Count-min filtering as in device_hll_jobs (a filtered file takes the
+    host route)."""
+    if filt_min_count is None:
+        filt_min_count = opts.mincount if opts.mincount > 1 else 2
+    base = sketch_params(opts)
+    if filter_idx is None:
+        filter_idx = ({i for i, _ in indexed_paths}
+                      if opts.use_counting_filter else frozenset())
+    todo = []
+    for i, path in indexed_paths:
+        fname = _cache_fname(path, opts) if opts.cache_sketch else None
+        if fname is not None and os.path.isfile(fname):
+            put(i, read_sketch_auto(fname).regs)
+        else:
+            todo.append((i, path, fname))
+    paths_of = {i: (path, fname) for i, path, fname in todo}
+    sp = pipeline.check_supported(base)
+    p = hll_p_from_S(opts.sketch_size)
+    for i, tiles in _prefetched_tiles([(i, pa) for i, pa, _ in todo], sp):
+        path, fname = paths_of[i]
+        params = dataclasses.replace(
+            base, use_counting_filter=i in filter_idx,
+            min_count=filt_min_count)
+        regs = weighted_registers(path, tiles, opts, params, device)
+        if fname is not None:
+            atomic_write_sketch(HLL(p, opts.estim, opts.jestim, regs),
+                                fname)
+        put(i, regs)
+
+
 def device_hll_run(indexed_paths, opts: CommonOpts, put,
                    device: torch.device, filter_idx=None,
                    filt_min_count: Optional[int] = None):
@@ -389,10 +470,11 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
         return [read_sketch_auto(path) for path in paths_list]
     p = hll_p_from_S(opts.sketch_size)
     out: List = [None] * len(paths_list)
-    device_hll_run(list(enumerate(paths_list)), opts,
-                   lambda i, regs: out.__setitem__(
-                       i, HLL(p, opts.estim, opts.jestim, regs)),
-                   device)
+    run = weighted_run if opts.weighted else device_hll_run
+    run(list(enumerate(paths_list)), opts,
+        lambda i, regs: out.__setitem__(
+            i, HLL(p, opts.estim, opts.jestim, regs)),
+        device)
     if opts.cache_sketch:
         for path, sk in zip(paths_list, out):
             dev = pipeline.device_rows_get(_cache_fname(path, opts))

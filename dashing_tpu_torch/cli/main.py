@@ -5,22 +5,25 @@
     python -m dashing_tpu_torch.cli card|cardcmp|hll [opts] genomes...
     python -m dashing_tpu_torch.cli mkdist --multik pref,k0,k1[,step] ...
     python -m dashing_tpu_torch.cli sketch_by_seq|dist_by_seq|panel ...
+    python -m dashing_tpu_torch.cli readfilt -s ref.hll [-f 0.5] r1 [r2]
     python -m dashing_tpu_torch.cli union|view|fold|printmat|flatten ...
 
 Same getopt surface and outputs as `python -m dashing_tpu.cli` for what the
 slice covers: HLL sketches of exact k-mers (contiguous or spaced, with or
 without minimizer windows, scored by value or by entropy) or of the
 ntHash and cyclic rolling hashes, count-min filtered or not (sketch -b/-f,
-dist -y), cached beside the inputs (dist -W, sketch -c), every measure,
-the ORIGINAL/IMPROVED/MLE estimators and the joint MLE (-J), query x
-reference rows (-Q) and k-nearest neighbours (--nearest-neighbors);
+dist -y), weighted by multiplicity (--wj, --wj-exact), cached beside the
+inputs (dist -W, sketch -c), every measure, the ORIGINAL/IMPROVED/MLE
+estimators and the joint MLE (-J), query x reference rows (-Q) and
+k-nearest neighbours (--nearest-neighbors);
 per-k matrices (mkdist, with --jukes-cantor), one sketch a record
 (sketch_by_seq/sbs) and their compare (dist_by_seq/cmp_by_seq), a query
-screen against a sketch database (panel); cardinalities (card, hll) and
-the HLL file tools (union, view, fold, printmat, flatten).  Everything
-else (readfilt, the non-HLL sketch families) is refused with a "not yet
-ported" error.  The device comes from DASHING_TPU_TORCH_DEVICE
-(default "cuda"); asking for CUDA without a card raises.  The file tools
+screen against a sketch database (panel), the reads contained in a
+reference sketch (readfilt); cardinalities (card, hll) and the HLL file
+tools (union, view, fold, printmat, flatten).  Everything else (the
+non-HLL sketch families) is refused with a "not yet ported" error.  The
+device comes from DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for
+CUDA without a card raises.  The file tools
 run on the host and never create a device.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ from collections import deque
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .. import __version__, device as devmod, metrics, pipeline
 from ..background import mkmat2jcdistmat
@@ -357,7 +361,8 @@ def sketch_main(argv: List[str], device) -> int:
     if not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
     p = core.hll_p_from_S(o.sketch_size)
-    fnames = {i: core._cache_fname(path, o) for i, path in enumerate(inpaths)}
+    fnames = {i: core._cache_fname(path, o, wj_ext=False)
+              for i, path in enumerate(inpaths)}
     results: dict = {}
     todo = []
     for i, path in enumerate(inpaths):
@@ -376,8 +381,8 @@ def sketch_main(argv: List[str], device) -> int:
             core.atomic_write_sketch(sk, fnames[i])
 
     # -b filters every file, -f the FASTQ ones, at the threshold -n
-    core.device_hll_run(
-        todo, o, put, device,
+    run = core.weighted_run if o.weighted else core.device_hll_run
+    run(todo, o, put, device,
         filter_idx={i for i, path in todo
                     if o.use_counting_filter
                     or (o.sketch_by_fname and fasta.fname_is_fq(path))},
@@ -670,9 +675,10 @@ def _mkdist_presketch(rest: List[str], ks: List[int], device):
     parked on the device for their compares.  Returns (extra dist
     arguments, cleanup), or (None, None) where the run cannot be fused
     (queries, a count-min filter, presketched inputs, the rolling hashes,
-    entropy minimizers, k outside 4..32): the per-k passes then sketch
-    alone.  Unlike the JAX package, which falls back to per-k sketching on
-    any exception here, a device or kernel error raises."""
+    entropy minimizers, weighted Jaccard, k outside 4..32): the per-k
+    passes then sketch alone.  Unlike the JAX package, which falls back
+    to per-k sketching on any exception here, a device or kernel error
+    raises."""
     o = CommonOpts()
     try:
         optlist, positional = _getopts(list(rest), DIST_SHORT_OPTS, DIST_LONG)
@@ -684,7 +690,7 @@ def _mkdist_presketch(rest: List[str], ks: List[int], device):
         if flag in ("-Q", "--query-paths"):
             return None, None
     if (o.use_counting_filter or o.presketched or o.sketch_by_fname
-            or o.encoding != "bonsai" or o.entropy_min):
+            or o.encoding != "bonsai" or o.entropy_min or o.weighted):
         return None, None
     if not ks or not all(4 <= k <= 32 for k in ks):
         return None, None
@@ -1038,6 +1044,101 @@ def panel_main(argv: List[str], device) -> int:
 
 
 # ===========================================================================
+# readfilt: the reads (or read pairs) contained in a reference sketch
+# ===========================================================================
+
+READFILT_USAGE = "readfilt -s ref.hll [-k 21] [-f 0.5] reads.fq [mates.fq]"
+
+
+def readfilt_main(argv: List[str], device) -> int:
+    """Stream reads (pairs from two files, mates joined by N x halo so no
+    k-mer spans them) and write each one whose containment index in the
+    reference, shared / (onlyRead + shared) by the joint MLE, reaches -f,
+    in the JAX CLI's format: FASTQ mate 1 '@name comment|CI:%lf|onlyq|
+    onlyref|shared|', later mates and FASTA records '...|%lf'; a mate 1
+    without qualities makes the pair FASTA."""
+    o = CommonOpts()
+    o.k = 21
+    hllpath = ""
+    frac_cutoff = 0.5
+    opath = None
+    optlist, positional = _getopts(argv, "Chk:s:f:o:?", ["help"])
+    for flag, val in optlist:
+        if flag == "-s":
+            hllpath = val
+        elif flag == "-f":
+            frac_cutoff = float(val)
+        elif flag == "-k":
+            o.k = int(val)
+        elif flag == "-o":
+            opath = val
+        elif flag == "-C":
+            o.canon = False
+        elif flag in ("-h", "-?", "--help"):
+            eprint(READFILT_USAGE)
+            return 1
+    if not positional or not hllpath:
+        eprint(READFILT_USAGE)
+        return 1
+    core.validate_k(o)
+    ref = core.read_hll(hllpath)
+    params = core.sketch_params(o)
+    sep = b"N" * params.spacer().halo
+    ref_regs = torch.from_numpy(ref.regs.astype(np.int32)).to(device)
+    ref_hist = torch.from_numpy(ref.histogram()).to(device)
+    fp, close = core.open_output(opath)
+    streams = [fasta.iter_records_full(path) for path in positional[:2]]
+    end = object()
+    if len(streams) == 2:
+        pairs = itertools.zip_longest(*streams, fillvalue=end)
+    else:
+        pairs = ((rec,) for rec in streams[0])
+    truncated = False
+    while True:
+        with metrics.accum("readfilt.parse"):
+            batch = []
+            for recs in pairs:
+                if end in recs:
+                    eprint("Warning: mismatched numbers of reads between "
+                           "paired-end files")
+                    truncated = True
+                    break
+                batch.append(recs)
+                if len(batch) >= pipeline.READFILT_BATCH:
+                    break
+        if not batch:
+            break
+        seqs = [sep.join(r[2] for r in recs) for recs in batch]
+        tri = pipeline.records_joint_triples(seqs, params, ref_regs,
+                                             ref_hist, ref.p, device)
+        denom = tri[:, 0] + tri[:, 2]
+        ci = np.where(denom > 0, tri[:, 2] / np.maximum(denom, 1e-300), 0.0)
+        with metrics.accum("readfilt.emit"):
+            for recs, c, tr in zip(batch, ci, tri):
+                if c < frac_cutoff:
+                    continue
+                fastq = recs[0][3] is not None
+                for mate, (name, comment, seq, qual) in enumerate(recs):
+                    nm, cm = name.decode(), comment.decode()
+                    if not fastq:
+                        fp.write(f">{nm} {cm}|{c:.6f}\n{seq.decode()}\n")
+                        continue
+                    q = qual.decode() if qual is not None else ""
+                    if mate == 0:
+                        fp.write(f"@{nm} {cm}|CI:{c:.6f}|{tr[0]:.6f}"
+                                 f"|{tr[1]:.6f}|{tr[2]:.6f}|\n"
+                                 f"{seq.decode()}\n+\n{q}\n")
+                    else:
+                        fp.write(f"@{nm} {cm}|{c:.6f}\n{seq.decode()}"
+                                 f"\n+\n{q}\n")
+        if truncated or len(batch) < pipeline.READFILT_BATCH:
+            break
+    if close:
+        fp.close()
+    return 0
+
+
+# ===========================================================================
 # usage + dispatcher
 # ===========================================================================
 
@@ -1069,8 +1170,10 @@ def _dist_usage():
         "[20], seed [1337]\n"
         "  -W/--cache-sketches     load and write sketches beside the "
         "inputs\n"
-        "Not yet ported (see ROADMAP.md): weighted Jaccard, non-HLL "
-        "sketches\n")
+        "  --wj, --wj-exact        weighted Jaccard (count-min or exact "
+        "counts);\n"
+        "  --wj-cm-sketch-size/--wj-cm-nhashes  its count-min [22, 10]\n"
+        "Not yet ported (see ROADMAP.md): non-HLL sketches\n")
 
 
 def _sketch_usage():
@@ -1103,6 +1206,7 @@ SUBCOMMANDS = {
     "dist_by_seq": dist_by_seq_main,
     "cmp_by_seq": dist_by_seq_main,
     "panel": panel_main,
+    "readfilt": readfilt_main,
 }
 # the file tools: run on the host, take no device
 HOST_SUBCOMMANDS = {
@@ -1144,6 +1248,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"{cmd}: {type(e).__name__}: {e}")
     metrics.summary()
     return rc
+
+
+def readfilt_entry() -> int:
+    """The standalone readfilt (console script dashing_tpu_torch_readfilt)."""
+    return main(["readfilt"] + sys.argv[1:])
 
 
 if __name__ == "__main__":

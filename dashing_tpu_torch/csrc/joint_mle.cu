@@ -8,9 +8,12 @@
 // cardinalities c_a (na,), c_b (nb,); output (3, na, nb) float32
 // (la, lb, lx) = (|A\B|, |B\A|, |A&B|).
 //
-// Per pair: the union estimate c_u (ERTL_IMPROVED on hist_u = eq + gt_a +
-// gt_b, which is the union histogram exactly) seeds the inclusion-exclusion
-// start theta0 = log max(., 1e-3); then `iters` damped Newton steps in theta
+// Per pair: the union estimate c_u seeds the inclusion-exclusion start
+// theta0 = log max(., 1e-3).  The TPU kernel takes c_u (na, nb) as an
+// input, and so does this one when the caller passes it (the sparse read
+// filter and ertl_joint seed it by the MLE of the union histogram); with
+// no c_u it is computed here, ERTL_IMPROVED on hist_u = eq + gt_a + gt_b
+// (the union histogram exactly), as the all-pairs engine seeds it.  Then `iters` damped Newton steps in theta
 // = log lambda with the analytic gradient and Hessian (diagonal damped by
 // 1e-4, adjugate 3x3 solve with tiny determinants floored to +-1e-30, step
 // clamped to norm 2); then one guard: the final likelihood must be finite
@@ -329,8 +332,9 @@ __global__ void __launch_bounds__(THREADS)
 joint_mle_kernel(const float* __restrict__ eq, const float* __restrict__ gta,
                  const float* __restrict__ gtb, const float* __restrict__ ha,
                  const float* __restrict__ hb, const float* __restrict__ ca,
-                 const float* __restrict__ cb, float* __restrict__ out,
-                 int na, int nb, Window w, int iters) {
+                 const float* __restrict__ cb, const float* __restrict__ cu,
+                 float* __restrict__ out, int na, int nb, Window w,
+                 int iters) {
     extern __shared__ float smem[];            // [NSTATS][K][THREADS]
     const long long npairs = (long long)na * nb;
     const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -348,7 +352,7 @@ joint_mle_kernel(const float* __restrict__ eq, const float* __restrict__ gta,
         s.lta(l) = (__ldg(ha + (long long)l * na + i) - eql) - ga;
         s.ltb(l) = (__ldg(hb + (long long)l * nb + j) - eql) - gb;
     }
-    const float c_u = improved_win<KMAX>(
+    const float c_u = cu != nullptr ? __ldg(cu + idx) : improved_win<KMAX>(
         [&](int l) { return (s.eq(l) + s.ga(l)) + s.gb(l); }, w.K, w);
     const float c_a = __ldg(ca + i), c_b = __ldg(cb + j);
     const float tiny = 1e-3f;
@@ -391,11 +395,13 @@ joint_mle_kernel(const float* __restrict__ eq, const float* __restrict__ gta,
 }  // namespace
 
 // K-first statistics (K, na, nb) + marginals -> (3, na, nb) triples;
-// `iters` Newton steps.
+// `iters` Newton steps; `cu` the (na, nb) union seeds, or null to compute
+// them (ERTL_IMPROVED on the union histogram).
 extern "C" int dtt_joint_mle(const void* eq, const void* gta, const void* gtb,
                              const void* ha, const void* hb, const void* ca,
-                             const void* cb, void* out, int K, int na, int nb,
-                             int p, int kmin, int iters, void* stream) {
+                             const void* cb, const void* cu, void* out, int K,
+                             int na, int nb, int p, int kmin, int iters,
+                             void* stream) {
     Window w;
     if (!make_window(K, p, kmin, &w) || na < 0 || nb < 0 || iters < 0)
         return (int)cudaErrorInvalidValue;
@@ -414,7 +420,7 @@ extern "C" int dtt_joint_mle(const void* eq, const void* gta, const void* gtb,
     joint_mle_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)eq, (const float*)gta, (const float*)gtb,
         (const float*)ha, (const float*)hb, (const float*)ca,
-        (const float*)cb, (float*)out, na, nb, w, iters);
+        (const float*)cb, (const float*)cu, (float*)out, na, nb, w, iters);
     return (int)cudaGetLastError();
 }
 

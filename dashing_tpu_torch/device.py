@@ -8,7 +8,7 @@ carries on on the CPU behind the caller's back.
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -40,3 +40,8 @@ def from_env() -> torch.device:
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def or_env(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """`device` validated, or the CLI's device when it is None."""
+    return from_env() if device is None else resolve(device)

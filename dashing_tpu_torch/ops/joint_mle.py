@@ -2,12 +2,15 @@
 
 Counterpart of dashing_tpu/ops/pallas_jmle.py `pallas_joint_mle`: from the
 K-first joint statistics of a tile (eq, gt_a, gt_b, each (K, na, nb)), the
-marginal histograms ha (K, na), hb (K, nb) and the marginal cardinalities
-c_a (na,), c_b (nb,), run Ertl's joint MLE per pair and return (3, na, nb)
-float32 (onlyA, onlyB, shared).  lt_a = ha - eq - gt_a and lt_b = hb - eq -
-gt_b are derived inside, and so is the union estimate that seeds the
-inclusion-exclusion start: ERTL_IMPROVED on hist_u = eq + gt_a + gt_b
-(which equals the union histogram exactly), as the JAX package seeds it.
+marginal histograms ha (K, na), hb (K, nb), the marginal cardinalities
+c_a (na,), c_b (nb,) and, as the TPU kernel takes it, the union estimate
+c_u (na, nb) that seeds the inclusion-exclusion start, run Ertl's joint
+MLE per pair and return (3, na, nb) float32 (onlyA, onlyB, shared).
+lt_a = ha - eq - gt_a and lt_b = hb - eq - gt_b are derived inside.  With
+no c_u the union estimate is derived inside too: ERTL_IMPROVED on hist_u
+= eq + gt_a + gt_b (which equals the union histogram exactly), as the
+JAX package's all-pairs engine seeds it; the sparse read filter and
+`ertl_joint` pass the MLE of the union histogram instead.
 
 `joint_triples` launches the CUDA kernel for CUDA tensors and runs the
 plain PyTorch version (sketch/estimators.py `joint_mle_core`) for CPU
@@ -32,14 +35,16 @@ KMAX = 66   # widest level window (pairwise._K_BUCKETS)
 def joint_triples_plain(eq: torch.Tensor, gt_a: torch.Tensor,
                         gt_b: torch.Tensor, ha: torch.Tensor,
                         hb: torch.Tensor, c_a: torch.Tensor,
-                        c_b: torch.Tensor, *, p: int, kmin: int,
+                        c_b: torch.Tensor, c_u: Optional[torch.Tensor] = None,
+                        *, p: int, kmin: int,
                         iters: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same layout in and out;
     `iters` Newton steps (default est.jmle_iters(p), the kernel's; 0 gives
     the start)."""
     q = 64 - p
-    hist_u = (eq + gt_a + gt_b).permute(1, 2, 0)
-    c_u = est.improved_estimate_windowed(hist_u, p, kmin)
+    if c_u is None:
+        hist_u = (eq + gt_a + gt_b).permute(1, 2, 0)
+        c_u = est.improved_estimate_windowed(hist_u, p, kmin)
     stats = {"eq": eq, "gt_a": gt_a, "gt_b": gt_b,
              "lt_a": ha[:, :, None] - eq - gt_a,
              "lt_b": hb[:, None, :] - eq - gt_b}
@@ -50,8 +55,8 @@ def joint_triples_plain(eq: torch.Tensor, gt_a: torch.Tensor,
     return torch.stack([la, lb, lx])
 
 
-def _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, p, kmin):
-    ts = (eq, gt_a, gt_b, ha, hb, c_a, c_b)
+def _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, c_u, p, kmin):
+    ts = (eq, gt_a, gt_b, ha, hb, c_a, c_b) + (() if c_u is None else (c_u,))
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError("joint statistics and cardinalities must be float32")
     if eq.dim() != 3 or gt_a.shape != eq.shape or gt_b.shape != eq.shape:
@@ -62,6 +67,9 @@ def _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, p, kmin):
         raise ValueError(f"marginals {tuple(ha.shape)}, {tuple(hb.shape)}, "
                          f"{tuple(c_a.shape)}, {tuple(c_b.shape)} do not "
                          f"match statistics {tuple(eq.shape)}")
+    if c_u is not None and c_u.shape != (na, nb):
+        raise ValueError(f"union seeds {tuple(c_u.shape)} do not match "
+                         f"statistics {tuple(eq.shape)}")
     if not 4 <= p <= 31:
         raise ValueError(f"p must be in [4, 31], got {p}")
     if not 1 <= K <= KMAX or kmin < 0 or kmin + K - 1 > 64 - p + 1:
@@ -73,18 +81,22 @@ def _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, p, kmin):
 
 def joint_triples(eq: torch.Tensor, gt_a: torch.Tensor, gt_b: torch.Tensor,
                   ha: torch.Tensor, hb: torch.Tensor, c_a: torch.Tensor,
-                  c_b: torch.Tensor, *, p: int, kmin: int) -> torch.Tensor:
-    """K-first joint statistics + marginals -> (3, na, nb) float32 triples,
-    est.jmle_iters(p) Newton steps per pair."""
-    _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, p, kmin)
+                  c_b: torch.Tensor, c_u: Optional[torch.Tensor] = None,
+                  *, p: int, kmin: int) -> torch.Tensor:
+    """K-first joint statistics + marginals (+ the union seeds c_u, else
+    derived) -> (3, na, nb) float32 triples, est.jmle_iters(p) Newton
+    steps per pair."""
+    _check(eq, gt_a, gt_b, ha, hb, c_a, c_b, c_u, p, kmin)
     if eq.device.type == "cpu":
-        return joint_triples_plain(eq, gt_a, gt_b, ha, hb, c_a, c_b, p=p,
-                                   kmin=kmin)
+        return joint_triples_plain(eq, gt_a, gt_b, ha, hb, c_a, c_b, c_u,
+                                   p=p, kmin=kmin)
     if eq.device.type != "cuda":
         raise ValueError(f"unsupported device {eq.device}")
     K, na, nb = eq.shape
     eq, gt_a, gt_b, ha, hb, c_a, c_b = (
         t.contiguous() for t in (eq, gt_a, gt_b, ha, hb, c_a, c_b))
+    if c_u is not None:
+        c_u = c_u.contiguous()
     out = torch.empty((3, na, nb), dtype=torch.float32, device=eq.device)
     lib = _lib()
     stream = torch.cuda.current_stream(eq.device).cuda_stream
@@ -92,6 +104,7 @@ def joint_triples(eq: torch.Tensor, gt_a: torch.Tensor, gt_b: torch.Tensor,
         err = lib.dtt_joint_mle(eq.data_ptr(), gt_a.data_ptr(),
                                 gt_b.data_ptr(), ha.data_ptr(), hb.data_ptr(),
                                 c_a.data_ptr(), c_b.data_ptr(),
+                                None if c_u is None else c_u.data_ptr(),
                                 out.data_ptr(), K, na, nb, p, kmin,
                                 est.jmle_iters(p), stream)
     _build.check(err, "joint_mle", lib)
@@ -103,7 +116,7 @@ def joint_triples(eq: torch.Tensor, gt_a: torch.Tensor, gt_b: torch.Tensor,
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("joint_mle", {
-        "dtt_joint_mle": ([vp] * 8 + [ci] * 6 + [vp], ci)},
+        "dtt_joint_mle": ([vp] * 9 + [ci] * 6 + [vp], ci)},
         # no FMA contraction: a Newton solve along a flat likelihood
         # direction turns last-bit differences into whole units of a
         # triple; rounding every operation as the plain version does keeps

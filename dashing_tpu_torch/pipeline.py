@@ -34,7 +34,8 @@ import os
 import queue
 import threading
 from collections import OrderedDict
-from typing import Callable, Iterable, Iterator, List, Sequence, Tuple
+from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -46,9 +47,9 @@ from .io.paths import split_subpaths
 from .ops import rolling
 from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
                          tile_sequence)
-from .ops.encode_hash import ascii_to_banks, packed_to_banks, \
-    packed_to_registers
-from .ops.hll_update import update_banks, update_registers
+from .ops.encode_hash import ascii_to_banks, encode_hash_keys, \
+    packed_to_banks, packed_to_registers
+from .ops.hll_update import bucket_rank, update_banks, update_registers
 
 # Tile geometry: CONTENT bases of payload per row + halo; rows per upload.
 CONTENT = 8192
@@ -686,13 +687,15 @@ def sketch_joined_hll(joined: np.ndarray, params: SketchParams, p: int,
 
 
 def file_kmer_hashes(path: str, params: SketchParams,
-                     device: torch.device) -> np.ndarray:
+                     device: torch.device, tiles=None) -> np.ndarray:
     """Every valid window's hash of a path (the raw k-mer when not
     `params.rehash`), host uint64, count-min filtered when
-    `params.filtered` (JAX `file_kmer_hashes`)."""
+    `params.filtered` (JAX `file_kmer_hashes`).  `tiles()`, if given,
+    yields the path's tiles (a prefetched parse)."""
     device = devmod.resolve(device)
     sp = check_supported(params)
-    tiles = lambda: _file_tiles(path, sp)  # noqa: E731
+    if tiles is None:
+        tiles = lambda: _file_tiles(path, sp)  # noqa: E731
     if params.filtered:
         pairs = _count_filtered_tiles(tiles, params, sp, device)
     else:
@@ -703,10 +706,76 @@ def file_kmer_hashes(path: str, params: SketchParams,
 
 
 def file_raw_kmers(path: str, params: SketchParams,
-                   device: torch.device) -> np.ndarray:
+                   device: torch.device, tiles=None) -> np.ndarray:
     """The encoded k-mers themselves, unhashed (JAX `file_raw_kmers`)."""
     return file_kmer_hashes(path, dataclasses.replace(params, rehash=False),
-                            device)
+                            device, tiles)
+
+
+# ---------------------------------------------------------------------------
+# Weighted Jaccard with exact counts on the device (JAX pipeline.py:
+# 999-1056): the raw k-mers of a file stay on the device, one sort gives
+# each value's occurrence indices and the labelled elements fold into the
+# registers.  The JAX package keeps this behind an opt-in and a 16 M k-mer
+# cap for its TPU compiler; here a bound on the card's free memory picks
+# the route before the first launch.
+# ---------------------------------------------------------------------------
+
+# device bytes a window may take at the route's peak, reckoned as if every
+# window held a valid k-mer: the valid k-mers' concatenation, their sort
+# (values, indices and the sort's own buffers), the run arithmetic in
+# place and the labels.  On an H100 the route peaked at 66.00 bytes a
+# valid k-mer (35.40 a window) over 250,000 reads of 100 bases at k = 31;
+# chip_smoke.py e2e (m) measures it on every run
+WJ_BYTES_PER_WINDOW = 80
+
+
+def wj_device_fits(windows: int, device: torch.device) -> bool:
+    """Whether `windows` k-mers fit the device route: their peak bytes
+    within half of the card's free memory (always on the CPU)."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    return windows * WJ_BYTES_PER_WINDOW <= free // 2
+
+
+def _wj_label_update(h: torch.Tensor, valid: Optional[torch.Tensor],
+                     p: int) -> torch.Tensor:
+    """Raw int64 k-mers + validity (None: all valid) -> (2^p,) int32
+    registers of their labelled elements (exact occurrence counts)."""
+    from .sketch.weighted import occurrence_labels_device
+    labels, sv = occurrence_labels_device(h, valid)
+    regs = torch.zeros(1 << p, dtype=torch.int32, device=h.device)
+    return update_registers(regs, labels, sv, p)
+
+
+def sketch_file_wj_hll(path: str, params: SketchParams, p: int,
+                       device: torch.device, tiles=None):
+    """--wj-exact HLL registers of a path on the device, 2^p uint8, bitwise
+    those of the host route (file_raw_kmers, weighted.weighted_elements,
+    HLL.add_np); None where the host route must run instead: a count-min
+    filtered file, or more k-mers than wj_device_fits allows (the tiles
+    are parsed and counted on the host before any launch).  The metrics
+    bucket `wj.device` times this route (`wj.host` the other)."""
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    if params.filtered:
+        return None
+    chunks = list(tiles() if tiles is not None else _file_tiles(path, sp))
+    windows = sum(t.size for t in chunks)
+    if not wj_device_fits(windows, device):
+        return None
+    with metrics.accum("wj.device", items=windows):
+        kw = _encode_kw(dataclasses.replace(params, rehash=False), sp)
+        # only the valid k-mers stay on the device between tiles
+        vals = [h[valid] for h, valid in
+                (_hashed_tile(tile, kw, device) for tile in chunks)]
+        if not vals:
+            return np.zeros(1 << p, np.uint8)
+        h = torch.cat(vals)
+        vals.clear()
+        regs = _wj_label_update(h, None, p)
+        return registers_to_numpy(regs)
 
 
 # ---------------------------------------------------------------------------
@@ -821,3 +890,73 @@ def sketch_file_seq(seq: bytes, params: SketchParams, p: int,
     sp = check_supported(params)
     tiles = _joined_tiles(np.frombuffer(seq, np.uint8), sp.halo)
     return registers_to_numpy(sketch_chunk_stream(tiles, params, p, device))
+
+
+# ---------------------------------------------------------------------------
+# The sparse read-vs-reference engine (JAX pipeline.py:1366-1434): readfilt
+# ---------------------------------------------------------------------------
+
+# records a readfilt batch: on an H100, 100,000 read pairs of 2 x 150 bases
+# took 0.146-0.315 s in batches of 8,192, 0.163-0.293 s of 4,096 and
+# 0.345-0.644 s of 1,024 (chip_smoke.py e2e (l), four runs); 4,096 and
+# 8,192 tie within the spread of the runs, and 8,192 is taken for half
+# the launches (the JAX package takes 1,024, and 4,096 a CLI chunk)
+READFILT_BATCH = 8192
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device when the metrics buckets time it."""
+    if metrics.enabled() and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def records_joint_triples(seqs: Sequence[bytes], params: SketchParams,
+                          ref_regs: torch.Tensor, ref_hist: torch.Tensor,
+                          p: int, device: torch.device,
+                          batch: int = READFILT_BATCH) -> np.ndarray:
+    """Each record's joint-MLE triple (onlyRecord, onlyRef, shared) against
+    ONE dense reference -> (n, 3) float64.
+
+    ref_regs: (2^p,) int32 reference registers, ref_hist: (q+2,) float32
+    their histogram, both on `device`.  A batch of records is one ASCII
+    upload; its (bucket, rank) keys come from K2's keys form for the exact
+    contiguous k-mers at p <= 25 (bitwise the JAX package's keys, which it
+    takes from K1), else from the PyTorch encoders; then the sparse
+    statistics against the reference, windowed to the batch's largest
+    level (sketch/sparse.py).  A record wider than MAX_RECORD_WIDTH is
+    sketched alone and compared by `ertl_joint`."""
+    from .sketch.hll import HLL, ertl_joint
+    from .sketch.sparse import level_window_bins, stats_kfirst, \
+        triples_kfirst
+    device = devmod.resolve(device)
+    sp = check_supported(params)
+    kw = _encode_kw(params, sp)
+    keys_route = packed_ok(params, sp, p) and p <= 25
+    ref_max = int(ref_regs.max()) if ref_regs.numel() else 0
+    q = 64 - p
+    out = np.zeros((len(seqs), 3), np.float64)
+    for take, tiles in _record_batches(seqs, sp.halo, batch):
+        if tiles is None:
+            ref = HLL(p, regs=registers_to_numpy(ref_regs))
+            for i in take:
+                rec = HLL(p, regs=sketch_file_seq(seqs[i], params, p, device))
+                out[i] = ertl_joint(rec, ref, device)
+            continue
+        with metrics.accum("readfilt.keys", items=len(take)):
+            tile, = _upload(tiles, device=device)
+            if keys_route:
+                keys = encode_hash_keys(tile, k=sp.k, p=p,
+                                        canon=params.canon)
+                idx, rank = keys >> 6, keys & 63
+            else:
+                h, valid = tile_hashes(tile, **kw)
+                idx, rank = bucket_rank(h, p)
+                rank = torch.where(valid, rank, 0)
+            kb = level_window_bins(max(int(rank.max()), ref_max), q)
+        hist = ref_hist[:kb]
+        with metrics.accum("readfilt.stats", items=len(take)):
+            st = stats_kfirst(idx, rank, ref_regs, hist, p, kb)
+            _sync(device)
+        with metrics.accum("readfilt.estimate_jmle", items=len(take)):
+            out[take] = triples_kfirst(st, hist, p).cpu().numpy()
+    return out

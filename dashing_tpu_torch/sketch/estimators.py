@@ -22,7 +22,9 @@ then agree to the last bits, which matters because the set triples
 difference them.
 
 The joint MLE (-J, `joint_mle_core`) is the plain version of the joint-MLE
-kernel (csrc/joint_mle.cu, ops/joint_mle.py).  It takes the statistics
+kernel (csrc/joint_mle.cu, ops/joint_mle.py); `joint_mle` runs it on one
+pair's full histograms, or on a batch of queries against one reference,
+through that kernel's wrapper.  It takes the statistics
 K-FIRST, (K, *batch), as the JAX package's fused kernel does, and runs in
 the kernel's operation order: every level sum runs from the top level
 down, as the complement chains are walked.
@@ -497,3 +499,98 @@ def joint_mle_core(stats, cards, m: float, q: int, kmin: int, iters: int):
     lx = torch.where(a_empty | b_empty, 0.0, lx)
     lb = torch.where(b_empty, 0.0, lb)
     return la, lb, lx
+
+
+# ---------------------------------------------------------------------------
+# Full-histogram set comparisons (HLL.full_set_comparison, ertl_joint, the
+# sparse read filter): K-LAST statistics, as the JAX package's XLA form.
+# ---------------------------------------------------------------------------
+
+def pair_statistics(a: torch.Tensor, b: torch.Tensor, q: int) -> dict:
+    """Sufficient statistics of register pairs (each (..., m) int): (...,
+    q+2) float32 histograms gt_a, lt_a, gt_b, lt_b, eq (of a's value where
+    a > b, a < b, of b's value where b > a, b < a, of the value where a ==
+    b), the marginals hist_a, hist_b and the union (max) histogram hist_u.
+    Integer counts, so equal in any summation order to the JAX package's
+    one-hot sums."""
+    nb = q + 2
+
+    def hist(v, mask):
+        v, mask = torch.broadcast_tensors(v.to(torch.int64), mask)
+        ok = mask & (v >= 0) & (v < nb)
+        out = torch.zeros(v.shape[:-1] + (nb,), dtype=torch.float32,
+                          device=v.device)
+        return out.scatter_add_(-1, torch.where(ok, v, 0),
+                                ok.to(torch.float32))
+
+    agtb, altb, aeqb = a > b, a < b, a == b
+    return dict(gt_a=hist(a, agtb), lt_a=hist(a, altb), gt_b=hist(b, altb),
+                lt_b=hist(b, agtb), eq=hist(a, aeqb),
+                hist_a=hist(a, torch.ones_like(a, dtype=torch.bool)),
+                hist_b=hist(b, torch.ones_like(b, dtype=torch.bool)),
+                hist_u=hist(torch.maximum(a, b), torch.ones_like(agtb)))
+
+
+def joint_mle(stats: dict, p: int, kmin: int = 0, cards=None
+              ) -> torch.Tensor:
+    """Ertl's joint MLE on K-last statistics -> (3, *batch) float32
+    (|A\\B|, |B\\A|, |A&B|).
+
+    stats: eq, gt_a, gt_b, hist_a and hist_u of shape (*batch, K) over
+    levels kmin..kmin+K-1 (kmin 0, K = q+2: full histograms), and hist_b
+    of shape (K,): the pairs share their b side (one pair, or a batch of
+    queries against one reference).  lt_a and lt_b are derived from the
+    marginals, as the joint-MLE kernel derives them.  `cards` is the
+    (c_a, c_b, c_u) triple that seeds the inclusion-exclusion start; by
+    default the direct MLE of hist_a, hist_b and hist_u (the JAX
+    package's choice).  CUDA tensors run the joint-MLE kernel given c_u
+    and the row-estimate kernel; CPU tensors their plain versions."""
+    from ..ops.joint_mle import joint_triples
+    from ..ops.union_mle import estimate_rows
+    K = stats["eq"].shape[-1]
+    batch = stats["eq"].shape[:-1]
+    hb = stats["hist_b"]
+    if hb.shape != (K,):
+        raise ValueError(f"hist_b must be one histogram ({K},), got "
+                         f"{tuple(hb.shape)}")
+
+    def rows(t):
+        return t.reshape(-1, K)
+
+    n = rows(stats["eq"]).shape[0]
+    if cards is None:
+        def mle(h):
+            return estimate_rows(h.contiguous(), p=p, kmin=kmin,
+                                 method=ERTL_MLE)
+        cards = (mle(rows(stats["hist_a"])), mle(hb[None]),
+                 mle(rows(stats["hist_u"])))
+    c_a, c_b, c_u = (torch.as_tensor(c, dtype=torch.float32,
+                                     device=hb.device).reshape(-1)
+                     for c in cards)
+    kf = [rows(stats[key]).T.contiguous()[:, :, None]
+          for key in ("eq", "gt_a", "gt_b")]
+    tri = joint_triples(*kf, rows(stats["hist_a"]).T.contiguous(),
+                        hb[:, None].contiguous(), c_a.expand(n).contiguous(),
+                        c_b.reshape(1), c_u.expand(n).reshape(n, 1)
+                        .contiguous(), p=p, kmin=kmin)
+    return tri.reshape((3,) + tuple(batch))
+
+
+def union_triple_incl_excl(hist_a: torch.Tensor, hist_b: torch.Tensor,
+                           hist_u: torch.Tensor, p: int,
+                           method: int = ERTL_MLE) -> torch.Tensor:
+    """(..., 3) (onlyA, onlyB, shared) by inclusion-exclusion on the three
+    full-histogram estimates (the non-joint comparison), by the
+    row-estimate kernel on a card."""
+    from ..ops.union_mle import estimate_rows
+    K = hist_a.shape[-1]
+
+    def card(h):
+        return estimate_rows(h.reshape(-1, K).contiguous(), p=p, kmin=0,
+                             method=method, iters=FULL_MLE_ITERS
+                             ).reshape(h.shape[:-1])
+
+    c_a, c_b, c_u = card(hist_a), card(hist_b), card(hist_u)
+    shared = torch.clamp(c_a + c_b - c_u, min=0.0)
+    return torch.stack([torch.clamp(c_a - shared, min=0.0),
+                        torch.clamp(c_b - shared, min=0.0), shared], dim=-1)

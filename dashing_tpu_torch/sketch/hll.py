@@ -16,7 +16,10 @@ from typing import IO, Optional, Union
 import numpy as np
 import torch
 
+from .. import device as devmod
 from ..hashes import clz64_np, wang_hash_np
+from ..ops.joint_stats import joint_pair_stats
+from ..ops.pairwise import marginal_histograms
 from ..ops.union_mle import estimate_rows
 from . import estimators as est
 
@@ -131,6 +134,57 @@ class HLL:
         """Cardinality of the union, with this sketch's estimator."""
         return self.union(other).report()
 
+    def _regs_on(self, device: torch.device) -> torch.Tensor:
+        return torch.from_numpy(self.regs).to(device)
+
+    def full_set_comparison(self, other: "HLL",
+                            device: Optional[torch.device] = None):
+        """(|A\\B|, |B\\A|, |A&B|) against `other`: the joint MLE when
+        this sketch's jestim selects it, else inclusion-exclusion on the
+        three cardinalities with this sketch's estimator.  The joint form
+        counts the pair's statistics by K4's joint form on a 1 x 1 tile
+        over the full window [0, q+1], estimates the three cardinalities
+        by the row-estimate kernel (the direct MLE) and solves by K5 given
+        the union's.  `device` defaults to the CLI's (`device.from_env`:
+        the card unless DASHING_TPU_TORCH_DEVICE says otherwise); on the
+        CPU the kernels' plain versions run."""
+        self._check_same_p(other)
+        device = devmod.or_env(device)
+        if self.jestim == est.ERTL_JOINT_MLE:
+            a = self._regs_on(device).to(torch.int8)[None]
+            b = other._regs_on(device).to(torch.int8)[None]
+            K = self.q + 2
+            st = joint_pair_stats(a, b, kmin=0, kmax=self.q + 1)
+            stats = {key: st[key][:, 0, 0] for key in ("eq", "gt_a", "gt_b")}
+            stats["hist_u"] = (stats["eq"] + stats["gt_a"]) + stats["gt_b"]
+            stats["hist_a"] = marginal_histograms(a, 0, K)[0]
+            stats["hist_b"] = marginal_histograms(b, 0, K)[0]
+            tri = est.joint_mle(stats, self.p)
+        else:
+            hu = np.bincount(np.maximum(self.regs, other.regs),
+                             minlength=self.q + 2).astype(np.float32)
+            tri = est.union_triple_incl_excl(
+                *(torch.from_numpy(h).to(device) for h in
+                  (self.histogram(), other.histogram(), hu)),
+                self.p, self.estim)
+        return tuple(float(x) for x in tri.cpu())
+
+    def jaccard_index(self, other: "HLL",
+                      device: Optional[torch.device] = None) -> float:
+        a, b, x = self.full_set_comparison(other, device)
+        denom = a + b + x
+        return x / denom if denom > 0 else 0.0
+
+    def containment_index(self, other: "HLL",
+                          device: Optional[torch.device] = None) -> float:
+        a, _, x = self.full_set_comparison(other, device)
+        denom = a + x
+        return x / denom if denom > 0 else 0.0
+
+    def intersection_size(self, other: "HLL",
+                          device: Optional[torch.device] = None) -> float:
+        return self.full_set_comparison(other, device)[2]
+
     def printf(self, fp=None):
         """Human-readable register dump (the `view` subcommand)."""
         fp = fp or sys.stdout
@@ -170,6 +224,17 @@ class HLL:
             with gzip.open(path_or_fp, "rb") as fp:
                 return cls.read_record(fp)
         return cls.read_record(path_or_fp)
+
+
+def ertl_joint(a: HLL, b: HLL, device: Optional[torch.device] = None):
+    """The joint-MLE comparison of two sketches whatever their jestim (the
+    free function of the JAX package): (|A\\B|, |B\\A|, |A&B|)."""
+    old = a.jestim
+    try:
+        a.jestim = est.ERTL_JOINT_MLE
+        return a.full_set_comparison(b, device)
+    finally:
+        a.jestim = old
 
 
 def batch_reports(sketches, device: torch.device) -> None:

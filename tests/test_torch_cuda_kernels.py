@@ -752,3 +752,100 @@ def test_diagonal_nn_tile_one_bank_equals_two_banks(rng, cuda, monkeypatch):
             np.testing.assert_array_equal(one[1], two[1])
             np.testing.assert_array_equal(one[0].view(np.uint32),
                                           two[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("p,kmin,K", BUCKET_WINDOWS)
+def test_joint_mle_kernel_with_c_u_bitwise(rng, cuda, p, kmin, K):
+    """K5 given the union seeds c_u (the sparse read filter's and
+    ertl_joint's start: the union's direct MLE) bit for bit against its
+    plain version given the same c_u, at every window width 8-62, on a
+    ragged tile and on the read filter's layout (K, B, 1); without c_u it
+    still derives the IMPROVED seed."""
+    kmax = kmin + K - 1
+    m = 1 << p
+    shared = np.minimum(rng.geometric(0.5, size=m) - 1 + kmin, kmax)
+    a = np.maximum(_window_bank(rng, 37, p, kmin, kmax), shared)
+    b = np.maximum(_window_bank(rng, 70, p, kmin, kmax), shared)
+    ta = torch.from_numpy(a).to(cuda, torch.int8)
+    tb = torch.from_numpy(b).to(cuda, torch.int8)
+    st = pw.pair_stats(ta, tb, kmax, kmin, joint=True)
+    ca = um.estimate_rows(st["hist_a"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    cb = um.estimate_rows(st["hist_b"], p=p, kmin=kmin, method=est.ERTL_MLE)
+    kf = [st[key].permute(2, 0, 1).contiguous()
+          for key in ("eq", "gt_a", "gt_b")]
+    hu = (kf[0] + kf[1] + kf[2]).permute(1, 2, 0).reshape(-1, K)
+    cu = um.estimate_rows(hu.contiguous(), p=p, kmin=kmin,
+                          method=est.ERTL_MLE).reshape(37, 70)
+    ha, hb = st["hist_a"].T.contiguous(), st["hist_b"].T.contiguous()
+    for cols in (slice(None), slice(3, 4)):        # a tile; (K, 37, 1)
+        args = [t[:, :, cols].contiguous() for t in kf]
+        args += [ha, hb[:, cols].contiguous(), ca, cb[cols].contiguous()]
+        c_u = cu[:, cols].contiguous()
+        before = jm.launches
+        got = jm.joint_triples(*args, c_u, p=p, kmin=kmin)
+        assert jm.launches == before + 1
+        want = jm.joint_triples_plain(*args, c_u, p=p, kmin=kmin)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        derived = jm.joint_triples(*args, p=p, kmin=kmin)
+        np.testing.assert_array_equal(
+            derived.cpu().numpy(),
+            jm.joint_triples_plain(*args, p=p, kmin=kmin).cpu().numpy())
+
+
+@pytest.mark.parametrize("p,B,L", [(12, 300, 128), (16, 4096, 300),
+                                   (25, 64, 200)])
+def test_sparse_read_filter_on_the_card(rng, cuda, p, B, L):
+    """The sparse statistics on the card bitwise equal to the CPU run of
+    the same code, and its triples (row estimates + K5 given c_u) within
+    the row-estimate kernel's rtol 1e-5 of the cardinalities: the starts
+    of the two devices may differ in the last bit, and where the guard
+    then decides differently (a float32 likelihood tie) a read's triple
+    moves by one Newton correction; CI within 5e-2 there, 1e-3 elsewhere."""
+    from dashing_tpu_torch.hashes import wang_hash
+    from dashing_tpu_torch.ops.hll_update import bucket_rank
+    from dashing_tpu_torch.sketch import sparse
+    m = 1 << p
+    pool = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, 200_000,
+                                         dtype=np.int64))
+    regs = torch.zeros(m, dtype=torch.int32)
+    i, r = bucket_rank(wang_hash(pool), p)
+    regs.scatter_reduce_(0, i, r.to(torch.int32), "amax")
+    hist = torch.bincount(regs.long(), minlength=64 - p + 2).float()
+    take = torch.from_numpy(rng.integers(0, pool.numel(), (B, L)))
+    h = wang_hash(torch.where(torch.from_numpy(rng.random((B, L)) < 0.7),
+                              pool[take], take * 7919 + 1))
+    idx, rank = bucket_rank(h, p)
+    rank[:, -L // 10:] = 0
+    kb = sparse.level_window_bins(int(max(rank.max(), regs.max())), 64 - p)
+    cpu = sparse.sparse_pair_stats(idx, rank, regs, hist[:kb], p, kb)
+    dev = [t.to(cuda) for t in (idx, rank, regs, hist[:kb])]
+    got = sparse.sparse_pair_stats(*dev, p, kb)
+    for key in cpu:
+        assert torch.equal(got[key].cpu(), cpu[key]), key
+    b3, b5 = um.estimate_launches, jm.launches
+    tri = sparse.sparse_joint_triples(*dev, p, kb).cpu().numpy()
+    assert (um.estimate_launches, jm.launches) == (b3 + 3, b5 + 1)
+    want = sparse.sparse_joint_triples(idx, rank, regs, hist[:kb], p,
+                                       kb).numpy()
+    assert np.isfinite(tri).all()
+    ci = [t[:, 2] / np.maximum(t[:, 0] + t[:, 2], 1e-30) for t in (tri, want)]
+    err = np.abs(ci[0] - ci[1])
+    assert err.max() <= 5e-2 and (err > 1e-3).mean() <= 0.05
+
+
+def test_weighted_labels_on_the_card(rng, cuda):
+    """The occurrence labels and the --wj-exact registers on the card
+    equal the CPU's bitwise."""
+    from dashing_tpu_torch.sketch import weighted
+    vals = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, 5000,
+                                         dtype=np.int64))
+    h = vals[torch.from_numpy(rng.integers(0, 5000, (400, 1000)))]
+    h[0, :5] = -1
+    valid = torch.from_numpy(rng.random((400, 1000)) < 0.9)
+    lab, sv = weighted.occurrence_labels_device(h.to(cuda), valid.to(cuda))
+    want, wsv = weighted.occurrence_labels_device(h, valid)
+    assert torch.equal(sv.cpu(), wsv)
+    assert torch.equal(lab.cpu()[wsv], want[wsv])
+    regs = pipeline._wj_label_update(h.to(cuda), valid.to(cuda), 14)
+    assert torch.equal(regs.cpu(), pipeline._wj_label_update(h, valid, 14))
