@@ -132,6 +132,24 @@ Phases, each printing its own lines with seconds:
                   database: each copy's best match its genome at
                   containment 1 (1e-5), each fresh copy's in its family;
                   K4's joint form and K5 launch
+              (l), (m) readfilt and weighted Jaccard (phase_e2e_readfilt)
+              (n) phase `setsketch`, the set sketches over (b)'s 100
+                  genomes at k31 S16 (b-bit p = 15, bottom-k kk = 8,192):
+                  8 genomes' device b-bit minima (est_cardinality_ too)
+                  and bottom-k values bitwise equal to the host addh_np
+                  route, and a synthetic tile (top bit, 0, all ones, a
+                  run of copies) against the plain versions; the device
+                  spans of the encoders, the scatter-min and the bottom-k
+                  merge (CUDA events); `dist -M -b` walls under -8 and
+                  --use-range-minhash (planted pairs within 0.25 d +
+                  0.001), `sketch -o` of 20 then `dist -H` bit for bit
+                  that corner of the matrix; `dist -8 -Q` with 10 byte
+                  copies of references (Jaccard 1) and
+                  --nearest-neighbors 5; the
+                  host-route families (--use-bloom-filter, the counting
+                  forms) over a cut of 6 genomes; metrics buckets
+                  (host.parse, sketch.dispatch, sketch.host_insert,
+                  compare.host) beside each wall
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
 and -J -Q runs; banked K1 from e2e (h)'s sketch, banked K2 from e2e (j)'s
@@ -272,8 +290,8 @@ def phase_device():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(smi.stdout.strip().splitlines()[0])
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
-        f"({time.perf_counter() - t0:.2f}s)")
+        f"numpy {np.__version__} {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()} ({time.perf_counter() - t0:.2f}s)")
 
 
 def phase_build():
@@ -1518,6 +1536,7 @@ def phase_e2e(dev, bank, other, counts, records):
         _config2_kernels(dev, sketches, records)
         hlls, cond_m = _e2e_joint_bank(bank, tmp)
         _e2e_query(dev, other, hlls, cond_m, paths[:20], tmp, counts)
+        _e2e_setsketch(dev, genomes, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2014,6 +2033,249 @@ def _e2e_query(dev, other, hlls, cond_m, genomes, tmp, counts):
         "for bit equal to e2e (d)'s condensed -M matrix")
     _corner_vs_cpu(hlls, queries, mash, mash_j)
     log(f"[e2e g] total {time.perf_counter() - t_all:.1f}s")
+
+
+# e2e (n): the set sketches over config 2's genomes
+SET_P, SET_KK = 15, 8192   # what make_typed gives -S 16 (b = 16)
+SET_CHECK = 8              # genomes whose device routes meet the host route
+# genomes of the host-route families (Bloom filter, the counting forms):
+# their numpy builders take 0.43-2.52 s a 5 Mbp genome on the H100
+# machine's host (the counting b-bit form's lexsort the most), so all 100
+# would hold the phase for over five minutes; 6 take about 22 s
+SET_CUT = 6
+# genomes sketched to a file and compared again (`sketch -o`, `dist -H`):
+# the first 20, whose matrix is a corner of the 100 genomes' (each pair's
+# value depends on that pair alone); `sketch -o -8` writes 256 KiB of
+# random minima a genome at gzip level 9, ~0.14 s a genome
+SET_RELOAD = 20
+SET_DEVICE_RUNS = (("-8", "b-bit MinHash"),
+                   ("--use-range-minhash", "bottom-k"))
+SET_HOST_RUNS = (("--use-bloom-filter", "Bloom filter"),
+                 ("--use-counting-range-minhash", "counting bottom-k"),
+                 ("--use-counting-bb-minhash", "counting b-bit MinHash"))
+SET_QUERIES = {3 + 10 * i: i for i in range(10)}   # reference: query
+
+
+def _metrics_run(argv, what):
+    """_timed with the metrics buckets on: (wall, buckets)."""
+    from dashing_tpu_torch import metrics
+    metrics._ENABLED = True
+    metrics._totals.clear()
+    try:
+        wall = _timed(argv, what)
+        return wall, dict(metrics._totals)
+    finally:
+        metrics._ENABLED = False
+        metrics._totals.clear()
+        metrics._counts.clear()
+
+
+def _buckets(b) -> str:
+    return ", ".join(f"{k} {v:.3f}s" for k, v in sorted(b.items())
+                     if k.startswith(("sketch", "host", "compare",
+                                      "cardinality")))
+
+
+def _setsketch_tile_check(dev):
+    """The scatter-min and the bottom-k merge on the card against their
+    plain numpy versions on one synthetic 256 x 8192 tile: a quarter of
+    the hashes with the top bit set, zero, all ones, 1 << 63, a run of
+    100,000 copies of one value, a fifth of the lanes invalid."""
+    import torch
+    from dashing_tpu_torch.ops import minhash_update as mu
+    rng = np.random.default_rng(SEED + 9)
+    h = rng.integers(-2 ** 63, 2 ** 63 - 1, (256, 8192), dtype=np.int64,
+                     endpoint=True)
+    h[:64] |= np.int64(-2 ** 63)
+    h[0, :3] = (0, -1, -2 ** 63)
+    h.reshape(-1)[1000:101000] = h[5, 5]
+    valid = rng.random(h.shape) > 0.2
+    valid[0, :3] = True
+    hu = h.view(np.uint64)
+    bank = mu.empty_bank(SET_P, dev)
+    mu.bbmh_update(bank, torch.from_numpy(h).to(dev),
+                   torch.from_numpy(valid).to(dev), SET_P)
+    want = mu.bbmh_update_np(np.full(1 << SET_P, np.uint64(2 ** 64 - 1)),
+                             hu, valid, SET_P)
+    if not np.array_equal(mu.to_numpy(bank), want):
+        fail("e2e (n): the scatter-min on the card differs from "
+             "np.minimum.at on the synthetic tile")
+    run = mu.bottomk_update(mu.empty_values(dev), torch.from_numpy(h).to(dev),
+                            torch.from_numpy(valid).to(dev), SET_KK)
+    if not np.array_equal(mu.to_numpy(run),
+                          mu.bottomk_update_np(np.zeros(0, np.uint64), hu,
+                                               valid, SET_KK)):
+        fail("e2e (n): the bottom-k merge on the card differs from "
+             "np.union1d on the synthetic tile")
+    log("[e2e n] synthetic tile (top bit, 0, all ones, a run of 100,000 "
+        "copies): scatter-min and bottom-k on the card bitwise equal to "
+        "their plain versions")
+
+
+def _setsketch_device_ms(dev, paths):
+    """Each tile of `paths` through the encoders, the scatter-min and the
+    bottom-k merge, CUDA events around each step: (tiles, encoder ms,
+    scatter-min ms, bottom-k ms) summed.  A span between two events also
+    holds the device's wait for the host (the encoders' ~200 launches a
+    tile; the bottom-k mask's sync)."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import minhash_update as mu
+    params = pipeline.SketchParams(k=31)
+    sp = params.spacer()
+    kw = pipeline._encode_kw(params, sp)
+
+    def spans(path):
+        out, tiles = np.zeros(3), 0
+        bank = mu.empty_bank(SET_P, dev)
+        run = mu.empty_values(dev)
+        for tile in pipeline._file_tiles(path, sp):
+            t = torch.from_numpy(tile).to(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            h, valid = pipeline.tile_hashes(t, **kw)
+            ev[1].record()
+            mu.bbmh_update(bank, h, valid, SET_P)
+            ev[2].record()
+            run = mu.bottomk_update(run, h, valid, SET_KK)
+            ev[3].record()
+            torch.cuda.synchronize()
+            out += [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+            tiles += 1
+        return tiles, out
+
+    spans(paths[0])                               # warm-up
+    tiles, tot = 0, np.zeros(3)
+    for path in paths:
+        n, ms = spans(path)
+        tiles, tot = tiles + n, tot + ms
+    return tiles, tot
+
+
+def _e2e_setsketch(dev, genomes, tmp):
+    """e2e (n): the set sketches over config 2's 100 genomes, k31 S16."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.sketch.setsketches import BBitMinHash, BottomK
+    paths = [g[0] for g in genomes]
+    total_bases = sum(os.path.getsize(q) for q in paths)
+    sizes = os.path.join(tmp, "n.sizes")
+    params = pipeline.SketchParams(k=31)
+    # the device routes against the host route (file_raw_kmers, addh_np)
+    check = paths[::len(paths) // SET_CHECK][:SET_CHECK]
+    secs = dict.fromkeys(("device b-bit", "device bottom-k", "raw k-mers",
+                          "host b-bit", "host bottom-k"), 0.0)
+
+    def step(what, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[what] += time.perf_counter() - t
+        return out
+
+    for path in check:
+        mins = step("device b-bit", lambda: pipeline.sketch_file_bbmh_mins(
+            path, params, SET_P, dev))
+        vals = step("device bottom-k",
+                    lambda: pipeline.sketch_file_bottomk_values(
+                        path, params, SET_KK, dev))
+        raw = step("raw k-mers",
+                   lambda: pipeline.file_raw_kmers(path, params, dev))
+        host, got = BBitMinHash(SET_P), BBitMinHash(SET_P, mins=mins)
+        step("host b-bit", lambda: host.addh_np(raw))
+        for sk in (host, got):
+            sk.finalize()
+        if (not np.array_equal(mins, host.mins)
+                or got.est_cardinality_ != host.est_cardinality_):
+            fail(f"e2e (n) {os.path.basename(path)}: device b-bit minima "
+                 "or est_cardinality_ differ from the host route")
+        hk = BottomK(SET_KK)
+        step("host bottom-k", lambda: hk.addh_np(raw))
+        hk.finalize()
+        if not np.array_equal(vals, hk.values):
+            fail(f"e2e (n) {os.path.basename(path)}: device bottom-k values "
+                 "differ from the host route")
+    log(f"[e2e n] {len(check)} genomes at p={SET_P}, kk={SET_KK}: b-bit "
+        "minima, est_cardinality_ and bottom-k values of the device routes "
+        "bitwise equal to the host addh_np route; seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in secs.items()))
+    _setsketch_tile_check(dev)
+    tiles, ms = _setsketch_device_ms(dev, check)
+    log(f"[e2e n] device spans over {tiles} tiles of {len(check)} genomes "
+        f"(CUDA events): encoders {ms[0] / 1e3:.4f}s, scatter-min "
+        f"{ms[1] / 1e3:.4f}s, bottom-k {ms[2] / 1e3:.4f}s "
+        f"({ms[0] / tiles:.3f} / {ms[1] / tiles:.3f} / {ms[2] / tiles:.3f} "
+        "ms a tile)")
+    for flag, what in SET_DEVICE_RUNS:
+        base = ["dist", "-k", "31", "-S", "16", flag, "-M", "-b"]
+        out = os.path.join(tmp, f"n{flag}.bin")
+        wall, b = _metrics_run(base + ["-O", out, "-o", sizes,
+                                       "--avoid-sorting"] + paths,
+                               f"e2e (n) dist {flag}")
+        _check_planted(out, genomes, f"n {flag}", wall, total_bases)
+        log(f"[e2e n] dist {flag} ({what}) over {len(paths)} genomes: wall "
+            f"{wall:.3f}s; buckets {_buckets(b)}")
+        # save, reload: the matrix of the sketch files is the in-memory
+        # matrix's corner of the first SET_RELOAD genomes, bit for bit
+        stream = os.path.join(tmp, f"n{flag}.stream")
+        sk_wall = _timed(["sketch", "-k", "31", "-S", "16", flag, "-o",
+                          stream, "--avoid-sorting"] + paths[:SET_RELOAD],
+                         f"e2e (n) sketch -o {flag}")
+        again = os.path.join(tmp, f"n{flag}.H.bin")
+        h_wall = _timed(["dist", "-k", "31", "-H", flag, "-M", "-b", "-O",
+                         again, "-o", sizes, stream],
+                        f"e2e (n) dist -H {flag}")
+        n = len(paths)
+        corner = [_cond_index(n, i, j) for i in range(SET_RELOAD)
+                  for j in range(i + 1, SET_RELOAD)]
+        if _read_condensed(again)[1].tobytes() != \
+                _read_condensed(out)[1][corner].tobytes():
+            fail(f"e2e (n) dist -H {flag}: the reloaded sketches' matrix "
+                 "differs from the one sketched in memory")
+        log(f"[e2e n] sketch -o {flag} of {SET_RELOAD} genomes "
+            f"{sk_wall:.3f}s, dist -H over the stream {h_wall:.3f}s: matrix "
+            "bit for bit the in-memory one's corner")
+    # queries: byte copies of references, each at Jaccard 1 to its own
+    qpaths = []
+    for ref, qi in SET_QUERIES.items():
+        qpaths.append(os.path.join(tmp, f"nq{qi}.fa"))
+        shutil.copyfile(paths[ref], qpaths[-1])
+    qfile = _write_list(os.path.join(tmp, "nq.txt"), qpaths)
+    base = ["dist", "-k", "31", "-S", "16", "-8", "--avoid-sorting", "-Q",
+            qfile, "-b", "-o", sizes]
+    out = os.path.join(tmp, "nQ.bin")
+    wall = _timed(base + ["-O", out] + paths, "e2e (n) dist -8 -Q")
+    mat = np.fromfile(out, "<f4").reshape(len(qpaths), len(paths))
+    if not np.isfinite(mat).all():
+        fail("e2e (n) dist -8 -Q: non-finite values")
+    for ref, qi in SET_QUERIES.items():
+        if mat[qi, ref] != 1.0 or mat[qi].argmax() != ref:
+            fail(f"e2e (n) dist -8 -Q: query {qi} at {mat[qi, ref]} to its "
+                 f"reference {ref} (row max at {mat[qi].argmax()})")
+    out_nn = os.path.join(tmp, "nNN.bin")
+    nn_wall = _timed(base + ["--nearest-neighbors", "5", "-O", out_nn]
+                     + paths, "e2e (n) dist -8 -Q --nearest-neighbors 5")
+    ids, vals = _read_nn_bin(out_nn)
+    for ref, qi in SET_QUERIES.items():
+        if ids[qi, 0] != ref or vals[qi, 0] != 1.0:
+            fail(f"e2e (n) --nearest-neighbors: query {qi}'s first "
+                 f"neighbour {ids[qi, 0]} at {vals[qi, 0]}, not {ref} at 1")
+    log(f"[e2e n] dist -8 -Q, 10 byte copies x {len(paths)} references: "
+        f"each copy at Jaccard 1 to its reference ({wall:.3f}s); "
+        f"--nearest-neighbors 5 its first neighbour ({nn_wall:.3f}s)")
+    cut = paths[:SET_CUT]
+    for flag, what in SET_HOST_RUNS:
+        out = os.path.join(tmp, f"n{flag}.bin")
+        wall, b = _metrics_run(["dist", "-k", "31", "-S", "16", flag, "-M",
+                                "-b", "-O", out, "-o", sizes,
+                                "--avoid-sorting"] + cut,
+                               f"e2e (n) dist {flag}")
+        n, cond = _read_condensed(out)
+        if n != len(cut) or not np.isfinite(cond).all():
+            fail(f"e2e (n) dist {flag}: bad matrix n={n}")
+        log(f"[e2e n] dist {flag} ({what}, host route) over {len(cut)} "
+            f"genomes: wall {wall:.3f}s; buckets {_buckets(b)}")
 
 
 def _phase_times(dev, paths, total_bases):

@@ -5,10 +5,13 @@ layout so each module has an obvious counterpart:
 
   device      -- explicit device resolution (no silent CPU fallback)
   hashes      -- WangHash on int64 tensors (64-bit two's complement)
-  ops         -- encoders, HLL register update, the hand-written CUDA
-                 kernels (csrc/) with their plain PyTorch versions,
-                 all-pairs comparison
-  sketch      -- HLL container and the Ertl estimator family
+  ops         -- encoders, HLL register update, the set sketches' device
+                 steps (minhash_update), the hand-written CUDA kernels
+                 (csrc/) with their plain PyTorch versions, all-pairs
+                 comparison
+  sketch      -- HLL container and the Ertl estimator family; the Bloom
+                 filter, bottom-k and b-bit MinHash sketches and their
+                 numpy compare engines
   pipeline    -- files -> packed tiles -> device registers
   io, native  -- FASTA/FASTQ parsing, sketch names, distance-matrix files
                  (its own copies of the JAX package's host modules and

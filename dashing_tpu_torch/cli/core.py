@@ -1,8 +1,11 @@
-"""Shared CLI machinery (port of dashing_tpu/cli/core.py, the HLL slice).
+"""Shared CLI machinery (port of dashing_tpu/cli/core.py): HLL sketches
+and the set sketches of sketch/setsketches.py (Bloom filter, bottom-k,
+b-bit MinHash and their counting forms).
 
 Flag names, defaults and output formats are the JAX package's.  Flags
-outside the slice are refused with a "not yet ported" error rather than
-computed some other way.
+outside the port (the k-mer hash sets, the wide HLL, HyperMinHash and
+SuperMinHash types, weighted set sketches) are refused with a "not yet
+ported" error rather than computed some other way.
 """
 from __future__ import annotations
 
@@ -22,10 +25,19 @@ import torch
 from .. import NotPorted, metrics, pipeline
 from ..io import cache, paths
 from ..ops import pairwise as pw
-from ..sketch import estimators as est
+from ..sketch import batch_compare, estimators as est
 from ..sketch.hll import HLL, BadMagic, batch_reports
+from ..sketch.setsketches import NOT_PORTED_TYPES, build_typed, \
+    read_typed
 
-HLL_EXT = ".hll"
+# sketch type -> file extension (the JAX CLI's registry)
+SKETCH_EXTS = {"hll": ".hll", "khset": ".khs", "bf": ".bf", "rmh": ".rmh",
+               "bbmh": ".bmh", "crmh": ".crmh", "superminhash": ".bbs",
+               "hmh": ".hmh", "wide_hll": ".whll", "cbbmh": ".cbmh"}
+
+# rows a block of the set-sketch compare engines (the JAX CLI's default
+# DASHING_TPU_HOST_COMPARE_TILE, which sizes its multi-host stripes)
+HOST_COMPARE_TILE = 512
 
 
 def eprint(*a, **kw):
@@ -42,6 +54,9 @@ class CommonOpts:
     encoding: str = "bonsai"       # bonsai | nthash | cyclic
     estim: int = est.ERTL_MLE
     jestim: int = est.ERTL_MLE
+    sketch_type: str = "hll"       # a key of SKETCH_EXTS
+    sketch_type_explicit: bool = False   # set by a --use-* type flag
+    bbnbits: int = 16              # -B/--bbits: b of the b-bit MinHash
     nthreads: int = 1
     paths_file: str = ""
     prefix: str = ""
@@ -73,11 +88,10 @@ def hll_p_from_S(S: int) -> int:
     return S
 
 
-# Options of the JAX CLI that the slice refuses, with the name to report.
-_REFUSED = {
-    "-B": "b-bit MinHash (-B)", "--bbits": "b-bit MinHash",
-    "-8": "non-HLL sketch types",
-}
+# type flags of the JAX CLI that the port refuses, with their type
+_REFUSED_TYPES = {"--use-wide-hll": "wide_hll",
+                  "--use-superminhash": "superminhash",
+                  "--use-hyperminhash": "hmh"}
 
 
 def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
@@ -96,6 +110,7 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "-q": ("nhashes", int), "--nhashes": ("nhashes", int),
         "-t": ("cmsketchsize", int), "--cm-sketch-size": ("cmsketchsize", int),
         "-R": ("seed", int), "--seed": ("seed", int),
+        "-B": ("bbnbits", int), "--bbits": ("bbnbits", int),
     }
     if flag in m:
         name, conv = m[flag]
@@ -119,12 +134,20 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "--use-cyclic-hash": ("encoding", "cyclic"),
         "--wj": ("weighted_jaccard", True),
         "--wj-exact": ("exact_weighted", True),
+        "--use-bb-minhash": ("sketch_type", "bbmh"),
+        "-8": ("sketch_type", "bbmh"),
+        "--use-range-minhash": ("sketch_type", "rmh"),
+        "--use-counting-range-minhash": ("sketch_type", "crmh"),
+        "--use-counting-bb-minhash": ("sketch_type", "cbbmh"),
+        "--use-bloom-filter": ("sketch_type", "bf"),
     }
     if flag in flags:
         name, v = flags[flag]
         setattr(opts, name, v)
         if name == "estim":
             opts.jestim = v
+        elif name == "sketch_type":
+            opts.sketch_type_explicit = True
         return True
     if flag in ("-J", "--ertl-joint-mle"):
         opts.jestim = est.ERTL_JOINT_MLE
@@ -140,15 +163,19 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
             opts.wj_nhashes = int(val)
         opts.weighted_jaccard = True
         return True
-    if flag in _REFUSED:
-        raise NotPorted(_REFUSED[flag])
+    if flag in _REFUSED_TYPES:
+        raise NotPorted(NOT_PORTED_TYPES[_REFUSED_TYPES[flag]])
     if flag.startswith("--use-") or flag.endswith("-sets"):
-        raise NotPorted(f"{flag} (non-HLL sketch types)")
+        raise NotPorted(f"{flag} (k-mer hash sets)")
     return False
 
 
 def validate_k(opts: CommonOpts):
-    """The JAX CLI's checks of k against the encoding, word for word."""
+    """The JAX CLI's checks of k against the encoding, word for word; and
+    the port's refusal of weighted set sketches."""
+    if opts.weighted and opts.sketch_type != "hll":
+        raise NotPorted(f"--wj/--wj-exact with {opts.sketch_type} sketches "
+                        "(weighted set sketches)")
     if opts.k > 32 and opts.encoding == "bonsai":
         raise SystemExit("k must be <= 32 for non-rolling hashes.")
     if opts.k > 32 and opts.spacing:
@@ -180,8 +207,7 @@ def gather_inpaths(opts: CommonOpts, positional: List[str]) -> List[str]:
             else list(positional))
 
 
-# file magic -> sketch family of every DTPU container (the JAX CLI's
-# table); the port reads the HLL family only
+# file magic -> sketch family of every DTPU container (the JAX CLI's table)
 MAGIC_TYPES = {b"DTPUHLL1": "hll", b"DTPUBF01": "bf", b"DTPURMH1": "rmh",
                b"DTPUCRM1": "crmh", b"DTPUBBM1": "bbmh",
                b"DTPUCBB1": "cbbmh",
@@ -189,44 +215,61 @@ MAGIC_TYPES = {b"DTPUHLL1": "hll", b"DTPUBF01": "bf", b"DTPURMH1": "rmh",
                b"DTPUSMH1": "superminhash", b"DTPUSMH2": "superminhash"}
 
 
-def _refuse_family(what, magic: bytes) -> None:
-    family = MAGIC_TYPES.get(magic)
-    if family is not None and family != "hll":
-        raise NotPorted(f"reading {family} sketches ({what})")
-
-
 def read_hll(path_or_fp) -> HLL:
-    """Load one HLL record from a path or a stream.  Another DTPU family is
-    refused by name; a file that is no sketch fails on its magic."""
+    """Load one HLL record from a path or a stream.  A family the port
+    does not read is refused by name; a file that is no sketch fails on
+    its magic."""
     try:
         return HLL.read(path_or_fp)
     except BadMagic as e:
-        _refuse_family(path_or_fp, e.magic)
+        family = MAGIC_TYPES.get(e.magic)
+        if family in NOT_PORTED_TYPES:
+            raise NotPorted(f"reading {NOT_PORTED_TYPES[family]}")
         raise
 
 
-def read_sketch_auto(path: str) -> HLL:
-    """The JAX CLI's `read_sketch_auto` for the HLL family: the magic is
-    sniffed first, and any other family (a .khs, a bloom filter, a MinHash)
-    is refused rather than loaded as something else."""
+def _sniff_sketch_type(path: str) -> Optional[str]:
     try:
         with gzip.open(path, "rb") as fp:
-            magic = fp.read(8)
+            t = MAGIC_TYPES.get(fp.read(8))
     except OSError:
-        magic = b""
-    if path.endswith(".khs") and magic not in MAGIC_TYPES:
+        return None
+    if t is None and path.endswith(".khs"):
+        return "khset"    # reference-compatible khset files carry no magic
+    return t
+
+
+def read_sketch_auto(path, sketch_type: str = "hll", explicit: bool = False):
+    """Load a sketch from a path or a stream (the JAX CLI's
+    `read_sketch_auto`): a path's type is sniffed from its magic; one that
+    contradicts an explicitly requested type (a --use-* flag) stops the
+    run, one that contradicts the default type is loaded as what it is,
+    with a note.  A stream is read as `sketch_type`.  The k-mer hash sets
+    and the JAX package's `extra` types are refused by name."""
+    sniffed = _sniff_sketch_type(path) if isinstance(path, str) else None
+    if sniffed and sniffed != sketch_type:
+        if explicit:
+            raise SystemExit(
+                f"{path} is a {sniffed} sketch but {sketch_type} was "
+                f"explicitly requested; drop the type flag to auto-detect "
+                f"or re-sketch the input")
+        eprint(f"Note: {path} is a .{SKETCH_EXTS[sniffed].lstrip('.')} "
+               f"sketch; loading as {sniffed} (requested {sketch_type})")
+        sketch_type = sniffed
+    if sketch_type == "hll":
+        return read_hll(path)
+    if sketch_type == "khset":
         raise NotPorted(f"reading khset sketches ({path})")
-    _refuse_family(path, magic)
-    return HLL.read(path)
+    return read_typed(path, sketch_type)
 
 
 def _cache_fname(path: str, opts: CommonOpts, wj_ext: bool = True) -> str:
     """The -W cache file name of a path (cache.make_fname, the `.w.`
-    quirk included); a weighted sketch's extension is `.wj.exact.hll` or
-    `.wj.hll` unless `wj_ext` is off (`sketch` names its outputs without
-    it, as the JAX CLI does)."""
+    quirk included), its extension the sketch type's; a weighted sketch's
+    is `.wj.exact.hll` or `.wj.hll` unless `wj_ext` is off (`sketch`
+    names its outputs without it, as the JAX CLI does)."""
     sp = sketch_params(opts).spacer()
-    ext = HLL_EXT
+    ext = SKETCH_EXTS[opts.sketch_type]
     if wj_ext and opts.exact_weighted:
         ext = ".wj.exact" + ext
     elif wj_ext and opts.weighted_jaccard:
@@ -236,7 +279,7 @@ def _cache_fname(path: str, opts: CommonOpts, wj_ext: bool = True) -> str:
                             opts.prefix, opts.encoding, ext)
 
 
-def atomic_write_sketch(sk: HLL, fname: str) -> None:
+def atomic_write_sketch(sk, fname: str) -> None:
     """Write then rename: concurrent writers of one cache file each make a
     whole file and the last rename wins."""
     tmp = f"{fname}.tmp.{os.getpid()}"
@@ -372,10 +415,35 @@ def weighted_registers(path: str, tiles, opts: CommonOpts,
 def weighted_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
                  filter_idx=None, filt_min_count: Optional[int] = None):
     """device_hll_run for weighted sketches: calls put(index, (2^p,) uint8
-    registers) file by file, in order, the next files' parse prefetched
-    behind each build; -W loads and writes `.wj[.exact].hll` cache files.
-    Count-min filtering as in device_hll_jobs (a filtered file takes the
-    host route)."""
+    registers) file by file (host_run; cache files `.wj[.exact].hll`)."""
+    p = hll_p_from_S(opts.sketch_size)
+
+    def build(path, tiles, params):
+        return HLL(p, opts.estim, opts.jestim,
+                   weighted_registers(path, tiles, opts, params, device))
+
+    host_run(indexed_paths, opts, lambda i, sk: put(i, sk.regs), build,
+             filter_idx, filt_min_count)
+
+
+def typed_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
+              filter_idx=None, filt_min_count: Optional[int] = None):
+    """The set-sketch engine (JAX `_sketch_paths_generic`): calls put(index,
+    sketch of opts.sketch_type) file by file (host_run;
+    setsketches.build_typed)."""
+    host_run(indexed_paths, opts, put,
+             lambda path, tiles, params: build_typed(
+                 opts.sketch_type, path, opts, params, device, tiles),
+             filter_idx, filt_min_count)
+
+
+def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
+             filt_min_count: Optional[int] = None):
+    """The engine of the sketches built file by file: calls put(index,
+    sketch) in order, sketch = build(path, tiles, params), the next
+    files' parse prefetched behind each build; -W loads and writes the
+    cache files.  filter_idx / filt_min_count as in device_hll_jobs (a
+    count-min filtered file takes the host route)."""
     if filt_min_count is None:
         filt_min_count = opts.mincount if opts.mincount > 1 else 2
     base = sketch_params(opts)
@@ -386,22 +454,21 @@ def weighted_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
     for i, path in indexed_paths:
         fname = _cache_fname(path, opts) if opts.cache_sketch else None
         if fname is not None and os.path.isfile(fname):
-            put(i, read_sketch_auto(fname).regs)
+            put(i, read_sketch_auto(fname, opts.sketch_type,
+                                    opts.sketch_type_explicit))
         else:
             todo.append((i, path, fname))
     paths_of = {i: (path, fname) for i, path, fname in todo}
     sp = pipeline.check_supported(base)
-    p = hll_p_from_S(opts.sketch_size)
     for i, tiles in _prefetched_tiles([(i, pa) for i, pa, _ in todo], sp):
         path, fname = paths_of[i]
         params = dataclasses.replace(
             base, use_counting_filter=i in filter_idx,
             min_count=filt_min_count)
-        regs = weighted_registers(path, tiles, opts, params, device)
+        sk = build(path, tiles, params)
         if fname is not None:
-            atomic_write_sketch(HLL(p, opts.estim, opts.jestim, regs),
-                                fname)
-        put(i, regs)
+            atomic_write_sketch(sk, fname)
+        put(i, sk)
 
 
 def device_hll_run(indexed_paths, opts: CommonOpts, put,
@@ -461,15 +528,21 @@ def device_hll_run(indexed_paths, opts: CommonOpts, put,
 
 
 def sketch_paths(paths_list: List[str], opts: CommonOpts,
-                 device: torch.device) -> List[HLL]:
-    """Sketch or load many logical paths into HLLs.  Under -W a sketch
-    whose registers mkdist parked on the device carries them as
-    `dev_regs`, so the compare stacks its bank there
-    (ops/pairwise._device_regs_for)."""
+                 device: torch.device) -> List:
+    """Sketch or load many logical paths: HLLs, or the set sketches of
+    opts.sketch_type.  Under -W an HLL whose registers mkdist parked on
+    the device carries them as `dev_regs`, so the compare stacks its bank
+    there (ops/pairwise._device_regs_for)."""
     if opts.presketched:
-        return [read_sketch_auto(path) for path in paths_list]
-    p = hll_p_from_S(opts.sketch_size)
+        return [read_sketch_auto(path, opts.sketch_type,
+                                 opts.sketch_type_explicit)
+                for path in paths_list]
     out: List = [None] * len(paths_list)
+    if opts.sketch_type != "hll":
+        typed_run(list(enumerate(paths_list)), opts, out.__setitem__,
+                  device)
+        return out
+    p = hll_p_from_S(opts.sketch_size)
     run = weighted_run if opts.weighted else device_hll_run
     run(list(enumerate(paths_list)), opts,
         lambda i, regs: out.__setitem__(
@@ -484,39 +557,123 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
 
 
 def check_compatible(sketches):
-    ps = {s.p for s in sketches}
+    """Stop on mixed sketch parameters (e.g. different -S among
+    presketched inputs) with the JAX CLI's messages, before an engine
+    compares garbage or fails on a shape."""
+    ps = {getattr(s, "p", None) for s in sketches}
+    ps.discard(None)
     if len(ps) > 1:
         raise SystemExit(
             f"sketches have mixed precisions p={sorted(ps)}; re-sketch with "
             "a common -S or fold the larger ones down (dashing_tpu fold)")
+    for attr, what in (("kk", "minhash sizes"), ("b", "register widths"),
+                       ("nbits_log2", "bloom filter sizes"),
+                       ("nhashes", "bloom hash counts")):
+        vals = {getattr(s, attr, None) for s in sketches}
+        vals.discard(None)
+        if len(vals) > 1:
+            raise SystemExit(
+                f"sketches have mixed {what} {attr}={sorted(vals)}; "
+                "re-sketch with common parameters")
+    types = {type(s).__name__ for s in sketches}
+    if len(types) > 1:
+        raise SystemExit(f"mixed sketch types {sorted(types)} cannot be "
+                         "compared")
+
+
+def host_measure(tri: np.ndarray, result_type: int, ksinv: float,
+                 device: torch.device) -> np.ndarray:
+    """float64 triples -> float32 measures by pw.measure_from_triples on
+    `device` (the triples rounded to float32 first, as the JAX CLI does)."""
+    t = torch.from_numpy(np.asarray(tri, np.float32)).to(device)
+    return pw.measure_from_triples(t, result_type, ksinv).cpu().numpy()
 
 
 def compare_condensed(sketches, result_type: int, k: int, estim: int,
                       jestim: int, device: torch.device,
                       out: Optional[np.ndarray] = None) -> np.ndarray:
-    """Symmetric all-pairs condensed vector over HLL sketches."""
+    """Symmetric all-pairs condensed vector: the device tile engine for
+    HLL sketches; for the set sketches the batched numpy engines over
+    blocks of HOST_COMPARE_TILE rows of the upper triangle (a block's
+    rows pack contiguously in the condensed vector), each block's
+    measures in one call on `device`."""
     check_compatible(sketches)
-    return pw.all_pairs_condensed(sketches, result_type, k, estim, jestim,
-                                  device, out=out)
+    if isinstance(sketches[0], HLL):
+        return pw.all_pairs_condensed(sketches, result_type, k, estim,
+                                      jestim, device, out=out)
+    n = len(sketches)
+    if out is None:
+        out = np.empty(n * (n - 1) // 2, np.float32)
+    T = HOST_COMPARE_TILE
+    for i0 in range(0, n, T):
+        with metrics.accum("compare.host"):
+            rect = batch_compare.batch_triples(sketches[i0:i0 + T],
+                                               sketches[i0:])
+            tri = np.concatenate([rect[ii, ii + 1:]
+                                  for ii in range(rect.shape[0])])
+        if tri.shape[0]:
+            start = (i0 * (2 * n - i0 - 1)) // 2
+            out[start:start + tri.shape[0]] = host_measure(
+                tri, result_type, 1.0 / k, device)
+    return out
 
 
 def compare_rect(refs, queries, result_type: int, k: int, estim: int,
                  jestim: int, device: torch.device) -> np.ndarray:
-    """Query x reference (nq, nr) matrix over HLL sketches, the reference
-    on the lhs of each pair's triples."""
+    """Query x reference (nq, nr) matrix, the reference on the lhs of
+    each pair's triples: the device tile engine for HLL sketches, the
+    batched numpy engines for the set sketches."""
     check_compatible(list(refs) + list(queries))
-    return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
-                         device)
+    if isinstance(refs[0], HLL):
+        return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
+                             device)
+    with metrics.accum("compare.host"):
+        tri = batch_compare.batch_triples(refs, queries).transpose(1, 0, 2)
+    return host_measure(tri.reshape(-1, 3), result_type, 1.0 / k,
+                        device).reshape(len(queries), len(refs))
+
+
+def host_nn_topk(refs, queries, result_type: int, k: int, nn: int,
+                 exclude_self: bool, device: torch.device,
+                 tile: int = HOST_COMPARE_TILE):
+    """Streaming k-nearest neighbours of the set sketches -> (vals, idx),
+    each (n_q, nn): reference tiles through compare_rect and a stable host
+    merge, O(n_q * (nn + tile)) memory.  Ties order by ascending reference
+    index, as the dense argsort would: a tile's stable argsort keeps them
+    in index order and earlier tiles come first in the merge."""
+    sim = pw.is_similarity(result_type)
+    nq, nr = len(queries), len(refs)
+    nn = min(nn, nr)
+    worst = -np.inf if sim else np.inf
+    best_v = np.full((nq, 0), worst, np.float32)
+    best_i = np.zeros((nq, 0), np.int64)
+    for j0 in range(0, nr, tile):
+        block = compare_rect(refs[j0:j0 + tile], queries, result_type, k,
+                             0, 0, device)
+        rt = block.shape[1]
+        if exclude_self:
+            for qi in range(max(j0, 0), min(j0 + rt, nq)):
+                block[qi, qi - j0] = worst
+        idx = np.argsort(-block if sim else block, axis=1,
+                         kind="stable")[:, :nn]
+        cat_v = np.concatenate(
+            [best_v, np.take_along_axis(block, idx, 1)], axis=1)
+        cat_i = np.concatenate([best_i, idx + j0], axis=1)
+        order = np.argsort(-cat_v if sim else cat_v, axis=1,
+                           kind="stable")[:, :nn]
+        best_v = np.take_along_axis(cat_v, order, 1)
+        best_i = np.take_along_axis(cat_i, order, 1)
+    return pw.pad_nn_candidates(best_v, best_i, nn, worst)
 
 
 def emit_cardinalities(fp, names: Sequence[str], sketches,
                        device: torch.device, integer: bool = True,
                        use_scientific: bool = False):
     """'#Path\\tSize (est.)' then one line per sketch: '%s\\t%zu' (dist),
-    or the float as `card` prints it.  The estimates come from one batched
-    call per (p, estimator) on `device`."""
+    or the float as `card` prints it.  HLL estimates come from one batched
+    call per (p, estimator) on `device`; a set sketch reports its own."""
     with metrics.accum("cardinality"):
-        batch_reports(sketches, device)
+        batch_reports([s for s in sketches if isinstance(s, HLL)], device)
     fp.write("#Path\tSize (est.)\n")
     for name, sk in zip(names, sketches):
         card = sk.report()

@@ -1,4 +1,4 @@
-"""dashing_tpu_torch command-line interface (the HLL slice).
+"""dashing_tpu_torch command-line interface.
 
     python -m dashing_tpu_torch.cli sketch [opts] genomes...
     python -m dashing_tpu_torch.cli dist   [opts] genomes...
@@ -19,12 +19,16 @@ k-nearest neighbours (--nearest-neighbors);
 per-k matrices (mkdist, with --jukes-cantor), one sketch a record
 (sketch_by_seq/sbs) and their compare (dist_by_seq/cmp_by_seq), a query
 screen against a sketch database (panel), the reads contained in a
-reference sketch (readfilt); cardinalities (card, hll) and the HLL file
-tools (union, view, fold, printmat, flatten).  Everything else (the
-non-HLL sketch families) is refused with a "not yet ported" error.  The
-device comes from DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for
-CUDA without a card raises.  The file tools
-run on the host and never create a device.
+reference sketch (readfilt); cardinalities (card, hll) and the file
+tools (union, view, fold, printmat, flatten).  The set sketches (-8 /
+--use-bb-minhash with -B bits, --use-counting-bb-minhash,
+--use-range-minhash, --use-counting-range-minhash, --use-bloom-filter)
+run through sketch, dist, card, union -r/-b, view, mkdist, sketch_by_seq
+and dist_by_seq -B/-S/-8/-r.  Everything else (the k-mer hash sets, the
+wide HLL, HyperMinHash and SuperMinHash types, weighted set sketches) is
+refused with a "not yet ported" error.  The device comes from
+DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a
+card raises.  The file tools run on the host and never create a device.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from ..io import distmat, fasta, paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
 from ..sketch.hll import HLL, batch_reports
+from ..sketch.setsketches import make_typed
 from . import core
 from .core import CommonOpts, NotPorted, eprint
 
@@ -176,7 +181,7 @@ def dist_main(argv: List[str], device) -> int:
         with gzip.open(allpaths[0], "rb") as fp:
             while True:
                 try:
-                    sketches.append(core.read_hll(fp))
+                    sketches.append(core.read_sketch_auto(fp, o.sketch_type))
                 except EOFError:
                     break
         names = [str(i) for i in range(len(sketches))]
@@ -187,8 +192,9 @@ def dist_main(argv: List[str], device) -> int:
         sketches = sketches + sketches       # the aliased query half
         names = names + names
     for sk in sketches:
-        sk.estim = o.estim
-        sk.jestim = o.jestim
+        if isinstance(sk, HLL):
+            sk.estim = o.estim
+            sk.jestim = o.jestim
 
     fp_sizes, close_sizes = core.open_output(out_sizes)
     core.emit_cardinalities(fp_sizes, names, sketches, device)
@@ -281,9 +287,13 @@ def _nn_emit(sketches, names, o: CommonOpts, result_type: int, emit_fmt: int,
     queries = sketches[nref:] if nq else sketches
     with metrics.phase("nearest-neighbour compare", items=npairs * nref,
                        unit="pairs"):
-        vals, order = pw.nn_topk(refs, queries, result_type, o.k, o.estim,
-                                 o.jestim, nn, exclude_self=not nq,
-                                 device=device)
+        if isinstance(sketches[0], HLL):
+            vals, order = pw.nn_topk(refs, queries, result_type, o.k,
+                                     o.estim, o.jestim, nn,
+                                     exclude_self=not nq, device=device)
+        else:
+            vals, order = core.host_nn_topk(refs, queries, result_type, o.k,
+                                            nn, not nq, device)
     if emit_fmt == BINARY:
         fp, close = core.open_output(out_dists, binary=True)
         fp.write(np.uint32(npairs).tobytes())
@@ -369,24 +379,27 @@ def sketch_main(argv: List[str], device) -> int:
         # -c: a file whose sketch file exists is not sketched again
         if skip_cached and os.path.isfile(fnames[i]):
             if output_file:
-                results[i] = core.read_sketch_auto(fnames[i])
+                results[i] = core.read_sketch_auto(
+                    fnames[i], o.sketch_type, o.sketch_type_explicit)
             continue
         todo.append((i, path))
 
-    def put(i, regs):
-        sk = HLL(p, o.estim, o.jestim, regs)
+    def land(i, sk):
         if output_file:
             results[i] = sk
         else:
             core.atomic_write_sketch(sk, fnames[i])
 
     # -b filters every file, -f the FASTQ ones, at the threshold -n
-    run = core.weighted_run if o.weighted else core.device_hll_run
-    run(todo, o, put, device,
-        filter_idx={i for i, path in todo
-                    if o.use_counting_filter
-                    or (o.sketch_by_fname and fasta.fname_is_fq(path))},
-        filt_min_count=o.mincount)
+    filter_idx = {i for i, path in todo
+                  if o.use_counting_filter
+                  or (o.sketch_by_fname and fasta.fname_is_fq(path))}
+    if o.sketch_type != "hll":
+        core.typed_run(todo, o, land, device, filter_idx, o.mincount)
+    else:
+        run = core.weighted_run if o.weighted else core.device_hll_run
+        run(todo, o, lambda i, regs: land(i, HLL(p, o.estim, o.jestim, regs)),
+            device, filter_idx=filter_idx, filt_min_count=o.mincount)
     if output_file:
         with gzip.open(output_file + ".labels.gz", "wt") as fp:
             for path in inpaths:
@@ -434,7 +447,7 @@ def card_main(argv: List[str], device) -> int:
     inpaths += querypaths
     sketches = core.sketch_paths(inpaths, o, device)
     if emit_binary:
-        batch_reports(sketches, device)
+        batch_reports([s for s in sketches if isinstance(s, HLL)], device)
         fp, close = core.open_output(out, binary=True)
         fp.write(np.asarray([s.report() for s in sketches],
                             np.float32).tobytes())
@@ -491,9 +504,11 @@ def hll_main(argv: List[str], device) -> int:
 
 
 def union_main(argv: List[str]) -> int:
-    """Register max of HLL sketch files, gzipped to -o (default stdout)."""
+    """Union of sketch files (HLL register max; -r bottom-k, -b Bloom
+    filter), gzipped to -o (default stdout)."""
     opath = "/dev/stdout"
     plist: List[str] = []
+    sketch_type, explicit = "hll", False
     compression_level = 6
     optlist, positional = _getopts(argv, "p:b:o:F:zZ:rHh?", ["help"])
     for flag, val in optlist:
@@ -505,14 +520,24 @@ def union_main(argv: List[str]) -> int:
             opath = val
         elif flag == "-F":
             plist = paths.get_paths(val)
-        elif flag in ("-r", "-H", "-b"):
-            raise NotPorted(f"union {flag} (non-HLL sketch unions)")
+        elif flag == "-r":
+            sketch_type, explicit = "rmh", True
+        elif flag == "-b":
+            # the reference's -b takes an argument; the JAX CLI ignores it
+            sketch_type, explicit = "bf", True
+        elif flag == "-H":
+            raise NotPorted("union -H (k-mer hash set unions)")
     plist += positional
     if not plist:
         _union_usage()
-    merged = core.read_sketch_auto(plist[0])
+    merged = core.read_sketch_auto(plist[0], sketch_type, explicit)
     for path in plist[1:]:
-        merged += core.read_sketch_auto(path)
+        other = core.read_sketch_auto(path, sketch_type, explicit)
+        if type(other) is not type(merged):
+            names = sorted({type(merged).__name__, type(other).__name__})
+            raise SystemExit(f"union: mixed sketch types {names} cannot be "
+                             "merged")
+        merged += other
     if opath in ("-", "/dev/stdout"):
         # gzipped on stdout too, so that every subcommand reads it back
         with gzip.GzipFile(fileobj=sys.stdout.buffer, mode="wb",
@@ -582,9 +607,33 @@ def _view_header(path: str, fp) -> None:
                  f"\tendian=little\t{kv}\tpayload_bytes={rest(16)}\n")
 
 
+def _view_dump(sk, fp) -> None:
+    """A sketch's dump: an HLL's register dump (`printf`); for the set
+    sketches the class name, its public scalars, then each public array,
+    16 values a line (the JAX CLI's listing, attribute by attribute)."""
+    if hasattr(sk, "printf"):
+        sk.printf(fp)
+        return
+    fp.write(type(sk).__name__)
+    for name, val in sorted(vars(sk).items()):
+        if name.startswith("_"):
+            continue
+        if isinstance(val, (int, float, bool, str)):
+            fp.write(f" {name}={val}")
+    fp.write("\n")
+    for name, val in sorted(vars(sk).items()):
+        if name.startswith("_") or not isinstance(val, np.ndarray):
+            continue
+        flat = val.reshape(-1)
+        fp.write(f"{name} n={flat.size} dtype={flat.dtype}\n")
+        for i in range(0, flat.size, 16):
+            row = " ".join(str(v) for v in flat[i:i + 16])
+            fp.write(f"{i}\t{row}\n")
+
+
 def view_main(argv: List[str]) -> int:
-    """Register dumps of HLL files, or with --header/-H every container's
-    header."""
+    """Dumps of sketch files (any family the port reads), or with
+    --header/-H every container's header."""
     header_only = False
     paths_ = []
     for a in argv:
@@ -599,7 +648,7 @@ def view_main(argv: List[str]) -> int:
         if header_only:
             _view_header(path, sys.stdout)
         else:
-            core.read_sketch_auto(path).printf(sys.stdout)
+            _view_dump(core.read_sketch_auto(path), sys.stdout)
     return 0
 
 
@@ -619,6 +668,9 @@ def fold_main(argv: List[str]) -> int:
         inp = positional[0]
     # a stream (/dev/stdin) is not sniffed: that would consume its magic
     h = core.read_sketch_auto(inp) if os.path.isfile(inp) else HLL.read(inp)
+    if not hasattr(h, "compress"):
+        raise SystemExit(f"fold: {type(h).__name__} sketches have no "
+                         "precision fold (only hll/wide_hll registers do)")
     if destp <= 0:
         destp = h.p - 1
     h.compress(destp).write(out if out != "-" else "/dev/stdout")
@@ -689,8 +741,9 @@ def _mkdist_presketch(rest: List[str], ks: List[int], device):
             continue
         if flag in ("-Q", "--query-paths"):
             return None, None
-    if (o.use_counting_filter or o.presketched or o.sketch_by_fname
-            or o.encoding != "bonsai" or o.entropy_min or o.weighted):
+    if (o.sketch_type != "hll" or o.use_counting_filter or o.presketched
+            or o.sketch_by_fname or o.encoding != "bonsai" or o.entropy_min
+            or o.weighted):
         return None, None
     if not ks or not all(4 <= k <= 32 for k in ks):
         return None, None
@@ -810,9 +863,10 @@ def mkdist_main(argv: List[str], device) -> int:
 # ===========================================================================
 
 def sketch_by_seq_main(argv: List[str], device) -> int:
-    """One HLL a FASTA/FASTQ record, into one gzip stream, with a .names
-    sidecar headed '#k=<k>:'.  With -b -n N a record keeps the k-mers it
-    holds at least N times, counted exactly within the record."""
+    """One sketch a FASTA/FASTQ record (an HLL, or the set sketch of a
+    type flag), into one gzip stream, with a .names sidecar headed
+    '#k=<k>:'.  With -b -n N a record keeps the k-mers it holds at least N
+    times, counted exactly within the record."""
     o = CommonOpts()
     o.mincount = 1
     outpath = "/dev/stdout"
@@ -852,15 +906,24 @@ def sketch_by_seq_main(argv: List[str], device) -> int:
             for name, _, _, _ in batch:
                 namefp.write(name.decode() + "\n")
             seqs = [seq for _, _, seq, _ in batch]
-            if use_filter:
-                # within-record multiplicity, counted exactly on the raw
-                # k-mers (WangHash is a bijection), as the JAX CLI does
+            if use_filter or o.sketch_type != "hll":
+                # a set sketch inserts each record's raw k-mers on the
+                # host; the filter counts the within-record multiplicity
+                # exactly on them (WangHash is a bijection), as the JAX
+                # CLI does
                 for raw in pipeline.records_kmer_hashes(seqs, raw_params,
                                                         device):
-                    vals, cnts = np.unique(raw, return_counts=True)
-                    h = HLL(p, o.estim, o.jestim)
-                    h.addh_np(vals[cnts >= o.mincount])
-                    h.write_record(ofp)
+                    if use_filter:
+                        vals, cnts = np.unique(raw, return_counts=True)
+                        raw = vals[cnts >= o.mincount]
+                    if o.sketch_type == "hll":
+                        sk = HLL(p, o.estim, o.jestim)
+                        sk.addh_np(raw)
+                    else:
+                        sk = make_typed(o.sketch_type, o)
+                        sk.addh_np(raw)
+                        sk.finalize()
+                    sk.write_record(ofp)
             else:
                 for row in pipeline.sketch_records_hll(seqs, params, p,
                                                        device):
@@ -868,16 +931,15 @@ def sketch_by_seq_main(argv: List[str], device) -> int:
     return 0
 
 
-# dist_by_seq's sketch-type letters, refused by name
-_DBS_TYPES = {"-B": "bloom filter", "-S": "b-bit MinHash",
-              "-8": "b-bit MinHash", "-K": "k-mer hash set",
-              "-r": "range MinHash"}
+# dist_by_seq's sketch-type letters
+_DBS_TYPES = {"-B": "bf", "-S": "bbmh", "-8": "bbmh", "-r": "rmh"}
 
 
 def dist_by_seq_main(argv: List[str], device) -> int:
     """Compare the per-record sketches of one sketch_by_seq stream: all
     pairs (condensed), or with -q the records of a second stream as
-    queries (rows)."""
+    queries (rows).  HLL records, or with -B/-S/-8/-r the Bloom filter,
+    b-bit MinHash or bottom-k records of such a stream."""
     o = CommonOpts()
     outpath = "/dev/stdout"
     namefile = ""
@@ -892,9 +954,10 @@ def dist_by_seq_main(argv: List[str], device) -> int:
                                    long_opts)
     for flag, val in optlist:
         if flag in _DBS_TYPES:
-            raise NotPorted(f"dist_by_seq {flag} ({_DBS_TYPES[flag]} "
-                            "sketches)")
-        if flag == "-p":
+            o.sketch_type = _DBS_TYPES[flag]
+        elif flag == "-K":
+            raise NotPorted("dist_by_seq -K (k-mer hash set sketches)")
+        elif flag == "-p":
             o.nthreads = int(val)
         elif flag == "-o":
             outpath = val
@@ -943,15 +1006,18 @@ def dist_by_seq_main(argv: List[str], device) -> int:
     if k <= 0:
         k = 31
     with gzip.open(positional[0], "rb") as fp:
-        sketches = [core.read_hll(fp) for _ in labels]
+        sketches = [core.read_sketch_auto(fp, o.sketch_type)
+                    for _ in labels]
     if otherpath:
         qnames = [q for q in paths.get_paths(otherpath + ".names")
                   if not q.startswith("#k=")]
         with gzip.open(otherpath, "rb") as qfp:
-            qsketches = [core.read_hll(qfp) for _ in qnames]
+            qsketches = [core.read_sketch_auto(qfp, o.sketch_type)
+                         for _ in qnames]
     for sk in sketches:
-        sk.estim = o.estim
-        sk.jestim = o.jestim
+        if isinstance(sk, HLL):
+            sk.estim = o.estim
+            sk.jestim = o.jestim
     if otherpath:
         mat = core.compare_rect(sketches, qsketches, result_type, k,
                                 o.estim, o.jestim, device)
@@ -1173,7 +1239,12 @@ def _dist_usage():
         "  --wj, --wj-exact        weighted Jaccard (count-min or exact "
         "counts);\n"
         "  --wj-cm-sketch-size/--wj-cm-nhashes  its count-min [22, 10]\n"
-        "Not yet ported (see ROADMAP.md): non-HLL sketches\n")
+        "  -8/--use-bb-minhash [-B bits], --use-counting-bb-minhash,\n"
+        "  --use-range-minhash, --use-counting-range-minhash,\n"
+        "  --use-bloom-filter      set sketches instead of HLL\n"
+        "Not yet ported (see ROADMAP.md): k-mer hash sets, --use-wide-hll,"
+        " --use-superminhash,\n  --use-hyperminhash, weighted set "
+        "sketches\n")
 
 
 def _sketch_usage():
@@ -1189,7 +1260,7 @@ def _dbs_usage():
 
 def _union_usage():
     raise SystemExit("Usage: union [-o out] [-Z level] [-F paths] "
-                     "f1.hll f2.hll ...")
+                     "[-r | -b x] f1.hll f2.hll ...")
 
 
 SUBCOMMANDS = {
@@ -1253,6 +1324,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 def readfilt_entry() -> int:
     """The standalone readfilt (console script dashing_tpu_torch_readfilt)."""
     return main(["readfilt"] + sys.argv[1:])
+
+
+def cardcmp_entry() -> int:
+    """The standalone cardcmp (console script dashing_tpu_torch_cardcmp)."""
+    return main(["cardcmp"] + sys.argv[1:])
 
 
 if __name__ == "__main__":

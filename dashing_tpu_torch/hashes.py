@@ -6,9 +6,13 @@ with the same bit pattern: additions and left shifts wrap identically in
 two's complement, and right shifts are made logical with a mask (torch has
 no CPU `>>` for uint64).  `wang_hash_np` is the host version on uint64
 arrays (the rolling hashes' tables, the benchmark's host baseline and the
-host HLL inserts, with `clz64_np`).
+host HLL inserts, with `clz64_np`); `seeded_wang_hash_np` and
+`poisson_min_cardinality` serve the host set sketches
+(sketch/setsketches.py).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -38,6 +42,33 @@ def wang_hash_np(x: np.ndarray) -> np.ndarray:
         x = x ^ (x >> np.uint64(28))
         x = x + (x << np.uint64(31))
     return x
+
+
+def seeded_wang_hash_np(x: np.ndarray, seed: int) -> np.ndarray:
+    """WangHash of x ^ seed (the Bloom filter's hash functions)."""
+    return wang_hash_np(np.asarray(x, np.uint64) ^ np.uint64(seed))
+
+
+def poisson_min_cardinality(mins: np.ndarray, m: int) -> float:
+    """Cardinality from the FILLED buckets' uint64 minima of m buckets
+    (an empty bucket counts as min = 1): invert E[min of Poisson(lambda)
+    uniforms] = (1 - e^-lambda) / lambda by 100 log-space bisection steps;
+    cardinality = lambda * m.  The JAX package's float64 operations, in
+    its order (the b-bit sketch writes the result into its file)."""
+    nfill = len(mins)
+    if nfill == 0:
+        return 0.0
+    u = np.asarray(mins, np.uint64).astype(np.float64) / 2.0 ** 64
+    u = np.concatenate([u, np.ones(m - nfill)])
+    mean = min(max(float(u.mean()), 1e-18), 1.0 - 1e-12)
+    lo, hi = 1e-9, 1e12
+    for _ in range(100):
+        lam = math.sqrt(lo * hi)
+        if -math.expm1(-lam) / lam > mean:
+            lo = lam
+        else:
+            hi = lam
+    return math.sqrt(lo * hi) * m
 
 
 def wang_hash(x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,9 @@ Many small files fold in one launch into a (B, 2^p) register bank
 (`sketch_small_batch_async`: the banked K1, or the PyTorch encoders and a
 banked scatter-max), and so do a batch of sequence records
 (`sketch_records_hll`: the banked K2).  `sketch_file_hll_multik` sketches
-one file at several k from one upload a chunk (mkdist).
+one file at several k from one upload a chunk (mkdist).  The b-bit
+MinHash and bottom-k sketches take the ASCII tiles too
+(`sketch_file_bbmh_mins`, `sketch_file_bottomk_values`).
 No mesh: the TPU banks and sharded steps are not ported.
 """
 from __future__ import annotations
@@ -44,7 +46,7 @@ from . import NotPorted, device as devmod, metrics
 from .hashes import shr, wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
-from .ops import rolling
+from .ops import minhash_update, rolling
 from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
                          tile_sequence)
 from .ops.encode_hash import ascii_to_banks, encode_hash_keys, \
@@ -710,6 +712,58 @@ def file_raw_kmers(path: str, params: SketchParams,
     """The encoded k-mers themselves, unhashed (JAX `file_raw_kmers`)."""
     return file_kmer_hashes(path, dataclasses.replace(params, rehash=False),
                             device, tiles)
+
+
+# ---------------------------------------------------------------------------
+# The set sketches' device routes (JAX pipeline.py:1059-1137): the WangHashed
+# windows of each tile fold into a bank that stays on the device until the
+# file ends; only the finished bank is pulled.  Bitwise the host route
+# (file_raw_kmers and the sketch's addh_np).
+# ---------------------------------------------------------------------------
+
+def _hashed_tiles(path: str, params: SketchParams, device: torch.device,
+                  tiles):
+    sp = check_supported(params)
+    if tiles is None:
+        tiles = lambda: _file_tiles(path, sp)  # noqa: E731
+    kw = _encode_kw(dataclasses.replace(params, rehash=True), sp)
+    for tile in tiles():
+        with metrics.accum("sketch.dispatch", items=tile.nbytes):
+            yield _hashed_tile(tile, kw, device)
+
+
+def sketch_file_bbmh_mins(path: str, params: SketchParams, p: int,
+                          device: torch.device, tiles=None
+                          ) -> Optional[np.ndarray]:
+    """The b-bit MinHash's (2^p,) uint64 bucket minima of a path (EMPTY
+    where no k-mer landed), by one scatter-min a tile on the device
+    (ops/minhash_update.bbmh_update; any p, where the JAX route stops at
+    25).  None for a count-min filtered file: its caller takes the host
+    route.  `tiles()`, if given, yields the path's tiles."""
+    device = devmod.resolve(device)
+    if params.filtered:
+        return None
+    bank = minhash_update.empty_bank(p, device)
+    for h, valid in _hashed_tiles(path, params, device, tiles):
+        minhash_update.bbmh_update(bank, h, valid, p)
+    return minhash_update.to_numpy(bank)
+
+
+def sketch_file_bottomk_values(path: str, params: SketchParams, kk: int,
+                               device: torch.device, tiles=None
+                               ) -> Optional[np.ndarray]:
+    """The kk smallest distinct WangHash values of a path, sorted uint64,
+    merged tile by tile on the device (ops/minhash_update.bottomk_update:
+    each tile's valid hashes deduplicated before they count, so repeated
+    k-mers need no coverage check or fallback).  None for a count-min
+    filtered file."""
+    device = devmod.resolve(device)
+    if params.filtered:
+        return None
+    run = minhash_update.empty_values(device)
+    for h, valid in _hashed_tiles(path, params, device, tiles):
+        run = minhash_update.bottomk_update(run, h, valid, kk)
+    return minhash_update.to_numpy(run)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ of K4 bitwise at p = 4 to 18 and 1 to 1000 rows; K3 and K5 bitwise at
 every window width, on ragged blocks, single pairs and row-offset
 views; both banked forms at one and 64 banks, bank indices in no order
 or out of range, rows across segment edges, p = 10, 14 and 21, and more
-rows than one grid dimension).  Marked `cuda`: they skip without a card.  Run them on one:
+rows than one grid dimension); and the set sketches' PyTorch ops on the
+card against the CPU (the int64 scatter-min at p = 15 and 26, the
+bottom-k merge).  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -849,3 +851,53 @@ def test_weighted_labels_on_the_card(rng, cuda):
     assert torch.equal(lab.cpu()[wsv], want[wsv])
     regs = pipeline._wj_label_update(h.to(cuda), valid.to(cuda), 14)
     assert torch.equal(regs.cpu(), pipeline._wj_label_update(h, valid, 14))
+
+
+def _set_hashes(rng, shape):
+    """int64 hash tiles with the top bit set on a quarter, zero, all ones
+    (EMPTY), 1 << 63, and every value repeated (a pool of a third)."""
+    pool = rng.integers(-2 ** 63, 2 ** 63 - 1, shape[0] * shape[1] // 3,
+                        dtype=np.int64, endpoint=True)
+    pool[: pool.size // 4] |= np.int64(-2 ** 63)
+    pool[:3] = (0, -1, -2 ** 63)
+    h = pool[rng.integers(0, pool.size, shape)]
+    h[0, :3] = pool[:3]
+    return torch.from_numpy(h)
+
+
+@pytest.mark.parametrize("p", [15, 26])
+def test_scatter_min_on_the_card_matches_cpu(rng, cuda, p):
+    """The b-bit MinHash scatter-min (int64 scatter_reduce_ "amin") on the
+    card equals the CPU bank bitwise; p = 26 passes the JAX route's
+    int32 limit."""
+    from dashing_tpu_torch.ops import minhash_update as mu
+    banks = [mu.empty_bank(p, dev) for dev in (cuda, torch.device("cpu"))]
+    want = np.full(1 << p, np.uint64(2 ** 64 - 1), np.uint64)
+    for _ in range(3):
+        h = _set_hashes(rng, (256, 4096))
+        valid = torch.from_numpy(rng.random(h.shape) < 0.8)
+        valid[0, :3] = True
+        for bank in banks:
+            mu.bbmh_update(bank, h.to(bank.device), valid.to(bank.device), p)
+        mu.bbmh_update_np(want, h.numpy().view(np.uint64), valid.numpy(), p)
+    assert torch.equal(banks[0].cpu(), banks[1])
+    np.testing.assert_array_equal(mu.to_numpy(banks[0]), want)
+
+
+@pytest.mark.parametrize("kk", [1, 8192])
+def test_bottomk_on_the_card_matches_cpu(rng, cuda, kk):
+    """The bottom-k merge (torch.unique of the flipped hashes) on the card
+    equals the CPU's, over duplicates, the top bit, zero and all ones."""
+    from dashing_tpu_torch.ops import minhash_update as mu
+    runs = [mu.empty_values(dev) for dev in (cuda, torch.device("cpu"))]
+    want = np.zeros(0, np.uint64)
+    for _ in range(3):
+        h = _set_hashes(rng, (256, 4096))
+        valid = torch.from_numpy(rng.random(h.shape) < 0.8)
+        valid[0, :3] = True
+        runs = [mu.bottomk_update(r, h.to(r.device), valid.to(r.device), kk)
+                for r in runs]
+        want = mu.bottomk_update_np(want, h.numpy().view(np.uint64),
+                                    valid.numpy(), kk)
+    assert torch.equal(runs[0].cpu(), runs[1])
+    np.testing.assert_array_equal(mu.to_numpy(runs[0]), want)

@@ -352,6 +352,10 @@ rc |= main(["dist", "-k", "15", "-S", "10", "-w", "30", "-O",
             sys.argv[2] + ".w"] + sys.argv[3:])
 rc |= main(["dist", "-k", "40", "-S", "10", "--use-nthash", "-O",
             sys.argv[2] + ".nt"] + sys.argv[3:])
+rc |= main(["dist", "-k", "15", "-S", "10", "-8", "-O", sys.argv[2] + ".bb"]
+           + sys.argv[3:])
+rc |= main(["dist", "-k", "15", "-S", "10", "--use-range-minhash", "-O",
+            sys.argv[2] + ".rmh"] + sys.argv[3:])
 import glob, os
 sk = os.path.join(os.path.dirname(sys.argv[2]), "sk")
 os.mkdir(sk)
@@ -371,6 +375,7 @@ import chip_smoke, chip_profile  # noqa: F401  (import-time only)
 import dashing_tpu_torch.bench  # noqa: F401
 import dashing_tpu_torch.sketch.sparse  # noqa: F401
 import dashing_tpu_torch.sketch.weighted  # noqa: F401
+import dashing_tpu_torch.sketch.batch_compare  # noqa: F401
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert rc == 0 and not leaked, (rc, leaked)
 print("NOJAX-OK")
@@ -388,7 +393,7 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert "NOJAX-OK" in res.stdout
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.rf").read_text().startswith(">g0_r0 |")
-    for ext in ("J", "w", "nt"):
+    for ext in ("J", "w", "nt", "bb", "rmh"):
         assert (tmp_path / f"d.txt.{ext}").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.card").read_text().count("\n") == 4
     assert len(os.listdir(tmp_path / "sk")) == 3
@@ -423,24 +428,23 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 ])
 def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
                                     extra):
-    """Flags outside the slice stop with "not yet ported".  The sketch
-    cache flags (-W, --cache-sketches), refused before the sketch engine
-    was ported, now run: the same matrix as without them, and a cache file
-    beside each input (under -P).  The weighted-Jaccard flags, refused
-    before it was ported, now run too: a finite matrix of another value
-    than without them (test_torch_weighted.py holds it to the JAX CLI)."""
-    if extra[0].startswith("--wj"):
+    """Flags the slice refused while their parts were missing, all of
+    them ported since.  The sketch cache flags (-W, --cache-sketches) run:
+    the same matrix as without them, and a cache file beside each input
+    (under -P).  The weighted-Jaccard flags and the set-sketch type flags
+    (Bloom filter, bottom-k, b-bit MinHash) run too: a finite matrix of
+    another value than without them (test_torch_weighted.py and
+    test_torch_setsketch_cli.py hold them to the JAX CLI).  The flags
+    still refused are in test_torch_setsketch_cli.test_refused_by_name."""
+    if extra[-1] not in ("-W", "--cache-sketches"):
         monkeypatch.chdir(tmp_path)
         base = ["dist", "-k", str(K), "-S", str(S), "-M", "-b"]
-        for out, flags in (("plain.bin", []), ("wj.bin", extra)):
+        for out, flags in (("plain.bin", []), ("other.bin", extra)):
             assert tmain.main(base + flags + ["-O", out] + genomes[:2]) == 0
-        wj = np.fromfile("wj.bin", np.float32)
-        assert np.isfinite(wj).all()
-        assert open("wj.bin", "rb").read() != open("plain.bin", "rb").read()
-        return
-    if extra[-1] not in ("-W", "--cache-sketches"):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tmain.main(["dist", "-k", str(K)] + extra + genomes[:2])
+        other = np.fromfile("other.bin", np.float32)
+        assert np.isfinite(other).all()
+        assert (open("other.bin", "rb").read()
+                != open("plain.bin", "rb").read())
         return
     monkeypatch.chdir(tmp_path)
     base = ["dist", "-k", str(K), "-S", str(S), "-M", "-b", "-P", "c"]

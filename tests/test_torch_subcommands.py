@@ -222,14 +222,27 @@ def test_union_matches_jax_cli(sketches, tmp_path, capsysbinary):
 
 
 def test_union_refusals(sketches, tmp_path):
+    """union -H (k-mer hash sets) stays refused by name.  -r and -b,
+    refused until the set sketches were ported, now ask for bottom-k and
+    Bloom filter files: on HLL files they stop with the JAX CLI's
+    type-mismatch message, word for word (test_torch_setsketch_cli.py
+    merges real ones).  An HLL and a Bloom filter stop as mixed types
+    (the JAX CLI fails there on a missing attribute); HLLs of two
+    precisions as before."""
     hlls, p14 = sketches
-    for flag in (["-r"], ["-H"], ["-b", "x"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tmain.main(["union"] + flag + hlls)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        tmain.main(["union", "-H"] + hlls)
+    for flag in (["-r"], ["-b", "x"]):
+        msgs = []
+        for fn in (jmain.main, tmain.main):
+            with pytest.raises(SystemExit) as e:
+                fn(["union", "-o", str(tmp_path / "u.x")] + flag + hlls)
+            msgs.append(str(e.value))
+        assert msgs[1] == msgs[0] and "explicitly requested" in msgs[1]
     other = str(tmp_path / "bf.bf")
     with gzip.open(other, "wb") as fp:
         fp.write(b"DTPUBF01" + struct.pack("<II", 10, 3) + bytes(1024))
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="mixed sketch types"):
         tmain.main(["union", "-o", str(tmp_path / "u.hll"), hlls[0], other])
     with pytest.raises(SystemExit, match="different p"):
         tmain.main(["union", "-o", str(tmp_path / "u.hll"), hlls[0], p14])
@@ -260,8 +273,14 @@ def test_fold_and_view_equal_jax_cli(sketches, tmp_path, capsys):
             assert fn(list(argv)) == 0
             outs.append(capsys.readouterr().out)
         assert outs[1] == outs[0] and outs[1], argv
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain.main(["view", containers[2]])
+    # a Bloom filter header over a truncated payload: the port, which
+    # refused the family before it read it, now stops as the JAX CLI does
+    msgs = []
+    for fn in (jmain.main, tmain.main):
+        with pytest.raises(SystemExit) as e:
+            fn(["view", containers[2]])
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0] and "truncated bloom filter" in msgs[1]
 
 
 def test_printmat_and_flatten_equal_jax_cli(readsets, tmp_path, cpu_env,
