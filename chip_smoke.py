@@ -150,6 +150,19 @@ Phases, each printing its own lines with seconds:
                   forms) over a cut of 6 genomes; metrics buckets
                   (host.parse, sketch.dispatch, sketch.host_insert,
                   compare.host) beside each wall
+              (o) phase `extra` over (b)'s 100 genomes, k31 S16: the wide
+                  HLL's registers from the HLL engine (K1) bitwise equal to
+                  the host route (file_raw_kmers + WideHLL.addh_np) on 8
+                  genomes, both routes timed; `dist --use-wide-hll -M -b`
+                  (K1, K4 X-only, K3 and the row estimates launch) and
+                  `-J` (K4 joint and K5) bit for bit (b)'s and (c)'s
+                  matrices; `sketch -o` of 20 then `dist -H` bit for bit
+                  that corner; -Q with (n)'s 10 byte copies (Jaccard 1)
+                  and --nearest-neighbors 5 (each copy its reference
+                  first); HyperMinHash and SuperMinHash (host route) `dist
+                  -M -b` over 6 genomes and a byte copy of the first (the
+                  copy at Jaccard 1), each builder's seconds a genome; the
+                  phase's seconds
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
 and -J -Q runs; banked K1 from e2e (h)'s sketch, banked K2 from e2e (j)'s
@@ -1537,6 +1550,7 @@ def phase_e2e(dev, bank, other, counts, records):
         hlls, cond_m = _e2e_joint_bank(bank, tmp)
         _e2e_query(dev, other, hlls, cond_m, paths[:20], tmp, counts)
         _e2e_setsketch(dev, genomes, tmp)
+        _e2e_extra(dev, genomes, tmp, out_b, out_c)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2276,6 +2290,152 @@ def _e2e_setsketch(dev, genomes, tmp):
             fail(f"e2e (n) dist {flag}: bad matrix n={n}")
         log(f"[e2e n] dist {flag} ({what}, host route) over {len(cut)} "
             f"genomes: wall {wall:.3f}s; buckets {_buckets(b)}")
+
+
+# e2e (o): the wide HLL, HyperMinHash and SuperMinHash over config 2's
+# genomes (phase `extra`).  HyperMinHash and SuperMinHash are host numpy
+# builders and compare engines, as in the JAX package: over SET_CUT genomes
+# and a byte copy of the first
+EXTRA_HOST_RUNS = (("--use-hyperminhash", "HyperMinHash (p = 15, r = 10)"),
+                   ("--use-superminhash", "SuperMinHash (p = 15, b = 16)"))
+
+
+def _e2e_extra(dev, genomes, tmp, out_b, out_c):
+    """e2e (o), phase `extra`: the wide HLL through the HLL engine and
+    kernels over (b)'s 100 genomes, k31 S16 (registers bitwise the host
+    route's, matrices bit for bit (b)'s and (c)'s), and the host-route
+    HyperMinHash and SuperMinHash."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.cli import core
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import joint_mle as jm
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch.setsketches import make_typed
+    t_phase = time.perf_counter()
+    paths = [g[0] for g in genomes]
+    sizes = os.path.join(tmp, "o.sizes")
+    # the build routes: the HLL engine's registers, widened, against the
+    # JAX package's host route (raw k-mers into WideHLL.addh_np)
+    check = paths[::len(paths) // SET_CHECK][:SET_CHECK]
+    opts = core.CommonOpts(k=31, sketch_size=16, sketch_type="wide_hll",
+                           sketch_type_explicit=True)
+    params = core.sketch_params(opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_sk = core.sketch_paths(check, opts, dev)
+    t_dev = time.perf_counter() - t0
+    t_raw = t_ins = 0.0
+    for path, got in zip(check, dev_sk):
+        t0 = time.perf_counter()
+        raw = pipeline.file_raw_kmers(path, params, dev)
+        t_raw += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = make_typed("wide_hll", opts)
+        host.addh_np(raw)
+        t_ins += time.perf_counter() - t0
+        if got.regs.dtype != np.uint16 or \
+                not np.array_equal(got.regs, host.regs):
+            fail(f"e2e (o) {os.path.basename(path)}: the wide HLL's device "
+                 "registers differ from the host route's")
+    log(f"[e2e o] {len(check)} genomes --use-wide-hll -S 16: the HLL "
+        "engine's registers (K1) bitwise equal to the host route "
+        f"(file_raw_kmers + WideHLL.addh_np); seconds a genome: device "
+        f"{t_dev / len(check):.4f}, host {(t_raw + t_ins) / len(check):.4f}"
+        f" (raw k-mers {t_raw / len(check):.4f}, insert "
+        f"{t_ins / len(check):.4f})")
+    base = ["dist", "-k", "31", "-S", "16", "--use-wide-hll", "-b",
+            "--avoid-sorting"]
+    for tag, extra, want, kernels in (
+            ("-M", ["-M"], out_b,
+             {"K1": (eh, "launches"), "K4 X-only": (js, "cum_union_launches"),
+              "K3": (um, "launches"),
+              "row estimates": (um, "estimate_launches")}),
+            ("-J", ["-J", "-M"], out_c,
+             {"K1": (eh, "launches"), "K4 joint": (js, "launches"),
+              "K5": (jm, "launches")})):
+        for mod, name in kernels.values():
+            setattr(mod, name, 0)
+        out = os.path.join(tmp, f"o{tag}.bin")
+        wall, b = _metrics_run(base + extra + ["-O", out, "-o", sizes]
+                               + paths, f"e2e (o) dist --use-wide-hll {tag}")
+        got = {k: getattr(mod, name) for k, (mod, name) in kernels.items()}
+        if min(got.values()) == 0:
+            fail(f"e2e (o) dist --use-wide-hll {tag}: a kernel of the path "
+                 f"was not launched: {got}")
+        if open(out, "rb").read() != open(want, "rb").read():
+            fail(f"e2e (o) dist --use-wide-hll {tag}: the matrix differs "
+                 f"from the HLL's ({os.path.basename(want)})")
+        log(f"[e2e o] dist --use-wide-hll {tag} -b over {len(paths)} "
+            f"genomes: wall {wall:.3f}s, launches {got}; matrix bit for bit "
+            f"the HLL's ({os.path.basename(want)}); buckets {_buckets(b)}")
+    stream = os.path.join(tmp, "o.stream")
+    sk_wall = _timed(["sketch", "-k", "31", "-S", "16", "--use-wide-hll",
+                      "-o", stream, "--avoid-sorting"] + paths[:SET_RELOAD],
+                     "e2e (o) sketch -o --use-wide-hll")
+    again = os.path.join(tmp, "o.H.bin")
+    h_wall = _timed(["dist", "-k", "31", "-H", "--use-wide-hll", "-M", "-b",
+                     "-O", again, "-o", sizes, stream],
+                    "e2e (o) dist -H --use-wide-hll")
+    n = len(paths)
+    corner = [_cond_index(n, i, j) for i in range(SET_RELOAD)
+              for j in range(i + 1, SET_RELOAD)]
+    if _read_condensed(again)[1].tobytes() != \
+            _read_condensed(os.path.join(tmp, "o-M.bin"))[1][corner].tobytes():
+        fail("e2e (o) dist -H --use-wide-hll: the reloaded sketches' matrix "
+             "differs from the one sketched in memory")
+    log(f"[e2e o] sketch -o --use-wide-hll of {SET_RELOAD} genomes "
+        f"{sk_wall:.3f}s, dist -H over the stream {h_wall:.3f}s: matrix bit "
+        "for bit the in-memory one's corner")
+    # e2e (n)'s byte copies of references as queries
+    qfile = os.path.join(tmp, "nq.txt")
+    qbase = base + ["-Q", qfile, "-o", sizes]
+    out = os.path.join(tmp, "oQ.bin")
+    wall = _timed(qbase + ["-O", out] + paths, "e2e (o) dist -Q")
+    mat = np.fromfile(out, "<f4").reshape(len(SET_QUERIES), len(paths))
+    if not np.isfinite(mat).all():
+        fail("e2e (o) dist --use-wide-hll -Q: non-finite values")
+    for ref, qi in SET_QUERIES.items():
+        if mat[qi, ref] != 1.0 or mat[qi].argmax() != ref:
+            fail(f"e2e (o) dist --use-wide-hll -Q: query {qi} at "
+                 f"{mat[qi, ref]} to its reference {ref} (row max at "
+                 f"{mat[qi].argmax()})")
+    out_nn = os.path.join(tmp, "oNN.bin")
+    nn_wall = _timed(qbase + ["--nearest-neighbors", "5", "-O", out_nn]
+                     + paths, "e2e (o) dist -Q --nearest-neighbors 5")
+    ids, vals = _read_nn_bin(out_nn)
+    for ref, qi in SET_QUERIES.items():
+        if ids[qi, 0] != ref or vals[qi, 0] != 1.0:
+            fail(f"e2e (o) --use-wide-hll --nearest-neighbors: query {qi}'s "
+                 f"first neighbour {ids[qi, 0]} at {vals[qi, 0]}, not {ref} "
+                 "at 1")
+    log(f"[e2e o] dist --use-wide-hll -Q, 10 byte copies x {len(paths)} "
+        f"references: each copy at Jaccard 1 to its reference ({wall:.3f}s);"
+        f" --nearest-neighbors 5 (the host k-NN over K4/K3 tiles) its first "
+        f"neighbour ({nn_wall:.3f}s)")
+    copy = os.path.join(tmp, "o_copy_of_0.fa")
+    shutil.copyfile(paths[0], copy)
+    cut = paths[:SET_CUT] + [copy]
+    for flag, what in EXTRA_HOST_RUNS:
+        out = os.path.join(tmp, f"o{flag}.bin")
+        wall, b = _metrics_run(["dist", "-k", "31", "-S", "16", flag, "-M",
+                                "-b", "-O", out, "-o", sizes,
+                                "--avoid-sorting"] + cut,
+                               f"e2e (o) dist {flag}")
+        n, cond = _read_condensed(out)
+        if n != len(cut) or cond.size != n * (n - 1) // 2 or \
+                not np.isfinite(cond).all():
+            fail(f"e2e (o) dist {flag}: bad matrix n={n} ({cond.size})")
+        if cond[_cond_index(n, 0, n - 1)] != 0.0:
+            fail(f"e2e (o) dist {flag}: the byte copy is at Mash distance "
+                 f"{cond[_cond_index(n, 0, n - 1)]} from its genome, not 0 "
+                 "(Jaccard 1)")
+        log(f"[e2e o] dist {flag} -M ({what}, host route) over {len(cut)} "
+            f"genomes: wall {wall:.3f}s; the copy at Jaccard 1; builder "
+            f"{b.get('sketch.host_insert', 0.0) / len(cut):.3f}s a genome; "
+            f"buckets {_buckets(b)}")
+    log(f"[e2e o] phase extra: {time.perf_counter() - t_phase:.1f}s")
 
 
 def _phase_times(dev, paths, total_bases):

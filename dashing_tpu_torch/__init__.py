@@ -9,9 +9,10 @@ layout so each module has an obvious counterpart:
                  steps (minhash_update), the hand-written CUDA kernels
                  (csrc/) with their plain PyTorch versions, all-pairs
                  comparison
-  sketch      -- HLL container and the Ertl estimator family; the Bloom
-                 filter, bottom-k and b-bit MinHash sketches and their
-                 numpy compare engines
+  sketch      -- HLL and wide HLL containers and the Ertl estimator
+                 family; the Bloom filter, bottom-k, b-bit MinHash,
+                 HyperMinHash and SuperMinHash sketches and their numpy
+                 compare engines
   pipeline    -- files -> packed tiles -> device registers
   io, native  -- FASTA/FASTQ parsing, sketch names, distance-matrix files
                  (its own copies of the JAX package's host modules and

@@ -1,11 +1,11 @@
-"""Shared CLI machinery (port of dashing_tpu/cli/core.py): HLL sketches
-and the set sketches of sketch/setsketches.py (Bloom filter, bottom-k,
-b-bit MinHash and their counting forms).
+"""Shared CLI machinery (port of dashing_tpu/cli/core.py): HLL and wide
+HLL sketches (the HLL engine and kernels), the set sketches of
+sketch/setsketches.py (Bloom filter, bottom-k, b-bit MinHash and their
+counting forms) and HyperMinHash and SuperMinHash (sketch/extra.py).
 
 Flag names, defaults and output formats are the JAX package's.  Flags
-outside the port (the k-mer hash sets, the wide HLL, HyperMinHash and
-SuperMinHash types, weighted set sketches) are refused with a "not yet
-ported" error rather than computed some other way.
+outside the port (the k-mer hash sets, weighted set sketches) are refused
+with a "not yet ported" error rather than computed some other way.
 """
 from __future__ import annotations
 
@@ -26,9 +26,9 @@ from .. import NotPorted, metrics, pipeline
 from ..io import cache, paths
 from ..ops import pairwise as pw
 from ..sketch import batch_compare, estimators as est
-from ..sketch.hll import HLL, BadMagic, batch_reports
-from ..sketch.setsketches import NOT_PORTED_TYPES, build_typed, \
-    read_typed
+from ..sketch.extra import DensifiedMinHash, WideHLL
+from ..sketch.hll import HLL, RegisterSketch, batch_reports
+from ..sketch.setsketches import build_typed, read_typed
 
 # sketch type -> file extension (the JAX CLI's registry)
 SKETCH_EXTS = {"hll": ".hll", "khset": ".khs", "bf": ".bf", "rmh": ".rmh",
@@ -88,12 +88,6 @@ def hll_p_from_S(S: int) -> int:
     return S
 
 
-# type flags of the JAX CLI that the port refuses, with their type
-_REFUSED_TYPES = {"--use-wide-hll": "wide_hll",
-                  "--use-superminhash": "superminhash",
-                  "--use-hyperminhash": "hmh"}
-
-
 def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
     """Apply one option shared by sketch and dist.  Returns True if
     consumed; raises NotPorted for options outside the slice."""
@@ -140,6 +134,9 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "--use-counting-range-minhash": ("sketch_type", "crmh"),
         "--use-counting-bb-minhash": ("sketch_type", "cbbmh"),
         "--use-bloom-filter": ("sketch_type", "bf"),
+        "--use-wide-hll": ("sketch_type", "wide_hll"),
+        "--use-superminhash": ("sketch_type", "superminhash"),
+        "--use-hyperminhash": ("sketch_type", "hmh"),
     }
     if flag in flags:
         name, v = flags[flag]
@@ -163,8 +160,6 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
             opts.wj_nhashes = int(val)
         opts.weighted_jaccard = True
         return True
-    if flag in _REFUSED_TYPES:
-        raise NotPorted(NOT_PORTED_TYPES[_REFUSED_TYPES[flag]])
     if flag.startswith("--use-") or flag.endswith("-sets"):
         raise NotPorted(f"{flag} (k-mer hash sets)")
     return False
@@ -215,19 +210,6 @@ MAGIC_TYPES = {b"DTPUHLL1": "hll", b"DTPUBF01": "bf", b"DTPURMH1": "rmh",
                b"DTPUSMH1": "superminhash", b"DTPUSMH2": "superminhash"}
 
 
-def read_hll(path_or_fp) -> HLL:
-    """Load one HLL record from a path or a stream.  A family the port
-    does not read is refused by name; a file that is no sketch fails on
-    its magic."""
-    try:
-        return HLL.read(path_or_fp)
-    except BadMagic as e:
-        family = MAGIC_TYPES.get(e.magic)
-        if family in NOT_PORTED_TYPES:
-            raise NotPorted(f"reading {NOT_PORTED_TYPES[family]}")
-        raise
-
-
 def _sniff_sketch_type(path: str) -> Optional[str]:
     try:
         with gzip.open(path, "rb") as fp:
@@ -245,7 +227,7 @@ def read_sketch_auto(path, sketch_type: str = "hll", explicit: bool = False):
     contradicts an explicitly requested type (a --use-* flag) stops the
     run, one that contradicts the default type is loaded as what it is,
     with a note.  A stream is read as `sketch_type`.  The k-mer hash sets
-    and the JAX package's `extra` types are refused by name."""
+    are refused by name."""
     sniffed = _sniff_sketch_type(path) if isinstance(path, str) else None
     if sniffed and sniffed != sketch_type:
         if explicit:
@@ -257,7 +239,7 @@ def read_sketch_auto(path, sketch_type: str = "hll", explicit: bool = False):
                f"sketch; loading as {sniffed} (requested {sketch_type})")
         sketch_type = sniffed
     if sketch_type == "hll":
-        return read_hll(path)
+        return HLL.read(path)
     if sketch_type == "khset":
         raise NotPorted(f"reading khset sketches ({path})")
     return read_typed(path, sketch_type)
@@ -442,8 +424,10 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
     """The engine of the sketches built file by file: calls put(index,
     sketch) in order, sketch = build(path, tiles, params), the next
     files' parse prefetched behind each build; -W loads and writes the
-    cache files.  filter_idx / filt_min_count as in device_hll_jobs (a
-    count-min filtered file takes the host route)."""
+    cache files (a SuperMinHash run rebuilds and overwrites a cache file
+    that holds the older densified MinHash, with the JAX CLI's note).
+    filter_idx / filt_min_count as in device_hll_jobs (a count-min
+    filtered file takes the host route)."""
     if filt_min_count is None:
         filt_min_count = opts.mincount if opts.mincount > 1 else 2
     base = sketch_params(opts)
@@ -454,10 +438,15 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
     for i, path in indexed_paths:
         fname = _cache_fname(path, opts) if opts.cache_sketch else None
         if fname is not None and os.path.isfile(fname):
-            put(i, read_sketch_auto(fname, opts.sketch_type,
-                                    opts.sketch_type_explicit))
-        else:
-            todo.append((i, path, fname))
+            sk = read_sketch_auto(fname, opts.sketch_type,
+                                  opts.sketch_type_explicit)
+            if not (opts.sketch_type == "superminhash"
+                    and isinstance(sk, DensifiedMinHash)):
+                put(i, sk)
+                continue
+            eprint(f"Note: rebuilding stale DTPUSMH1 cache {fname} in the "
+                   "SuperMinHash (DTPUSMH2) format")
+        todo.append((i, path, fname))
     paths_of = {i: (path, fname) for i, path, fname in todo}
     sp = pipeline.check_supported(base)
     for i, tiles in _prefetched_tiles([(i, pa) for i, pa, _ in todo], sp):
@@ -471,15 +460,23 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
         put(i, sk)
 
 
+def register_class(opts: CommonOpts):
+    """The sketch class of the HLL engine's registers: the wide HLL under
+    --use-wide-hll (its registers are HLL's, widened), else HLL."""
+    return WideHLL if opts.sketch_type == "wide_hll" else HLL
+
+
 def device_hll_run(indexed_paths, opts: CommonOpts, put,
                    device: torch.device, filter_idx=None,
                    filt_min_count: Optional[int] = None):
-    """The HLL sketch engine: calls put(index, (2^p,) uint8 registers) as
-    each file lands.  -W (opts.cache_sketch) loads a file's sketch from
-    its cache file when there is one and writes the others'.  Jobs stay
-    queued on the device until more than window_cap files are in flight,
-    each file's registers 4 * 2^p bytes, about 256 MiB in all (the JAX
-    package's bounded dispatch window); then the oldest job is pulled.
+    """The HLL sketch engine: calls put(index, (2^p,) registers) as each
+    file lands, uint8 (uint16 from a wide HLL's cache file).  -W
+    (opts.cache_sketch) loads a file's sketch from its cache file when
+    there is one and writes the others' (`.hll`, or `.whll` records under
+    --use-wide-hll).  Jobs stay queued on the device until more than
+    window_cap files are in flight, each file's registers 4 * 2^p bytes,
+    about 256 MiB in all (the JAX package's bounded dispatch window);
+    then the oldest job is pulled.
     Strictly more: at a full batch of window_cap files `>=` would pull the
     job just queued and serialise the host parse with the device."""
     p = hll_p_from_S(opts.sketch_size)
@@ -487,15 +484,17 @@ def device_hll_run(indexed_paths, opts: CommonOpts, put,
     fnames = ({i: _cache_fname(path, opts) for i, path in indexed_paths}
               if opts.cache_sketch else {})
     todo = []
+    cls = register_class(opts)
     for i, path in indexed_paths:
         if i in fnames and os.path.isfile(fnames[i]):
-            put(i, read_sketch_auto(fnames[i]).regs)
+            put(i, read_sketch_auto(fnames[i], opts.sketch_type,
+                                    opts.sketch_type_explicit).regs)
         else:
             todo.append((i, path))
 
     def land(i, regs):
         if i in fnames:
-            atomic_write_sketch(HLL(p, opts.estim, opts.jestim, regs),
+            atomic_write_sketch(cls(p, opts.estim, opts.jestim, regs),
                                 fnames[i])
         put(i, regs)
 
@@ -529,24 +528,27 @@ def device_hll_run(indexed_paths, opts: CommonOpts, put,
 
 def sketch_paths(paths_list: List[str], opts: CommonOpts,
                  device: torch.device) -> List:
-    """Sketch or load many logical paths: HLLs, or the set sketches of
-    opts.sketch_type.  Under -W an HLL whose registers mkdist parked on
-    the device carries them as `dev_regs`, so the compare stacks its bank
-    there (ops/pairwise._device_regs_for)."""
+    """Sketch or load many logical paths: HLLs or wide HLLs (the HLL
+    engine; the wide HLL's registers are HLL's, bitwise the JAX package's
+    host route), or the set sketches of opts.sketch_type.  Under -W an
+    HLL whose registers mkdist parked on the device carries them as
+    `dev_regs`, so the compare stacks its bank there
+    (ops/pairwise._device_regs_for)."""
     if opts.presketched:
         return [read_sketch_auto(path, opts.sketch_type,
                                  opts.sketch_type_explicit)
                 for path in paths_list]
     out: List = [None] * len(paths_list)
-    if opts.sketch_type != "hll":
+    if opts.sketch_type not in ("hll", "wide_hll"):
         typed_run(list(enumerate(paths_list)), opts, out.__setitem__,
                   device)
         return out
     p = hll_p_from_S(opts.sketch_size)
+    cls = register_class(opts)
     run = weighted_run if opts.weighted else device_hll_run
     run(list(enumerate(paths_list)), opts,
         lambda i, regs: out.__setitem__(
-            i, HLL(p, opts.estim, opts.jestim, regs)),
+            i, cls(p, opts.estim, opts.jestim, regs)),
         device)
     if opts.cache_sketch:
         for path, sk in zip(paths_list, out):
@@ -568,7 +570,8 @@ def check_compatible(sketches):
             "a common -S or fold the larger ones down (dashing_tpu fold)")
     for attr, what in (("kk", "minhash sizes"), ("b", "register widths"),
                        ("nbits_log2", "bloom filter sizes"),
-                       ("nhashes", "bloom hash counts")):
+                       ("nhashes", "bloom hash counts"),
+                       ("regwidth", "hyperminhash register widths")):
         vals = {getattr(s, attr, None) for s in sketches}
         vals.discard(None)
         if len(vals) > 1:
@@ -593,12 +596,12 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
                       jestim: int, device: torch.device,
                       out: Optional[np.ndarray] = None) -> np.ndarray:
     """Symmetric all-pairs condensed vector: the device tile engine for
-    HLL sketches; for the set sketches the batched numpy engines over
-    blocks of HOST_COMPARE_TILE rows of the upper triangle (a block's
-    rows pack contiguously in the condensed vector), each block's
-    measures in one call on `device`."""
+    HLL and wide HLL sketches; for the other types the batched numpy
+    engines over blocks of HOST_COMPARE_TILE rows of the upper triangle
+    (a block's rows pack contiguously in the condensed vector), each
+    block's measures in one call on `device`."""
     check_compatible(sketches)
-    if isinstance(sketches[0], HLL):
+    if isinstance(sketches[0], RegisterSketch):
         return pw.all_pairs_condensed(sketches, result_type, k, estim,
                                       jestim, device, out=out)
     n = len(sketches)
@@ -621,10 +624,10 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
 def compare_rect(refs, queries, result_type: int, k: int, estim: int,
                  jestim: int, device: torch.device) -> np.ndarray:
     """Query x reference (nq, nr) matrix, the reference on the lhs of
-    each pair's triples: the device tile engine for HLL sketches, the
-    batched numpy engines for the set sketches."""
+    each pair's triples: the device tile engine for HLL and wide HLL
+    sketches, the batched numpy engines for the other types."""
     check_compatible(list(refs) + list(queries))
-    if isinstance(refs[0], HLL):
+    if isinstance(refs[0], RegisterSketch):
         return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
                              device)
     with metrics.accum("compare.host"):
@@ -633,12 +636,13 @@ def compare_rect(refs, queries, result_type: int, k: int, estim: int,
                         device).reshape(len(queries), len(refs))
 
 
-def host_nn_topk(refs, queries, result_type: int, k: int, nn: int,
-                 exclude_self: bool, device: torch.device,
-                 tile: int = HOST_COMPARE_TILE):
-    """Streaming k-nearest neighbours of the set sketches -> (vals, idx),
-    each (n_q, nn): reference tiles through compare_rect and a stable host
-    merge, O(n_q * (nn + tile)) memory.  Ties order by ascending reference
+def host_nn_topk(refs, queries, result_type: int, k: int, estim: int,
+                 jestim: int, nn: int, exclude_self: bool,
+                 device: torch.device, tile: int = HOST_COMPARE_TILE):
+    """Streaming k-nearest neighbours of every type but HLL (the wide HLL
+    too, as in the JAX CLI) -> (vals, idx), each (n_q, nn): reference
+    tiles through compare_rect and a stable host merge, O(n_q * (nn +
+    tile)) memory.  Ties order by ascending reference
     index, as the dense argsort would: a tile's stable argsort keeps them
     in index order and earlier tiles come first in the merge."""
     sim = pw.is_similarity(result_type)
@@ -649,7 +653,7 @@ def host_nn_topk(refs, queries, result_type: int, k: int, nn: int,
     best_i = np.zeros((nq, 0), np.int64)
     for j0 in range(0, nr, tile):
         block = compare_rect(refs[j0:j0 + tile], queries, result_type, k,
-                             0, 0, device)
+                             estim, jestim, device)
         rt = block.shape[1]
         if exclude_self:
             for qi in range(max(j0, 0), min(j0 + rt, nq)):
@@ -670,10 +674,12 @@ def emit_cardinalities(fp, names: Sequence[str], sketches,
                        device: torch.device, integer: bool = True,
                        use_scientific: bool = False):
     """'#Path\\tSize (est.)' then one line per sketch: '%s\\t%zu' (dist),
-    or the float as `card` prints it.  HLL estimates come from one batched
-    call per (p, estimator) on `device`; a set sketch reports its own."""
+    or the float as `card` prints it.  HLL and wide HLL estimates come
+    from one batched call per (p, estimator) on `device`; another sketch
+    reports its own."""
     with metrics.accum("cardinality"):
-        batch_reports([s for s in sketches if isinstance(s, HLL)], device)
+        batch_reports([s for s in sketches
+                       if isinstance(s, RegisterSketch)], device)
     fp.write("#Path\tSize (est.)\n")
     for name, sk in zip(names, sketches):
         card = sk.report()

@@ -20,13 +20,15 @@ per-k matrices (mkdist, with --jukes-cantor), one sketch a record
 (sketch_by_seq/sbs) and their compare (dist_by_seq/cmp_by_seq), a query
 screen against a sketch database (panel), the reads contained in a
 reference sketch (readfilt); cardinalities (card, hll) and the file
-tools (union, view, fold, printmat, flatten).  The set sketches (-8 /
---use-bb-minhash with -B bits, --use-counting-bb-minhash,
---use-range-minhash, --use-counting-range-minhash, --use-bloom-filter)
-run through sketch, dist, card, union -r/-b, view, mkdist, sketch_by_seq
-and dist_by_seq -B/-S/-8/-r.  Everything else (the k-mer hash sets, the
-wide HLL, HyperMinHash and SuperMinHash types, weighted set sketches) is
-refused with a "not yet ported" error.  The device comes from
+tools (union, view, fold, printmat, flatten).  The wide HLL
+(--use-wide-hll) takes the HLL engine and kernels.  The set sketches (-8
+/ --use-bb-minhash with -B bits, --use-counting-bb-minhash,
+--use-range-minhash, --use-counting-range-minhash, --use-bloom-filter,
+--use-hyperminhash and --use-superminhash with -B bits) run through
+sketch, dist, card, union, view, mkdist, sketch_by_seq and dist_by_seq
+-B/-S/-8/-r; a DTPUSMH1 file (the densified MinHash) is read as the
+JAX CLI reads it.  Everything else (the k-mer hash sets, weighted set
+sketches) is refused with a "not yet ported" error.  The device comes from
 DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a
 card raises.  The file tools run on the host and never create a device.
 """
@@ -52,7 +54,7 @@ from ..background import mkmat2jcdistmat
 from ..io import distmat, fasta, paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
-from ..sketch.hll import HLL, batch_reports
+from ..sketch.hll import HLL, RegisterSketch, batch_reports
 from ..sketch.setsketches import make_typed
 from . import core
 from .core import CommonOpts, NotPorted, eprint
@@ -192,8 +194,9 @@ def dist_main(argv: List[str], device) -> int:
         sketches = sketches + sketches       # the aliased query half
         names = names + names
     for sk in sketches:
-        if isinstance(sk, HLL):
+        if hasattr(sk, "estim"):
             sk.estim = o.estim
+        if hasattr(sk, "jestim"):
             sk.jestim = o.jestim
 
     fp_sizes, close_sizes = core.open_output(out_sizes)
@@ -293,7 +296,8 @@ def _nn_emit(sketches, names, o: CommonOpts, result_type: int, emit_fmt: int,
                                      exclude_self=not nq, device=device)
         else:
             vals, order = core.host_nn_topk(refs, queries, result_type, o.k,
-                                            nn, not nq, device)
+                                            o.estim, o.jestim, nn, not nq,
+                                            device)
     if emit_fmt == BINARY:
         fp, close = core.open_output(out_dists, binary=True)
         fp.write(np.uint32(npairs).tobytes())
@@ -394,11 +398,12 @@ def sketch_main(argv: List[str], device) -> int:
     filter_idx = {i for i, path in todo
                   if o.use_counting_filter
                   or (o.sketch_by_fname and fasta.fname_is_fq(path))}
-    if o.sketch_type != "hll":
+    if o.sketch_type not in ("hll", "wide_hll"):
         core.typed_run(todo, o, land, device, filter_idx, o.mincount)
     else:
+        cls = core.register_class(o)
         run = core.weighted_run if o.weighted else core.device_hll_run
-        run(todo, o, lambda i, regs: land(i, HLL(p, o.estim, o.jestim, regs)),
+        run(todo, o, lambda i, regs: land(i, cls(p, o.estim, o.jestim, regs)),
             device, filter_idx=filter_idx, filt_min_count=o.mincount)
     if output_file:
         with gzip.open(output_file + ".labels.gz", "wt") as fp:
@@ -447,7 +452,8 @@ def card_main(argv: List[str], device) -> int:
     inpaths += querypaths
     sketches = core.sketch_paths(inpaths, o, device)
     if emit_binary:
-        batch_reports([s for s in sketches if isinstance(s, HLL)], device)
+        batch_reports([s for s in sketches
+                       if isinstance(s, RegisterSketch)], device)
         fp, close = core.open_output(out, binary=True)
         fp.write(np.asarray([s.report() for s in sketches],
                             np.float32).tobytes())
@@ -504,8 +510,9 @@ def hll_main(argv: List[str], device) -> int:
 
 
 def union_main(argv: List[str]) -> int:
-    """Union of sketch files (HLL register max; -r bottom-k, -b Bloom
-    filter), gzipped to -o (default stdout)."""
+    """Union of sketch files (HLL and wide HLL register max; -r bottom-k,
+    -b Bloom filter; the other types by the type of the first file),
+    gzipped to -o (default stdout)."""
     opath = "/dev/stdout"
     plist: List[str] = []
     sketch_type, explicit = "hll", False
@@ -653,7 +660,8 @@ def view_main(argv: List[str]) -> int:
 
 
 def fold_main(argv: List[str]) -> int:
-    """Fold an HLL exactly to a smaller precision (-p; default p - 1)."""
+    """Fold an HLL or a wide HLL exactly to a smaller precision (-p;
+    default p - 1)."""
     out, inp, destp = "/dev/stdout", "/dev/stdin", -1
     optlist, positional = _getopts(argv, "p:o:h?", ["help"])
     for flag, val in optlist:
@@ -1015,8 +1023,9 @@ def dist_by_seq_main(argv: List[str], device) -> int:
             qsketches = [core.read_sketch_auto(qfp, o.sketch_type)
                          for _ in qnames]
     for sk in sketches:
-        if isinstance(sk, HLL):
+        if hasattr(sk, "estim"):
             sk.estim = o.estim
+        if hasattr(sk, "jestim"):
             sk.jestim = o.jestim
     if otherpath:
         mat = core.compare_rect(sketches, qsketches, result_type, k,
@@ -1147,7 +1156,7 @@ def readfilt_main(argv: List[str], device) -> int:
         eprint(READFILT_USAGE)
         return 1
     core.validate_k(o)
-    ref = core.read_hll(hllpath)
+    ref = HLL.read(hllpath)
     params = core.sketch_params(o)
     sep = b"N" * params.spacer().halo
     ref_regs = torch.from_numpy(ref.regs.astype(np.int32)).to(device)
@@ -1241,9 +1250,11 @@ def _dist_usage():
         "  --wj-cm-sketch-size/--wj-cm-nhashes  its count-min [22, 10]\n"
         "  -8/--use-bb-minhash [-B bits], --use-counting-bb-minhash,\n"
         "  --use-range-minhash, --use-counting-range-minhash,\n"
-        "  --use-bloom-filter      set sketches instead of HLL\n"
-        "Not yet ported (see ROADMAP.md): k-mer hash sets, --use-wide-hll,"
-        " --use-superminhash,\n  --use-hyperminhash, weighted set "
+        "  --use-bloom-filter,\n"
+        "  --use-hyperminhash, --use-superminhash [-B bits]\n"
+        "                          set sketches instead of HLL\n"
+        "  --use-wide-hll          HLL with 16-bit registers\n"
+        "Not yet ported (see ROADMAP.md): k-mer hash sets, weighted set "
         "sketches\n")
 
 

@@ -11,11 +11,12 @@ over pair tiles:
   bottom-k (+ counting): one vectorised sorted-merge pass per B sketch
       against every A row at once (union[:kk] threshold by merged sort,
       shared membership by searchsorted)
+  SuperMinHash, densified MinHash: tiled b-bit register-equality means
+  HyperMinHash: tiled equal-and-filled over filled register counts
 
 Every engine returns (na, nb, 3) float64 with [i, j] =
 A[i].full_set_comparison(B[j]); `batch_triples` dispatches by type (None
-for a type without an engine).  The JAX package's engines of its `extra`
-types (densified MinHash, SuperMinHash, HyperMinHash) are not ported.
+for a type without an engine).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .extra import DensifiedMinHash, HyperMinHash, SuperMinHash
 from .setsketches import (BBitMinHash, BloomFilter, BottomK,
                           CountingBBitMinHash, CountingBottomK)
 
@@ -92,6 +94,58 @@ def _cbbmh_rect(A: List[CountingBBitMinHash], B) -> np.ndarray:
         den = np.where(eq, np.maximum(xa, xb), argmin_cnt).sum(-1)
         ji[sl] = np.divide(num, den, out=np.zeros_like(ji[sl]),
                            where=den > 0)
+    return _ji_to_triple(ji, ca, cb)
+
+
+def _densified_rect(A: List[DensifiedMinHash], B) -> np.ndarray:
+    ra = np.stack([s._regs_b() for s in A])
+    rb = np.stack([s._regs_b() for s in B])
+    ca, cb = _cards(A), _cards(B)
+    c = 2.0 ** -A[0].b
+    na, nb = ra.shape[0], rb.shape[0]
+    ji = np.zeros((na, nb), np.float64)
+    for i0 in range(0, na, _TILE):
+        sl = slice(i0, i0 + _TILE)
+        f = (ra[sl][:, None, :] == rb[None, :, :]).mean(-1)
+        ji[sl] = np.maximum(0.0, (f - c) / (1.0 - c))
+    return _ji_to_triple(ji, ca, cb)
+
+
+def _smh_rect(A: List[SuperMinHash], B) -> np.ndarray:
+    """As _densified_rect, a pair with an empty sketch at Jaccard 0."""
+    ra = np.stack([s._regs_b() for s in A])
+    rb = np.stack([s._regs_b() for s in B])
+    fa = np.array([bool(np.isfinite(s.h).any()) for s in A])
+    fb = np.array([bool(np.isfinite(s.h).any()) for s in B])
+    ca, cb = _cards(A), _cards(B)
+    c = 2.0 ** -A[0].b
+    na, nb = ra.shape[0], rb.shape[0]
+    ji = np.zeros((na, nb), np.float64)
+    for i0 in range(0, na, _TILE):
+        sl = slice(i0, i0 + _TILE)
+        f = (ra[sl][:, None, :] == rb[None, :, :]).mean(-1)
+        ji[sl] = np.where(fa[sl][:, None] & fb[None, :],
+                          np.maximum(0.0, (f - c) / (1.0 - c)), 0.0)
+    return _ji_to_triple(ji, ca, cb)
+
+
+def _hmh_rect(A: List[HyperMinHash], B) -> np.ndarray:
+    ra = np.stack([s.regs for s in A])
+    rb = np.stack([s.regs for s in B])
+    ca, cb = _cards(A), _cards(B)
+    c = 2.0 ** -A[0].rbits
+    na, nb = ra.shape[0], rb.shape[0]
+    ji = np.zeros((na, nb), np.float64)
+    for i0 in range(0, na, _TILE):
+        sl = slice(i0, i0 + _TILE)
+        a = ra[sl][:, None, :]
+        b = rb[None, :, :]
+        both = ((a == b) & (a != 0)).sum(-1)
+        filled = ((a != 0) | (b != 0)).sum(-1)
+        f = np.divide(both, filled, out=np.zeros((a.shape[0], nb)),
+                      where=filled > 0)
+        j = np.maximum(0.0, (f - c) / (1.0 - c))
+        ji[sl] = np.where(filled > 0, j, 0.0)
     return _ji_to_triple(ji, ca, cb)
 
 
@@ -208,6 +262,9 @@ def _bottomk_rect(A, B, counting: bool) -> np.ndarray:
 _ENGINES = {
     BBitMinHash: _bbmh_rect,
     CountingBBitMinHash: _cbbmh_rect,
+    DensifiedMinHash: _densified_rect,
+    SuperMinHash: _smh_rect,
+    HyperMinHash: _hmh_rect,
     BloomFilter: _bf_rect,
     CountingBottomK: lambda A, B: _bottomk_rect(A, B, True),
     BottomK: lambda A, B: _bottomk_rect(A, B, False),
@@ -227,6 +284,8 @@ def _row_nbytes(s) -> int:
         return int(np.asarray(s.bits).nbytes) * 4
     if hasattr(s, "_regs_b"):
         return int(np.asarray(s._regs_b()).nbytes) * 8
+    if hasattr(s, "regs"):
+        return int(np.asarray(s.regs).nbytes) * 4
     if hasattr(s, "values"):
         return int(getattr(s, "kk", 256)) * 16
     return 1 << 16

@@ -1,6 +1,8 @@
 """The HLL sketch container (port of dashing_tpu/sketch/hll.py).
 
-Registers live on the host as a (2^p,) uint8 numpy array.  The on-disk
+Registers live on the host as a (2^p,) uint8 numpy array.  What HLL
+shares with the wide HLL of sketch/extra.py (its registers uint16, its
+record its own) is their base class RegisterSketch.  The on-disk
 record is the JAX package's, byte for byte: a gzip member holding
     magic b"DTPUHLL1" | u8 p | u8 estim | u8 jestim | u8 flags | u32 reserved
     | 2^p register bytes
@@ -27,37 +29,25 @@ MAGIC = b"DTPUHLL1"
 _HEADER = struct.Struct("<8sBBBBI")
 
 
-class BadMagic(ValueError):
-    """A record that does not start with the HLL magic."""
+class RegisterSketch:
+    """What the HLL and the wide HLL (sketch/extra.py) share: 2^p
+    registers of one integer dtype (DTYPE) with HLL's bucket/rank
+    semantics, so one estimator stack and one compare engine serve both.
+    A subclass gives DTYPE, NAME (the `view` dump's heading) and its
+    record format."""
 
-    def __init__(self, magic: bytes):
-        super().__init__(f"bad HLL magic {magic!r}")
-        self.magic = magic
-
-
-class HLL:
-    """HyperLogLog sketch with Ertl estimators."""
+    DTYPE = np.uint8
+    NAME = "HLL"
 
     def __init__(self, p: int, estim: int = est.ERTL_MLE,
                  jestim: int = est.ERTL_MLE,
                  regs: Optional[np.ndarray] = None):
-        if not (4 <= p <= 32):
-            raise ValueError(f"p={p} out of range [4, 32]")
         self.p = int(p)
         self.estim = int(estim)
         self.jestim = int(jestim)
-        self.regs = (np.zeros(1 << p, np.uint8) if regs is None
-                     else np.asarray(regs, np.uint8))
-        if self.regs.shape != (1 << p,):
-            raise ValueError(f"registers {self.regs.shape} do not match p={p}")
+        self.regs = (np.zeros(1 << p, self.DTYPE) if regs is None
+                     else np.asarray(regs, self.DTYPE))
         self._card: Optional[float] = None
-
-    @classmethod
-    def from_numpy(cls, regs: np.ndarray, p: int, estim: int = est.ERTL_MLE,
-                   jestim: int = est.ERTL_MLE) -> "HLL":
-        """Wrap existing registers (any integer dtype, clamped to 0..255)."""
-        regs = np.clip(np.asarray(regs), 0, 255).astype(np.uint8)
-        return cls(p, estim, jestim, regs)
 
     @property
     def m(self) -> int:
@@ -67,8 +57,8 @@ class HLL:
     def q(self) -> int:
         return 64 - self.p
 
-    def clone_empty(self) -> "HLL":
-        return HLL(self.p, self.estim, self.jestim)
+    def clone_empty(self):
+        return type(self)(self.p, self.estim, self.jestim)
 
     def clear(self):
         self.regs[:] = 0
@@ -85,28 +75,31 @@ class HLL:
         idx = (hashes >> np.uint64(64 - self.p)).astype(np.int64)
         rest = (hashes << np.uint64(self.p)) | np.uint64(1 << (self.p - 1))
         rank = clz64_np(rest) + 1
-        np.maximum.at(self.regs, idx, rank.astype(np.uint8))
+        np.maximum.at(self.regs, idx, rank.astype(self.DTYPE))
         self._card = None
 
-    def _check_same_p(self, other: "HLL"):
+    def finalize(self):
+        pass
+
+    def _check_same_p(self, other: "RegisterSketch"):
         if other.p != self.p:
             raise ValueError(f"can't merge or compare HLLs of different p "
                              f"({self.p} vs {other.p}); fold the larger one "
                              "down first")
 
-    def __iadd__(self, other: "HLL") -> "HLL":
+    def __iadd__(self, other):
         """Merge (register max) in place."""
         self._check_same_p(other)
         np.maximum(self.regs, other.regs, out=self.regs)
         self._card = None
         return self
 
-    def union(self, other: "HLL") -> "HLL":
+    def union(self, other):
         self._check_same_p(other)
-        return HLL(self.p, self.estim, self.jestim,
-                   np.maximum(self.regs, other.regs))
+        return type(self)(self.p, self.estim, self.jestim,
+                          np.maximum(self.regs, other.regs))
 
-    def compress(self, new_p: int) -> "HLL":
+    def compress(self, new_p: int):
         """Fold exactly to a smaller precision (the `fold` subcommand).
         Dropping the lowest index bit merges buckets 2j and 2j+1 into j:
         the even bucket's suffix gains a leading 0 (rank + 1), the odd
@@ -118,7 +111,8 @@ class HLL:
             lo, hi = regs[0::2], regs[1::2]
             regs = np.maximum(np.where(lo > 0, lo + 1, 0),
                               (hi > 0).astype(np.int32))
-        return HLL(new_p, self.estim, self.jestim, regs.astype(np.uint8))
+        return type(self)(new_p, self.estim, self.jestim,
+                          regs.astype(self.DTYPE))
 
     def histogram(self) -> np.ndarray:
         return np.bincount(self.regs, minlength=self.q + 2).astype(np.float32)
@@ -130,14 +124,15 @@ class HLL:
             self._card = float(est.estimate(C, self.p, self.estim)[0])
         return self._card
 
-    def union_size(self, other: "HLL") -> float:
+    def union_size(self, other) -> float:
         """Cardinality of the union, with this sketch's estimator."""
         return self.union(other).report()
 
     def _regs_on(self, device: torch.device) -> torch.Tensor:
-        return torch.from_numpy(self.regs).to(device)
+        """The registers as the kernels' int8 (a rank is at most 65 - p)."""
+        return torch.from_numpy(self.regs.astype(np.int8)).to(device)
 
-    def full_set_comparison(self, other: "HLL",
+    def full_set_comparison(self, other,
                             device: Optional[torch.device] = None):
         """(|A\\B|, |B\\A|, |A&B|) against `other`: the joint MLE when
         this sketch's jestim selects it, else inclusion-exclusion on the
@@ -151,8 +146,8 @@ class HLL:
         self._check_same_p(other)
         device = devmod.or_env(device)
         if self.jestim == est.ERTL_JOINT_MLE:
-            a = self._regs_on(device).to(torch.int8)[None]
-            b = other._regs_on(device).to(torch.int8)[None]
+            a = self._regs_on(device)[None]
+            b = other._regs_on(device)[None]
             K = self.q + 2
             st = joint_pair_stats(a, b, kmin=0, kmax=self.q + 1)
             stats = {key: st[key][:, 0, 0] for key in ("eq", "gt_a", "gt_b")}
@@ -169,34 +164,30 @@ class HLL:
                 self.p, self.estim)
         return tuple(float(x) for x in tri.cpu())
 
-    def jaccard_index(self, other: "HLL",
+    def jaccard_index(self, other,
                       device: Optional[torch.device] = None) -> float:
         a, b, x = self.full_set_comparison(other, device)
         denom = a + b + x
         return x / denom if denom > 0 else 0.0
 
-    def containment_index(self, other: "HLL",
+    def containment_index(self, other,
                           device: Optional[torch.device] = None) -> float:
         a, _, x = self.full_set_comparison(other, device)
         denom = a + x
         return x / denom if denom > 0 else 0.0
 
-    def intersection_size(self, other: "HLL",
+    def intersection_size(self, other,
                           device: Optional[torch.device] = None) -> float:
         return self.full_set_comparison(other, device)[2]
 
     def printf(self, fp=None):
         """Human-readable register dump (the `view` subcommand)."""
         fp = fp or sys.stdout
-        fp.write(f"HLL p={self.p} m={self.m} estim={self.estim} "
+        fp.write(f"{self.NAME} p={self.p} m={self.m} estim={self.estim} "
                  f"jestim={self.jestim}\n")
         for i in range(0, self.m, 32):
             row = " ".join(str(int(v)) for v in self.regs[i:i + 32])
             fp.write(f"{i}\t{row}\n")
-
-    def write_record(self, fp: IO[bytes]):
-        fp.write(_HEADER.pack(MAGIC, self.p, self.estim, self.jestim, 0, 0))
-        fp.write(self.regs.tobytes())
 
     def write(self, path_or_fp: Union[str, IO[bytes]]):
         if isinstance(path_or_fp, str):
@@ -206,24 +197,48 @@ class HLL:
             self.write_record(path_or_fp)
 
     @classmethod
+    def read(cls, path_or_fp: Union[str, IO[bytes]]):
+        if isinstance(path_or_fp, str):
+            with gzip.open(path_or_fp, "rb") as fp:
+                return cls.read_record(fp)
+        return cls.read_record(path_or_fp)
+
+
+class HLL(RegisterSketch):
+    """HyperLogLog sketch with Ertl estimators."""
+
+    def __init__(self, p: int, estim: int = est.ERTL_MLE,
+                 jestim: int = est.ERTL_MLE,
+                 regs: Optional[np.ndarray] = None):
+        if not (4 <= p <= 32):
+            raise ValueError(f"p={p} out of range [4, 32]")
+        super().__init__(p, estim, jestim, regs)
+        if self.regs.shape != (1 << p,):
+            raise ValueError(f"registers {self.regs.shape} do not match p={p}")
+
+    @classmethod
+    def from_numpy(cls, regs: np.ndarray, p: int, estim: int = est.ERTL_MLE,
+                   jestim: int = est.ERTL_MLE) -> "HLL":
+        """Wrap existing registers (any integer dtype, clamped to 0..255)."""
+        regs = np.clip(np.asarray(regs), 0, 255).astype(np.uint8)
+        return cls(p, estim, jestim, regs)
+
+    def write_record(self, fp: IO[bytes]):
+        fp.write(_HEADER.pack(MAGIC, self.p, self.estim, self.jestim, 0, 0))
+        fp.write(self.regs.tobytes())
+
+    @classmethod
     def read_record(cls, fp: IO[bytes]) -> "HLL":
         hdr = fp.read(_HEADER.size)
         if len(hdr) < _HEADER.size:
             raise EOFError("truncated or missing HLL record")
         magic, p, estim, jestim, _flags, _res = _HEADER.unpack(hdr)
         if magic != MAGIC:
-            raise BadMagic(magic)
+            raise ValueError(f"bad HLL magic {magic!r}")
         data = fp.read(1 << p)
         if len(data) != 1 << p:
             raise EOFError("truncated HLL registers")
         return cls(p, estim, jestim, np.frombuffer(data, np.uint8).copy())
-
-    @classmethod
-    def read(cls, path_or_fp: Union[str, IO[bytes]]) -> "HLL":
-        if isinstance(path_or_fp, str):
-            with gzip.open(path_or_fp, "rb") as fp:
-                return cls.read_record(fp)
-        return cls.read_record(path_or_fp)
 
 
 def ertl_joint(a: HLL, b: HLL, device: Optional[torch.device] = None):

@@ -1,6 +1,8 @@
 """The Bloom filter, bottom-k and b-bit MinHash families (port of
 dashing_tpu/sketch/setsketches.py): the JAX CLI's non-HLL sketch types
-`bf`, `rmh`, `crmh`, `bbmh` and `cbbmh`, on the host in numpy, with the
+`bf`, `rmh`, `crmh`, `bbmh` and `cbbmh`, and the type registry
+(make_typed, build_typed, read_typed) of those and of sketch/extra.py's,
+on the host in numpy, with the
 JAX package's classes, public attributes, arithmetic and byte formats
 (each a gzip member of an 8-byte magic, two little-endian u32 fields and
 the payload), so a sketch file carries across the two packages and
@@ -11,12 +13,14 @@ Size mapping from the single -S (log2 bytes) knob (`make_typed`):
     RMH   : 2^(S-3) minimizers (8 bytes each)
     CRMH  : 2^S / 12 entries (8B key + 4B count)
     BBMH  : p = S - log2(bbits/8) buckets exponent
+    WHLL  : p = S (uint16 registers)
+    HMH   : p = S - {8: 0, 16: 1, 32: 2, 64: 3}[regwidth]
+    SMH   : p = S - log2(b/8)
 
 `build_typed` takes the device routes where the JAX package has one
 (pipeline.sketch_file_bbmh_mins, sketch_file_bottomk_values) and else
 inserts the file's raw k-mers on the host.  The wide HLL, HyperMinHash
-and SuperMinHash types of the JAX package's `extra` module are not
-ported.
+and SuperMinHash classes are in sketch/extra.py.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import IO, Tuple, Union
 
 import numpy as np
 
-from .. import NotPorted, metrics
+from .. import metrics
 from ..hashes import poisson_min_cardinality, seeded_wang_hash_np, \
     wang_hash_np
 
@@ -559,14 +563,9 @@ class CountingBBitMinHash(BBitMinHash):
 # Type registry used by the CLI.
 # ---------------------------------------------------------------------------
 
-# the JAX package's `extra` types, refused by name
-NOT_PORTED_TYPES = {"wide_hll": "wide HLL sketches (--use-wide-hll)",
-               "hmh": "HyperMinHash sketches (--use-hyperminhash)",
-               "superminhash": "SuperMinHash sketches (--use-superminhash)"}
-
-
 def make_typed(sketch_type: str, opts):
     """Empty sketch of the requested type sized from -S (bytesl2_to_arg)."""
+    from .extra import HyperMinHash, SuperMinHash, WideHLL
     S = opts.sketch_size
     if sketch_type == "bf":
         return BloomFilter(S + 3, max(opts.nhashes, 1))
@@ -574,13 +573,18 @@ def make_typed(sketch_type: str, opts):
         return BottomK(1 << max(S - 3, 1))
     if sketch_type == "crmh":
         return CountingBottomK(max(int((1 << S) / 12), 1))
-    if sketch_type in ("bbmh", "cbbmh"):
+    if sketch_type in ("bbmh", "cbbmh", "superminhash"):
         # the counting form is sized like bbmh: it keeps u64 minima too
         p = S - int(math.floor(math.log2(max(opts.bbnbits // 8, 1))))
-        cls = BBitMinHash if sketch_type == "bbmh" else CountingBBitMinHash
+        cls = {"bbmh": BBitMinHash, "cbbmh": CountingBBitMinHash,
+               "superminhash": SuperMinHash}[sketch_type]
         return cls(max(p, 4), opts.bbnbits)
-    if sketch_type in NOT_PORTED_TYPES:
-        raise NotPorted(NOT_PORTED_TYPES[sketch_type])
+    if sketch_type == "wide_hll":
+        return WideHLL(S, opts.estim, opts.jestim)
+    if sketch_type == "hmh":
+        # the register-size table of the reference's sketch_and_cmp.h
+        shift = {8: 0, 16: 1, 32: 2, 64: 3}.get(opts.bbnbits, 1)
+        return HyperMinHash(max(S - shift, 4), opts.bbnbits)
     raise SystemExit(f"Sketch {sketch_type} not yet supported.")
 
 
@@ -588,8 +592,10 @@ def build_typed(sketch_type: str, path: str, opts, params, device,
                 tiles=None):
     """One path's sketch of a set-sketch type.  The b-bit minima and the
     bottom-k values are made on `device` (only the finished bank is
-    pulled); the other types, and a count-min filtered file, insert the
-    path's raw k-mers on the host (metrics bucket `sketch.host_insert`).
+    pulled); the other types (the wide HLL's host route among them; the
+    CLI builds it by the HLL engine), and a count-min filtered file,
+    insert the path's raw k-mers on the host (metrics bucket
+    `sketch.host_insert`).
     `tiles()`, if given, yields the path's tiles (a prefetched parse)."""
     from .. import pipeline
     sk = make_typed(sketch_type, opts)
@@ -619,9 +625,16 @@ TYPES = {"bf": BloomFilter, "rmh": BottomK, "crmh": CountingBottomK,
 
 
 def read_typed(path, sketch_type: str):
-    cls = TYPES.get(sketch_type)
+    from .extra import DensifiedMinHash, HyperMinHash, SuperMinHash, \
+        WideHLL
+    if sketch_type == "superminhash":
+        # SuperMinHash files are DTPUSMH2; older ones hold the densified
+        # MinHash (DTPUSMH1)
+        try:
+            return SuperMinHash.read(path)
+        except ValueError:
+            return DensifiedMinHash.read(path)
+    cls = dict(TYPES, wide_hll=WideHLL, hmh=HyperMinHash).get(sketch_type)
     if cls is None:
-        if sketch_type in NOT_PORTED_TYPES:
-            raise NotPorted(f"reading {NOT_PORTED_TYPES[sketch_type]}")
         raise SystemExit(f"Sketch {sketch_type} not yet supported.")
     return cls.read(path)

@@ -14,7 +14,8 @@ views; both banked forms at one and 64 banks, bank indices in no order
 or out of range, rows across segment edges, p = 10, 14 and 21, and more
 rows than one grid dimension); and the set sketches' PyTorch ops on the
 card against the CPU (the int64 scatter-min at p = 15 and 26, the
-bottom-k merge).  Marked `cuda`: they skip without a card.  Run them on one:
+bottom-k merge); the wide HLL's K1 registers through K4, K3 and K5 as
+the HLL's, and a wide `-J` pair against its CPU run.  Marked `cuda`: they skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -901,3 +902,63 @@ def test_bottomk_on_the_card_matches_cpu(rng, cuda, kk):
                                     valid.numpy(), kk)
     assert torch.equal(runs[0].cpu(), runs[1])
     np.testing.assert_array_equal(mu.to_numpy(runs[0]), want)
+
+
+def _nested_wide_and_hll(rng, cuda, p, n=6):
+    """n sketches of nested row prefixes of one packed chunk, made by K1
+    on the card at p: as wide HLLs (uint16) and as HLLs (uint8)."""
+    from dashing_tpu_torch.sketch.extra import WideHLL
+    from dashing_tpu_torch.sketch.hll import HLL
+    packed, vbits = _packed(rng, 64, 2048, cuda)
+    wide, hll = [], []
+    for i in range(n):
+        rows = 24 + 8 * i
+        regs = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+        eh.packed_to_registers(packed[:rows], vbits[:rows], regs, k=21, p=p)
+        host = pipeline.registers_to_numpy(regs)
+        wide.append(WideHLL(p, regs=host.astype(np.uint16)))
+        hll.append(HLL(p, regs=host))
+    return wide, hll
+
+
+@pytest.mark.parametrize("p", [4, 18])
+def test_wide_registers_through_the_kernels(rng, cuda, p):
+    """Wide HLL registers made by K1 on the card reach K4's X-only form
+    and K3 (`dist -M`) and K4's joint form and K5 (`-J`) as the int8 bank
+    of the HLL path: both matrices bit for bit the HLL path's, each kernel
+    launched."""
+    before = eh.launches
+    wide, hll = _nested_wide_and_hll(rng, cuda, p)
+    assert eh.launches == before + len(wide)
+    for jestim, counters in ((est.ERTL_MLE, ("cum_union_launches",
+                                             "launches")),
+                             (est.ERTL_JOINT_MLE, ("launches", "launches"))):
+        mods = (js, um) if jestim == est.ERTL_MLE else (js, jm)
+        start = [getattr(m, c) for m, c in zip(mods, counters)]
+        got = pw.all_pairs_condensed(wide, pw.MASH_DIST, 21, est.ERTL_MLE,
+                                     jestim, cuda)
+        mid = [getattr(m, c) for m, c in zip(mods, counters)]
+        want = pw.all_pairs_condensed(hll, pw.MASH_DIST, 21, est.ERTL_MLE,
+                                      jestim, cuda)
+        assert all(b > a for a, b in zip(start, mid)), (jestim, start, mid)
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_wide_joint_pair_on_the_card_matches_cpu(rng, cuda):
+    """One wide HLL pair under -J through WideHLL.full_set_comparison (K4's
+    joint form on a 1 x 1 tile and K5 given c_u): on the card bit for bit
+    the HLL's, and within the north-star bars of its CPU run."""
+    from dashing_tpu_torch.sketch.extra import WideHLL
+    wide, hll = _nested_wide_and_hll(rng, cuda, 14, n=2)
+    for sk in wide + hll:
+        sk.jestim = est.ERTL_JOINT_MLE
+    b4, b5 = js.launches, jm.launches
+    got = np.array(wide[0].full_set_comparison(wide[1], cuda))
+    assert (js.launches, jm.launches) == (b4 + 1, b5 + 1)
+    assert isinstance(wide[0], WideHLL)
+    np.testing.assert_array_equal(
+        got, np.array(hll[0].full_set_comparison(hll[1], cuda)))
+    cpu = np.array(wide[0].full_set_comparison(wide[1], torch.device("cpu")))
+    np.testing.assert_allclose(got, cpu, rtol=2e-4, atol=5e-2)
+    assert abs(got[2] / got.sum() - cpu[2] / cpu.sum()) <= 2e-6

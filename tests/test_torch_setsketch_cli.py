@@ -9,8 +9,7 @@ only the float32 measure is each package's own), `-o` sizes exactly,
 `-Q`, `--nearest-neighbors` (ids exactly), `-W`, `-y`, `union -r/-b`,
 `view` and `view --header`, `card`, `mkdist`, `sketch_by_seq` and
 `dist_by_seq -B -S -8 -r`; the type-mismatch and mixed-geometry messages
-word for word; and the flags of the types still to port refused by
-name."""
+word for word; and the flags still to port refused by name."""
 import gzip
 import os
 import shutil
@@ -371,9 +370,6 @@ def test_messages_word_for_word(sketched, cpu_env, capfd):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["dist", "--use-wide-hll"], "wide HLL"),
-    (["dist", "--use-superminhash"], "SuperMinHash"),
-    (["dist", "--use-hyperminhash"], "HyperMinHash"),
     (["dist", "--use-full-khash-sets"], "hash sets"),
     (["sketch", "--use-full-khash-sets"], "hash sets"),
     (["dist", "--wj", "-8"], "weighted set sketches"),

@@ -15,7 +15,7 @@ import pytest
 from dashing_tpu import hashes as jhashes
 from dashing_tpu.cli.core import CommonOpts as JOpts
 from dashing_tpu.sketch import setsketches as jss
-from dashing_tpu_torch import NotPorted, hashes as thashes
+from dashing_tpu_torch import hashes as thashes
 from dashing_tpu_torch.cli.core import CommonOpts as TOpts
 from dashing_tpu_torch.sketch import setsketches as tss
 
@@ -189,13 +189,30 @@ def test_make_typed_sizes_equal_jax(family):
                              jss.make_typed(family, jo))
 
 
-def test_not_ported_types_refused_by_name(tmp_path):
-    o = TOpts()
-    for t, what in (("wide_hll", "wide HLL"), ("hmh", "HyperMinHash"),
-                    ("superminhash", "SuperMinHash")):
-        with pytest.raises(NotPorted, match=what):
-            tss.make_typed(t, o)
-        with pytest.raises(NotPorted, match=what):
-            tss.read_typed(str(tmp_path / "x"), t)
+def test_extra_types_make_and_read_like_jax(tmp_path):
+    """make_typed of the wide HLL, HyperMinHash (its register-size table)
+    and SuperMinHash over -S and -B: the JAX package's empty sketch; each
+    read back by read_typed from the JAX package's file, a DTPUSMH1 file
+    as the densified MinHash; an unknown type stops as in the JAX
+    package."""
+    from dashing_tpu.sketch import extra as jx
+    for t in ("wide_hll", "hmh", "superminhash"):
+        for S in (4, 6, 10):
+            for bb in (8, 16, 32, 64):
+                jo, to = JOpts(), TOpts()
+                for o in (jo, to):
+                    o.sketch_size, o.bbnbits = S, bb
+                got, want = tss.make_typed(t, to), jss.make_typed(t, jo)
+                _assert_same(got, want)
+                path = str(tmp_path / f"{t}.{S}.{bb}")
+                want.write(path)
+                _assert_same(tss.read_typed(path, t), want)
+    old = jx.DensifiedMinHash(5, 16)
+    old.addh_np(np.arange(100, dtype=np.uint64))
+    old.write(str(tmp_path / "old.bbs"))
+    _assert_same(tss.read_typed(str(tmp_path / "old.bbs"), "superminhash"),
+                 old)
     with pytest.raises(SystemExit, match="not yet supported"):
-        tss.make_typed("nope", o)
+        tss.make_typed("nope", TOpts())
+    with pytest.raises(SystemExit, match="not yet supported"):
+        tss.read_typed(str(tmp_path / "old.bbs"), "nope")

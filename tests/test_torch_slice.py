@@ -356,6 +356,10 @@ rc |= main(["dist", "-k", "15", "-S", "10", "-8", "-O", sys.argv[2] + ".bb"]
            + sys.argv[3:])
 rc |= main(["dist", "-k", "15", "-S", "10", "--use-range-minhash", "-O",
             sys.argv[2] + ".rmh"] + sys.argv[3:])
+for flag, ext in (("--use-wide-hll", "whll"), ("--use-hyperminhash", "hmh"),
+                  ("--use-superminhash", "smh")):
+    rc |= main(["dist", "-k", "15", "-S", "10", flag, "-O",
+                sys.argv[2] + "." + ext] + sys.argv[3:])
 import glob, os
 sk = os.path.join(os.path.dirname(sys.argv[2]), "sk")
 os.mkdir(sk)
@@ -376,6 +380,7 @@ import dashing_tpu_torch.bench  # noqa: F401
 import dashing_tpu_torch.sketch.sparse  # noqa: F401
 import dashing_tpu_torch.sketch.weighted  # noqa: F401
 import dashing_tpu_torch.sketch.batch_compare  # noqa: F401
+import dashing_tpu_torch.sketch.extra  # noqa: F401
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert rc == 0 and not leaked, (rc, leaked)
 print("NOJAX-OK")
@@ -393,7 +398,7 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert "NOJAX-OK" in res.stdout
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.rf").read_text().startswith(">g0_r0 |")
-    for ext in ("J", "w", "nt", "bb", "rmh"):
+    for ext in ("J", "w", "nt", "bb", "rmh", "whll", "hmh", "smh"):
         assert (tmp_path / f"d.txt.{ext}").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.card").read_text().count("\n") == 4
     assert len(os.listdir(tmp_path / "sk")) == 3
@@ -424,7 +429,8 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--wj"], ["--wj-cm-sketch-size", "12"], ["--use-bloom-filter"], ["-W"],
     ["--use-range-minhash"], ["-N", "--cache-sketches"],
-    ["--wj-exact"], ["--use-bb-minhash"], ["-8"],
+    ["--wj-exact"], ["--use-bb-minhash"], ["-8"], ["--use-hyperminhash"],
+    ["--use-superminhash"],
 ])
 def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
                                     extra):
@@ -432,9 +438,11 @@ def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
     them ported since.  The sketch cache flags (-W, --cache-sketches) run:
     the same matrix as without them, and a cache file beside each input
     (under -P).  The weighted-Jaccard flags and the set-sketch type flags
-    (Bloom filter, bottom-k, b-bit MinHash) run too: a finite matrix of
+    (Bloom filter, bottom-k, b-bit MinHash, HyperMinHash, SuperMinHash)
+    run too: a finite matrix of
     another value than without them (test_torch_weighted.py and
-    test_torch_setsketch_cli.py hold them to the JAX CLI).  The flags
+    test_torch_setsketch_cli.py and test_torch_extra_cli.py hold them to
+    the JAX CLI).  The flags
     still refused are in test_torch_setsketch_cli.test_refused_by_name."""
     if extra[-1] not in ("-W", "--cache-sketches"):
         monkeypatch.chdir(tmp_path)
