@@ -163,6 +163,26 @@ Phases, each printing its own lines with seconds:
                   -M -b` over 6 genomes and a byte copy of the first (the
                   copy at Jaccard 1), each builder's seconds a genome; the
                   phase's seconds
+              (p) phase `khset`: the exact k-mer hash sets over (b)'s
+                  first KHS_CUT genomes and a byte copy of the first, k31
+                  (`dist --use-full-khash-sets -M -b`: the copy at Jaccard
+                  1, each pair's exact Jaccard within 0.02 of (b)'s HLL
+                  Jaccard; `sketch -o` then `dist -H` bit for bit; `union
+                  -H` of two sets (their keys below 2^60) holding |A u B|
+                  keys, each key of both; the builder, raw k-mers and
+                  np.unique, and the compare timed); `--wj-exact
+                  -8` and `--wj-exact --use-wide-hll` over WJ_CUT genomes
+                  and the copy (the copy at Jaccard 1; K4's X-only form and
+                  K3 launch for the wide HLL); gf64_mul on 2^20 pairs on
+                  the card equal to gf64_mul_np.  Its HeavyKeeper half runs
+                  at the end of (f), over (f)'s reads: the native
+                  structure, DASHING_TPU_USE_HK=1 `sketch -b -n 2` of
+                  HK_HEAD reads on the card bitwise equal to a CPU run in a
+                  subprocess, and over the 1 M reads HeavyKeeper against
+                  the count-min at -q HK_Q (walls, buckets `sketch.hk_add`
+                  / `sketch.hk_query`, each filtered cardinality's error
+                  against the k-mers seen at least twice); the phase's
+                  seconds
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
 and -J -Q runs; banked K1 from e2e (h)'s sketch, banked K2 from e2e (j)'s
@@ -1551,6 +1571,7 @@ def phase_e2e(dev, bank, other, counts, records):
         _e2e_query(dev, other, hlls, cond_m, paths[:20], tmp, counts)
         _e2e_setsketch(dev, genomes, tmp)
         _e2e_extra(dev, genomes, tmp, out_b, out_c)
+        _e2e_khset(dev, genomes, tmp, out_b)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2438,6 +2459,215 @@ def _e2e_extra(dev, genomes, tmp, out_b, out_c):
     log(f"[e2e o] phase extra: {time.perf_counter() - t_phase:.1f}s")
 
 
+# e2e (p), phase `khset`: the exact k-mer hash sets over config 2's genomes
+# (k31, their length not cut) on KHS_CUT genomes and a byte copy of the
+# first, the weighted set sketches on WJ_CUT genomes and the copy, gf64_mul
+# on the card; its HeavyKeeper half runs in e2e (f), over the reads made
+# there (_e2e_hk).  A hash set makes numpy 2.3's np.unique of ~5 M uint64
+# at 4.475 s a genome on the H100 machine's host, at least twice more
+# for a set written and read back, and `union -H` four more of up to
+# 10 M: at SET_CUT (6) genomes and the copy the phase took 311.4 s on an
+# H100 machine (PERF.md section 6), so the hash sets take 3 genomes and
+# the copy
+KHS_CUT = 3
+WJ_CUT = 4
+HK_HEAD = 50_000           # reads of the HeavyKeeper run held to the CPU's
+HK_Q = 22                  # log2 slots (counters) a row of both filters
+KHSET_SECONDS = {}
+
+
+def _e2e_khset(dev, genomes, tmp, out_b):
+    """e2e (p), phase `khset`: `dist --use-full-khash-sets -M -b` (the copy
+    at Jaccard 1; each pair's exact Jaccard within 0.02 of (b)'s HLL
+    Jaccard), `sketch -o` then `dist -H` bit for bit, `union -H` the union
+    of two key sets, the builder (raw k-mers, np.unique) and the compare
+    timed; `--wj-exact -8` and `--wj-exact --use-wide-hll` (K4's X-only
+    form and K3 launch) with the copy at Jaccard 1; gf64_mul on 2^20
+    pairs on the card equal to gf64_mul_np."""
+    import torch
+    from dashing_tpu_torch import hashes, pipeline
+    from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import union_mle as um
+    from dashing_tpu_torch.sketch.khset import KSet
+    t_phase = time.perf_counter()
+    paths = [g[0] for g in genomes]
+    copy = os.path.join(tmp, "p_copy_of_0.fa")
+    shutil.copyfile(paths[0], copy)
+    cut = paths[:KHS_CUT] + [copy]
+    n = len(cut)
+    sizes = os.path.join(tmp, "p.sizes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = pipeline.file_raw_kmers(paths[0], pipeline.SketchParams(k=31), dev)
+    t_raw = time.perf_counter() - t0
+    out = os.path.join(tmp, "p.bin")
+    wall, b = _metrics_run(["dist", "-k", "31", "--use-full-khash-sets",
+                            "-M", "-b", "--avoid-sorting", "-O", out, "-o",
+                            sizes] + cut, "e2e (p) dist --use-full-khash-sets")
+    m, cond = _read_condensed(out)
+    if m != n or cond.size != n * (n - 1) // 2 or not np.isfinite(cond).all():
+        fail(f"e2e (p) dist --use-full-khash-sets: bad matrix n={m} "
+             f"({cond.size})")
+    if cond[_cond_index(n, 0, n - 1)] != 0.0:
+        fail("e2e (p) dist --use-full-khash-sets: the byte copy is at Mash "
+             f"distance {cond[_cond_index(n, 0, n - 1)]}, not 0 (Jaccard 1)")
+    pairs = [(i, j) for i in range(KHS_CUT) for j in range(i + 1, KHS_CUT)]
+    exact = _mash_ji(cond[[_cond_index(n, i, j) for i, j in pairs]])
+    hll = _mash_ji(_read_condensed(out_b)[1][
+        [_cond_index(len(paths), i, j) for i, j in pairs]])
+    worst = float(np.abs(exact - hll).max())
+    if worst > 0.02:
+        fail(f"e2e (p): an HLL Jaccard of (b) is {worst} from the exact one")
+    log(f"[e2e p] dist --use-full-khash-sets -M -b over {n} genomes: wall "
+        f"{wall:.3f}s; the copy at Jaccard 1; (b)'s HLL Jaccard (-S 16) "
+        f"within {worst:.5f} of the exact one over {len(pairs)} pairs "
+        f"(bar 0.02); buckets {_buckets(b)}")
+    log(f"[e2e p] hash-set builder (k31, {raw.size:,} raw k-mers a genome): "
+        f"raw k-mers {t_raw:.3f}s a genome, np.unique (sketch.host_insert) "
+        f"{b['sketch.host_insert'] / n:.3f}s a genome; compare "
+        f"(compare.host, np.intersect1d) {b['compare.host'] / len(cond):.3f}"
+        "s a pair")
+    stream = os.path.join(tmp, "p.stream.khs")
+    sk_wall = _timed(["sketch", "-k", "31", "--use-full-khash-sets", "-o",
+                      stream, "--avoid-sorting"] + cut,
+                     "e2e (p) sketch -o --use-full-khash-sets")
+    again = os.path.join(tmp, "p.H.bin")
+    h_wall = _timed(["dist", "-H", "--use-full-khash-sets", "-M", "-b", "-O",
+                     again, "-o", sizes, stream], "e2e (p) dist -H")
+    if _read_condensed(again)[1].tobytes() != cond.tobytes():
+        fail("e2e (p) dist -H --use-full-khash-sets: the stream's matrix "
+             "differs from the one sketched in memory")
+    log(f"[e2e p] sketch -o --use-full-khash-sets of {n} genomes "
+        f"{sk_wall:.3f}s ({os.path.getsize(stream) / 1e6:.1f} MB), dist -H "
+        f"over the stream {h_wall:.3f}s: matrix bit for bit the first")
+    # union -H of two genomes of two families, each set cut to its keys
+    # below 2^60 (a quarter of the 31-mers) to spare np.unique's seconds:
+    # |A u B| = |A| + |B| - |A n B|
+    two, parts = [], []
+    for i in (1, SET_CUT - 1):
+        got = pipeline.file_raw_kmers(paths[i], pipeline.SketchParams(k=31),
+                                      dev)
+        parts.append(KSet.from_values(got[got < np.uint64(1 << 60)]))
+        two.append(os.path.join(tmp, f"p{i}.khs"))
+        parts[-1].write(two[-1])
+    union = os.path.join(tmp, "p.union.khs")
+    u_wall = _timed(["union", "-H", "-o", union] + two, "e2e (p) union -H")
+    a, b = parts[0].keys, parts[1].keys
+    want = a.size + b.size - np.intersect1d(a, b, assume_unique=True).size
+    with gzip.open(union, "rb") as fp:
+        got = np.frombuffer(fp.read(), "<u8")
+    keys = got[1:]
+    if got[0] != want or keys.size != want or \
+            not (keys[1:] > keys[:-1]).all() or \
+            not np.isin(a, keys, assume_unique=True).all() or \
+            not np.isin(b, keys, assume_unique=True).all():
+        fail("e2e (p) union -H: the keys are not the union of the two sets'")
+    log(f"[e2e p] union -H of two sets of two families (keys < 2^60): "
+        f"{want:,} keys = |A u B| ({u_wall:.3f}s)")
+    # the weighted set sketches (host route)
+    wcut = paths[:WJ_CUT] + [copy]
+    for flag, what in (("-8", "b-bit MinHash"), ("--use-wide-hll",
+                                                  "wide HLL")):
+        js.cum_union_launches = um.launches = 0
+        out = os.path.join(tmp, f"p_wj{flag}.bin")
+        wall, b = _metrics_run(["dist", "-k", "31", "-S", "16", "--wj-exact",
+                                flag, "-M", "-b", "--avoid-sorting", "-O",
+                                out, "-o", sizes] + wcut,
+                               f"e2e (p) dist --wj-exact {flag}")
+        m, wc = _read_condensed(out)
+        if m != len(wcut) or wc.size != m * (m - 1) // 2 or \
+                not np.isfinite(wc).all():
+            fail(f"e2e (p) dist --wj-exact {flag}: bad matrix n={m}")
+        if wc[_cond_index(m, 0, m - 1)] != 0.0:
+            fail(f"e2e (p) dist --wj-exact {flag}: the byte copy is at Mash "
+                 f"distance {wc[_cond_index(m, 0, m - 1)]}, not 0")
+        launched = (js.cum_union_launches, um.launches)
+        if flag == "--use-wide-hll" and min(launched) == 0:
+            fail(f"e2e (p) --wj-exact --use-wide-hll: K4 X-only / K3 "
+                 f"launches {launched}")
+        log(f"[e2e p] dist --wj-exact {flag} -M ({what}, host route) over "
+            f"{m} genomes: wall {wall:.3f}s, wj.host "
+            f"{b.get('wj.host', 0.0) / m:.3f}s a genome; the copy at "
+            f"Jaccard 1; K4 X-only / K3 launches {launched}")
+    rng = np.random.default_rng(SEED + 11)
+    a, b = (rng.integers(0, 2 ** 64, 1 << 20, dtype=np.uint64)
+            for _ in range(2))
+    ta = torch.from_numpy(a.view(np.int64)).to(dev)
+    tb = torch.from_numpy(b.view(np.int64)).to(dev)
+    ms = cuda_ms(lambda: hashes.gf64_mul(ta, tb), 5)
+    got = hashes.gf64_mul(ta, tb).cpu().numpy().view(np.uint64)
+    if not np.array_equal(got, hashes.gf64_mul_np(a, b)):
+        fail("e2e (p): gf64_mul on the card differs from gf64_mul_np")
+    log(f"[e2e p] gf64_mul of 2^20 int64 pairs on the card ({ms:.3f} ms) "
+        "equal to gf64_mul_np")
+    KHSET_SECONDS["sets"] = time.perf_counter() - t_phase
+    log(f"[e2e p] phase khset, hash sets, weighted and gf64: "
+        f"{KHSET_SECONDS['sets']:.1f}s")
+
+
+def _e2e_hk(dev, fq, twice, tmp):
+    """e2e (p), phase `khset`, its HeavyKeeper half over (f)'s reads: the
+    native structure; DASHING_TPU_USE_HK=1 `sketch -b -n 2` of the first
+    HK_HEAD reads on the card bitwise equal to a CPU run in a subprocess;
+    then over all the reads HeavyKeeper against the count-min at one
+    geometry (HK_Q), walls, buckets and each filtered cardinality's error
+    against the exact count of k-mers seen at least twice."""
+    from dashing_tpu_torch.sketch.heavykeeper import HeavyKeeper
+    from dashing_tpu_torch.sketch.hll import HLL, batch_reports
+    t_phase = time.perf_counter()
+    if not HeavyKeeper(4, 20).native:
+        fail("e2e (p): the native HeavyKeeper did not build")
+    head = os.path.join(tmp, "hk_head.fq")
+    with open(fq, "rb") as src, open(head, "wb") as dst:
+        dst.write(src.read(HK_HEAD * FQ_RECORD))
+    argv = ["sketch", "-k", "31", "-S", "16", "-b", "-n", "2"]
+    os.environ["DASHING_TPU_USE_HK"] = "1"
+    try:
+        card = os.path.join(tmp, "hk_card.hll")
+        wall = _timed(argv + ["-o", card, head], "e2e (p) sketch -b HK")
+        cpu = os.path.join(tmp, "hk_cpu.hll")
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, DASHING_TPU_TORCH_DEVICE="cpu",
+                   PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "dashing_tpu_torch.cli"]
+                             + argv + ["-o", cpu, head], env=env, cwd=here,
+                             capture_output=True, text=True, timeout=600)
+        t_cpu = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"e2e (p): the CPU HeavyKeeper run failed: "
+                 f"{res.stderr[-500:]}")
+        got, want = HLL.read(card).regs, HLL.read(cpu).regs
+        if not got.any() or not np.array_equal(got, want):
+            fail(f"e2e (p): HeavyKeeper-filtered registers on the card differ "
+                 f"from the CPU run in {int((got != want).sum())} places")
+        log(f"[e2e p] DASHING_TPU_USE_HK=1 sketch -b -n 2 of {HK_HEAD:,} "
+            f"reads: registers on the card ({wall:.3f}s) bitwise equal to a "
+            f"CPU run in a subprocess ({t_cpu:.1f}s)")
+    finally:
+        del os.environ["DASHING_TPU_USE_HK"]
+    for tag, hk in (("HeavyKeeper", True), ("count-min", False)):
+        if hk:
+            os.environ["DASHING_TPU_USE_HK"] = "1"
+        try:
+            out = os.path.join(tmp, f"hk_{hk}.hll")
+            wall, b = _metrics_run(argv + ["-q", str(HK_Q), "-o", out, fq],
+                                   f"e2e (p) sketch -b {tag}")
+        finally:
+            os.environ.pop("DASHING_TPU_USE_HK", None)
+        sk = HLL.read(out)
+        batch_reports([sk], dev)
+        rel = sk.report() / twice - 1.0
+        log(f"[e2e p] {tag} sketch -b -n 2 -q {HK_Q} (4 rows) of "
+            f"{FQ_READS:,} reads: wall {wall:.3f}s, filtered cardinality "
+            f"{sk.report():,.0f} ({rel:+.3%} of the {twice:,} k-mers seen "
+            f"at least twice); buckets {_buckets(b)}")
+    KHSET_SECONDS["hk"] = time.perf_counter() - t_phase
+    log(f"[e2e p] phase khset, HeavyKeeper: {KHSET_SECONDS['hk']:.1f}s; "
+        f"the phase in all {sum(KHSET_SECONDS.values()):.1f}s")
+
+
 def _phase_times(dev, paths, total_bases):
     """Sketch and compare phases of config 2 timed apart (after the CLI
     run, so the build and first-touch costs are out).  Returns the
@@ -2716,6 +2946,7 @@ def phase_e2e_fastq(dev):
               f"process, registers bitwise equal to the CPU run "
               f"({time.perf_counter() - t:.1f}s on the CPU)", wall, 20_000)
         _e2e_weighted(dev, quarters)
+        _e2e_hk(dev, fq, twice, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -4,7 +4,8 @@ The JAX package `dashing_tpu` is the reference; this package mirrors its
 layout so each module has an obvious counterpart:
 
   device      -- explicit device resolution (no silent CPU fallback)
-  hashes      -- WangHash on int64 tensors (64-bit two's complement)
+  hashes      -- WangHash and clhash on int64 tensors (64-bit two's
+                 complement)
   ops         -- encoders, HLL register update, the set sketches' device
                  steps (minhash_update), the hand-written CUDA kernels
                  (csrc/) with their plain PyTorch versions, all-pairs
@@ -12,11 +13,12 @@ layout so each module has an obvious counterpart:
   sketch      -- HLL and wide HLL containers and the Ertl estimator
                  family; the Bloom filter, bottom-k, b-bit MinHash,
                  HyperMinHash and SuperMinHash sketches and their numpy
-                 compare engines
+                 compare engines; the exact k-mer hash sets; the
+                 HeavyKeeper count filter
   pipeline    -- files -> packed tiles -> device registers
   io, native  -- FASTA/FASTQ parsing, sketch names, distance-matrix files
-                 (its own copies of the JAX package's host modules and
-                 C++ loader, built at first use)
+                 (its own copies of the JAX package's host modules, C++
+                 loader and HeavyKeeper, built at first use)
   metrics     -- DASHING_TPU_METRICS phase timings
   cli         -- `python -m dashing_tpu_torch.cli sketch|dist ...`
 

@@ -1,11 +1,11 @@
 """Shared CLI machinery (port of dashing_tpu/cli/core.py): HLL and wide
 HLL sketches (the HLL engine and kernels), the set sketches of
 sketch/setsketches.py (Bloom filter, bottom-k, b-bit MinHash and their
-counting forms) and HyperMinHash and SuperMinHash (sketch/extra.py).
+counting forms), HyperMinHash and SuperMinHash (sketch/extra.py) and the
+exact k-mer hash sets (sketch/khset.py), each plain or weighted by
+multiplicity (--wj, --wj-exact).
 
-Flag names, defaults and output formats are the JAX package's.  Flags
-outside the port (the k-mer hash sets, weighted set sketches) are refused
-with a "not yet ported" error rather than computed some other way.
+Flag names, defaults and output formats are the JAX package's.
 """
 from __future__ import annotations
 
@@ -22,13 +22,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import NotPorted, metrics, pipeline
+from .. import metrics, pipeline
 from ..io import cache, paths
 from ..ops import pairwise as pw
 from ..sketch import batch_compare, estimators as est
 from ..sketch.extra import DensifiedMinHash, WideHLL
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
-from ..sketch.setsketches import build_typed, read_typed
+from ..sketch.setsketches import build_typed, read_typed, sketch_of_values
 
 # sketch type -> file extension (the JAX CLI's registry)
 SKETCH_EXTS = {"hll": ".hll", "khset": ".khs", "bf": ".bf", "rmh": ".rmh",
@@ -90,7 +90,7 @@ def hll_p_from_S(S: int) -> int:
 
 def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
     """Apply one option shared by sketch and dist.  Returns True if
-    consumed; raises NotPorted for options outside the slice."""
+    consumed."""
     m = {
         "-k": ("k", int), "--kmer-length": ("k", int),
         "-w": ("wsz", int), "--window-size": ("wsz", int),
@@ -134,6 +134,11 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
         "--use-counting-range-minhash": ("sketch_type", "crmh"),
         "--use-counting-bb-minhash": ("sketch_type", "cbbmh"),
         "--use-bloom-filter": ("sketch_type", "bf"),
+        "--use-full-khash-sets": ("sketch_type", "khset"),
+        "--use-full-hash-sets": ("sketch_type", "khset"),
+        "--use-hash-sets": ("sketch_type", "khset"),
+        "--hash-sets": ("sketch_type", "khset"),
+        "--use-full-sets": ("sketch_type", "khset"),
         "--use-wide-hll": ("sketch_type", "wide_hll"),
         "--use-superminhash": ("sketch_type", "superminhash"),
         "--use-hyperminhash": ("sketch_type", "hmh"),
@@ -160,17 +165,11 @@ def parse_common(opts: CommonOpts, flag: str, val: str) -> bool:
             opts.wj_nhashes = int(val)
         opts.weighted_jaccard = True
         return True
-    if flag.startswith("--use-") or flag.endswith("-sets"):
-        raise NotPorted(f"{flag} (k-mer hash sets)")
     return False
 
 
 def validate_k(opts: CommonOpts):
-    """The JAX CLI's checks of k against the encoding, word for word; and
-    the port's refusal of weighted set sketches."""
-    if opts.weighted and opts.sketch_type != "hll":
-        raise NotPorted(f"--wj/--wj-exact with {opts.sketch_type} sketches "
-                        "(weighted set sketches)")
+    """The JAX CLI's checks of k against the encoding, word for word."""
     if opts.k > 32 and opts.encoding == "bonsai":
         raise SystemExit("k must be <= 32 for non-rolling hashes.")
     if opts.k > 32 and opts.spacing:
@@ -226,8 +225,7 @@ def read_sketch_auto(path, sketch_type: str = "hll", explicit: bool = False):
     `read_sketch_auto`): a path's type is sniffed from its magic; one that
     contradicts an explicitly requested type (a --use-* flag) stops the
     run, one that contradicts the default type is loaded as what it is,
-    with a note.  A stream is read as `sketch_type`.  The k-mer hash sets
-    are refused by name."""
+    with a note.  A stream is read as `sketch_type`."""
     sniffed = _sniff_sketch_type(path) if isinstance(path, str) else None
     if sniffed and sniffed != sketch_type:
         if explicit:
@@ -240,8 +238,6 @@ def read_sketch_auto(path, sketch_type: str = "hll", explicit: bool = False):
         sketch_type = sniffed
     if sketch_type == "hll":
         return HLL.read(path)
-    if sketch_type == "khset":
-        raise NotPorted(f"reading khset sketches ({path})")
     return read_typed(path, sketch_type)
 
 
@@ -371,6 +367,15 @@ def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
                            device, lambda i: filt if i in filter_idx else None)
 
 
+def weighted_elements(raw: np.ndarray, opts: CommonOpts) -> np.ndarray:
+    """The occurrence-labelled elements of raw k-mers under --wj-exact
+    (exact counts) or --wj (count-min estimates)."""
+    from ..sketch.weighted import weighted_elements as elements
+    return elements(raw, exact=opts.exact_weighted,
+                    cmsize_log2=opts.wj_cmsize, nhashes=opts.wj_nhashes,
+                    seed=opts.seed)
+
+
 def weighted_registers(path: str, tiles, opts: CommonOpts,
                        params: pipeline.SketchParams, device: torch.device
                        ) -> np.ndarray:
@@ -379,7 +384,6 @@ def weighted_registers(path: str, tiles, opts: CommonOpts,
     allows (pipeline.sketch_file_wj_hll), else, and for --wj's count-min
     estimates always, the host route: the raw k-mers pulled, labelled by
     weighted.weighted_elements and inserted on the host."""
-    from ..sketch.weighted import weighted_elements
     p = hll_p_from_S(opts.sketch_size)
     if opts.exact_weighted:
         regs = pipeline.sketch_file_wj_hll(path, params, p, device, tiles)
@@ -388,9 +392,7 @@ def weighted_registers(path: str, tiles, opts: CommonOpts,
     with metrics.accum("wj.host"):
         raw = pipeline.file_raw_kmers(path, params, device, tiles)
         h = HLL(p)
-        h.add_np(weighted_elements(raw, exact=opts.exact_weighted,
-                                   cmsize_log2=opts.wj_cmsize,
-                                   nhashes=opts.wj_nhashes, seed=opts.seed))
+        h.add_np(weighted_elements(raw, opts))
     return h.regs
 
 
@@ -408,14 +410,30 @@ def weighted_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
              filter_idx, filt_min_count)
 
 
+def build_sketch(path: str, tiles, opts: CommonOpts,
+                 params: pipeline.SketchParams, device: torch.device):
+    """One path's sketch of opts.sketch_type, built file by file (JAX
+    `build_sketch` and `_build_weighted`'s set-sketch branch): a weighted
+    one holds the labelled elements of the path's raw k-mers, made and
+    inserted on the host (metrics bucket `wj.host`; each type hashes them
+    as its addh_np does, so a weighted wide HLL re-hashes them where a
+    weighted HLL does not); else setsketches.build_typed."""
+    if opts.weighted:
+        with metrics.accum("wj.host"):
+            raw = pipeline.file_raw_kmers(path, params, device, tiles)
+            return sketch_of_values(opts.sketch_type, opts,
+                                    weighted_elements(raw, opts))
+    return build_typed(opts.sketch_type, path, opts, params, device, tiles)
+
+
 def typed_run(indexed_paths, opts: CommonOpts, put, device: torch.device,
               filter_idx=None, filt_min_count: Optional[int] = None):
-    """The set-sketch engine (JAX `_sketch_paths_generic`): calls put(index,
-    sketch of opts.sketch_type) file by file (host_run;
-    setsketches.build_typed)."""
+    """The engine of every sketch the HLL engine does not build (JAX
+    `_sketch_paths_generic`): calls put(index, sketch of
+    opts.sketch_type) file by file (host_run; build_sketch)."""
     host_run(indexed_paths, opts, put,
-             lambda path, tiles, params: build_typed(
-                 opts.sketch_type, path, opts, params, device, tiles),
+             lambda path, tiles, params: build_sketch(path, tiles, opts,
+                                                      params, device),
              filter_idx, filt_min_count)
 
 
@@ -458,6 +476,15 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
         if fname is not None:
             atomic_write_sketch(sk, fname)
         put(i, sk)
+
+
+def hll_engine(opts: CommonOpts) -> bool:
+    """Whether the HLL engine builds opts' sketches: HLLs (weighted ones
+    by weighted_run) and plain wide HLLs.  A weighted wide HLL takes
+    typed_run, where WideHLL.addh_np re-hashes the labelled elements as
+    the JAX package's does."""
+    return (opts.sketch_type == "hll"
+            or (opts.sketch_type == "wide_hll" and not opts.weighted))
 
 
 def register_class(opts: CommonOpts):
@@ -530,7 +557,8 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
                  device: torch.device) -> List:
     """Sketch or load many logical paths: HLLs or wide HLLs (the HLL
     engine; the wide HLL's registers are HLL's, bitwise the JAX package's
-    host route), or the set sketches of opts.sketch_type.  Under -W an
+    host route), or the other sketches of opts.sketch_type (typed_run,
+    weighted wide HLLs among them).  Under -W an
     HLL whose registers mkdist parked on the device carries them as
     `dev_regs`, so the compare stacks its bank there
     (ops/pairwise._device_regs_for)."""
@@ -539,7 +567,7 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
                                  opts.sketch_type_explicit)
                 for path in paths_list]
     out: List = [None] * len(paths_list)
-    if opts.sketch_type not in ("hll", "wide_hll"):
+    if not hll_engine(opts):
         typed_run(list(enumerate(paths_list)), opts, out.__setitem__,
                   device)
         return out
@@ -599,7 +627,9 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
     HLL and wide HLL sketches; for the other types the batched numpy
     engines over blocks of HOST_COMPARE_TILE rows of the upper triangle
     (a block's rows pack contiguously in the condensed vector), each
-    block's measures in one call on `device`."""
+    block's measures in one call on `device`; a type without an engine
+    (the exact k-mer hash sets) pair by pair on the host, every pair's
+    measure in one call."""
     check_compatible(sketches)
     if isinstance(sketches[0], RegisterSketch):
         return pw.all_pairs_condensed(sketches, result_type, k, estim,
@@ -607,6 +637,14 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
     n = len(sketches)
     if out is None:
         out = np.empty(n * (n - 1) // 2, np.float32)
+    if not batch_compare.supports(sketches):
+        with metrics.accum("compare.host"):
+            tri = np.array([a.full_set_comparison(b) for a, b in
+                            itertools.combinations(sketches, 2)],
+                           np.float64).reshape(-1, 3)
+        if tri.shape[0]:
+            out[:] = host_measure(tri, result_type, 1.0 / k, device)
+        return out
     T = HOST_COMPARE_TILE
     for i0 in range(0, n, T):
         with metrics.accum("compare.host"):
@@ -625,13 +663,19 @@ def compare_rect(refs, queries, result_type: int, k: int, estim: int,
                  jestim: int, device: torch.device) -> np.ndarray:
     """Query x reference (nq, nr) matrix, the reference on the lhs of
     each pair's triples: the device tile engine for HLL and wide HLL
-    sketches, the batched numpy engines for the other types."""
+    sketches, the batched numpy engines for the other types, pair by pair
+    on the host for a type without one (the exact k-mer hash sets)."""
     check_compatible(list(refs) + list(queries))
     if isinstance(refs[0], RegisterSketch):
         return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
                              device)
     with metrics.accum("compare.host"):
-        tri = batch_compare.batch_triples(refs, queries).transpose(1, 0, 2)
+        if batch_compare.supports(refs):
+            tri = batch_compare.batch_triples(refs, queries)
+            tri = tri.transpose(1, 0, 2)
+        else:
+            tri = np.array([[r.full_set_comparison(q) for r in refs]
+                            for q in queries], np.float64)
     return host_measure(tri.reshape(-1, 3), result_type, 1.0 / k,
                         device).reshape(len(queries), len(refs))
 

@@ -24,11 +24,13 @@ tools (union, view, fold, printmat, flatten).  The wide HLL
 (--use-wide-hll) takes the HLL engine and kernels.  The set sketches (-8
 / --use-bb-minhash with -B bits, --use-counting-bb-minhash,
 --use-range-minhash, --use-counting-range-minhash, --use-bloom-filter,
---use-hyperminhash and --use-superminhash with -B bits) run through
-sketch, dist, card, union, view, mkdist, sketch_by_seq and dist_by_seq
--B/-S/-8/-r; a DTPUSMH1 file (the densified MinHash) is read as the
-JAX CLI reads it.  Everything else (the k-mer hash sets, weighted set
-sketches) is refused with a "not yet ported" error.  The device comes from
+--use-hyperminhash and --use-superminhash with -B bits) and the exact
+k-mer hash sets (--use-full-khash-sets and its aliases; `.khs` files)
+run through sketch, dist, card, union (-r, -b, -H), view, mkdist,
+sketch_by_seq and dist_by_seq -B/-S/-8/-r/-K, every type plain or
+weighted (--wj, --wj-exact); a DTPUSMH1 file (the densified MinHash) is
+read as the JAX CLI reads it.  DASHING_TPU_USE_HK=1 count filters through
+HeavyKeeper instead of the count-min sketch.  The device comes from
 DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a
 card raises.  The file tools run on the host and never create a device.
 """
@@ -49,15 +51,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import __version__, device as devmod, metrics, pipeline
+from .. import NotPorted, __version__, device as devmod, metrics, pipeline
 from ..background import mkmat2jcdistmat
 from ..io import distmat, fasta, paths
 from ..ops import pairwise as pw
 from ..sketch import estimators as est
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
-from ..sketch.setsketches import make_typed
+from ..sketch.setsketches import sketch_of_values
 from . import core
-from .core import CommonOpts, NotPorted, eprint
+from .core import CommonOpts, eprint
 
 UT_TSV, BINARY, PHYLIP, FULL_TSV = 0, 1, 2, 3
 
@@ -398,7 +400,7 @@ def sketch_main(argv: List[str], device) -> int:
     filter_idx = {i for i, path in todo
                   if o.use_counting_filter
                   or (o.sketch_by_fname and fasta.fname_is_fq(path))}
-    if o.sketch_type not in ("hll", "wide_hll"):
+    if not core.hll_engine(o):
         core.typed_run(todo, o, land, device, filter_idx, o.mincount)
     else:
         cls = core.register_class(o)
@@ -511,8 +513,8 @@ def hll_main(argv: List[str], device) -> int:
 
 def union_main(argv: List[str]) -> int:
     """Union of sketch files (HLL and wide HLL register max; -r bottom-k,
-    -b Bloom filter; the other types by the type of the first file),
-    gzipped to -o (default stdout)."""
+    -b Bloom filter, -H exact k-mer hash sets; the other types by the type
+    of the first file), gzipped to -o (default stdout)."""
     opath = "/dev/stdout"
     plist: List[str] = []
     sketch_type, explicit = "hll", False
@@ -533,7 +535,7 @@ def union_main(argv: List[str]) -> int:
             # the reference's -b takes an argument; the JAX CLI ignores it
             sketch_type, explicit = "bf", True
         elif flag == "-H":
-            raise NotPorted("union -H (k-mer hash set unions)")
+            sketch_type, explicit = "khset", True
     plist += positional
     if not plist:
         _union_usage()
@@ -928,9 +930,7 @@ def sketch_by_seq_main(argv: List[str], device) -> int:
                         sk = HLL(p, o.estim, o.jestim)
                         sk.addh_np(raw)
                     else:
-                        sk = make_typed(o.sketch_type, o)
-                        sk.addh_np(raw)
-                        sk.finalize()
+                        sk = sketch_of_values(o.sketch_type, o, raw)
                     sk.write_record(ofp)
             else:
                 for row in pipeline.sketch_records_hll(seqs, params, p,
@@ -940,14 +940,16 @@ def sketch_by_seq_main(argv: List[str], device) -> int:
 
 
 # dist_by_seq's sketch-type letters
-_DBS_TYPES = {"-B": "bf", "-S": "bbmh", "-8": "bbmh", "-r": "rmh"}
+_DBS_TYPES = {"-B": "bf", "-S": "bbmh", "-8": "bbmh", "-r": "rmh",
+              "-K": "khset"}
 
 
 def dist_by_seq_main(argv: List[str], device) -> int:
     """Compare the per-record sketches of one sketch_by_seq stream: all
     pairs (condensed), or with -q the records of a second stream as
-    queries (rows).  HLL records, or with -B/-S/-8/-r the Bloom filter,
-    b-bit MinHash or bottom-k records of such a stream."""
+    queries (rows).  HLL records, or with -B/-S/-8/-r/-K the Bloom
+    filter, b-bit MinHash, bottom-k or exact k-mer hash set records of
+    such a stream."""
     o = CommonOpts()
     outpath = "/dev/stdout"
     namefile = ""
@@ -963,8 +965,6 @@ def dist_by_seq_main(argv: List[str], device) -> int:
     for flag, val in optlist:
         if flag in _DBS_TYPES:
             o.sketch_type = _DBS_TYPES[flag]
-        elif flag == "-K":
-            raise NotPorted("dist_by_seq -K (k-mer hash set sketches)")
         elif flag == "-p":
             o.nthreads = int(val)
         elif flag == "-o":
@@ -1254,8 +1254,9 @@ def _dist_usage():
         "  --use-hyperminhash, --use-superminhash [-B bits]\n"
         "                          set sketches instead of HLL\n"
         "  --use-wide-hll          HLL with 16-bit registers\n"
-        "Not yet ported (see ROADMAP.md): k-mer hash sets, weighted set "
-        "sketches\n")
+        "  --use-full-khash-sets (--use-full-hash-sets, --use-hash-sets,\n"
+        "  --hash-sets, --use-full-sets)  exact k-mer sets (.khs)\n"
+        "  DASHING_TPU_USE_HK=1    count filter through HeavyKeeper\n")
 
 
 def _sketch_usage():
@@ -1271,7 +1272,7 @@ def _dbs_usage():
 
 def _union_usage():
     raise SystemExit("Usage: union [-o out] [-Z level] [-F paths] "
-                     "[-r | -b x] f1.hll f2.hll ...")
+                     "[-r | -b x | -H] f1.hll f2.hll ...")
 
 
 SUBCOMMANDS = {

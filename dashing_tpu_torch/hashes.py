@@ -8,7 +8,9 @@ no CPU `>>` for uint64).  `wang_hash_np` is the host version on uint64
 arrays (the rolling hashes' tables, the benchmark's host baseline and the
 host HLL inserts, with `clz64_np`); `seeded_wang_hash_np` and
 `poisson_min_cardinality` serve the host set sketches
-(sketch/setsketches.py).
+(sketch/setsketches.py).  `gf64_mul` and `clhash` (with their numpy
+forms) are the carry-less multiplication hash of the JAX package: in the
+hash stack, called by no sketch path.
 """
 from __future__ import annotations
 
@@ -103,3 +105,73 @@ def clz64_np(x: np.ndarray) -> np.ndarray:
         cnt += np.where(zt, s, 0)
         y = np.where(zt, y << np.uint64(s), y)
     return cnt
+
+
+# ---------------------------------------------------------------------------
+# clhash: carry-less-multiplication hashing (Lemire & Kaser, "Faster 64-bit
+# universal hashing using carry-less multiplications", 2015), the single-
+# word case: (x ^ K1) * K2 in GF(2^64), modulo the irreducible
+# x^64 + x^4 + x^3 + x + 1.  The reference links clhash but calls it from
+# no sketch path; so do both packages.
+# ---------------------------------------------------------------------------
+
+def gf64_mul(a: torch.Tensor, b) -> torch.Tensor:
+    """GF(2^64) product of int64 bit patterns (b broadcasts against a):
+    64 rounds of mask-select, shift and XOR give the 128-bit carry-less
+    product, then its high word folds back through the polynomial."""
+    b = torch.as_tensor(b, dtype=torch.int64, device=a.device)
+    lo = torch.zeros(torch.broadcast_shapes(a.shape, b.shape),
+                     dtype=torch.int64, device=a.device)
+    hi = torch.zeros_like(lo)
+    for i in range(64):
+        mask = -((shr(b, i) if i else b) & 1)
+        lo = lo ^ ((a << i) & mask)
+        if i:
+            hi = hi ^ (shr(a, 64 - i) & mask)
+    # hi * x^64 == hi * (x^4 + x^3 + x + 1); the bits the shifts push out
+    # (at most 4) fold once more through the same polynomial
+    t = (hi << 4) ^ (hi << 3) ^ (hi << 1) ^ hi
+    top = shr(hi, 60) ^ shr(hi, 61) ^ shr(hi, 63)
+    return lo ^ t ^ (top << 4) ^ (top << 3) ^ (top << 1) ^ top
+
+
+def _clhash_keys(seed: int):
+    """(K1, K2) as uint64, derived from the seed by WangHash (K2 odd)."""
+    k1 = wang_hash_np(np.asarray([seed ^ 0x2127599BF4325C37], np.uint64))[0]
+    k2 = wang_hash_np(np.asarray([seed ^ 0x9FB21C651E98DF25],
+                                 np.uint64))[0] | np.uint64(1)
+    return k1, k2
+
+
+def clhash(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Carry-less universal hash of int64 bit patterns: (x ^ K1) * K2 in
+    GF(2^64), equal to `clhash_np` on the uint64 view."""
+    k1, k2 = (int(np.asarray(k).view(np.int64)) for k in _clhash_keys(seed))
+    return gf64_mul(x ^ k1, k2)
+
+
+def gf64_mul_np(a: np.ndarray, b) -> np.ndarray:
+    """Host numpy gf64_mul (uint64 in and out)."""
+    a = np.asarray(a, np.uint64)
+    b = np.asarray(b, np.uint64)
+    hi = np.zeros(np.broadcast_shapes(a.shape, b.shape), np.uint64)
+    lo = np.zeros_like(hi)
+    with np.errstate(over="ignore"):   # 0 - 1 wraps to all ones on purpose
+        for i in range(64):
+            mask = np.uint64(0) - ((b >> np.uint64(i)) & np.uint64(1))
+            lo = lo ^ ((a << np.uint64(i)) & mask)
+            if i:
+                hi = hi ^ ((a >> np.uint64(64 - i)) & mask)
+    t = (hi << np.uint64(4)) ^ (hi << np.uint64(3)) \
+        ^ (hi << np.uint64(1)) ^ hi
+    top = (hi >> np.uint64(60)) ^ (hi >> np.uint64(61)) \
+        ^ (hi >> np.uint64(63))
+    lo = lo ^ t
+    return lo ^ ((top << np.uint64(4)) ^ (top << np.uint64(3))
+                 ^ (top << np.uint64(1)) ^ top)
+
+
+def clhash_np(x: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Host numpy clhash (uint64 in and out)."""
+    k1, k2 = _clhash_keys(seed)
+    return gf64_mul_np(np.asarray(x, np.uint64) ^ k1, k2)

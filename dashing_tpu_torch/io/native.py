@@ -1,15 +1,16 @@
-"""ctypes bindings for the native FASTA/FASTQ loader (dashing_tpu_torch/native).
+"""ctypes bindings for the native FASTA/FASTQ loader and the HeavyKeeper
+count filter (dashing_tpu_torch/native).
 
 The loader produces the same joined-bytes layout as the pure-python path
 (records separated by `sep_len` zero bytes), so the two are interchangeable;
 the pipeline prefers native when the shared library builds.
 
 The port builds its own copy of the C++ sources (fastx.cpp, emit.cpp,
-pack.cpp under dashing_tpu_torch/native/) at first use, with
+pack.cpp, hk.cpp under dashing_tpu_torch/native/) at first use, with
 
     g++ -O3 -std=c++17 -fPIC -Wall [-DDTPU_HAVE_ZSTD] -shared \
         -o native/build/libdtt_fastx-<hash>.so fastx.cpp emit.cpp pack.cpp \
-        -lz [-lzstd] -lpthread
+        hk.cpp -lz [-lzstd] -lpthread
 
 into a directory that .gitignore lists, under a lock of its own.  <hash>
 covers the sources and the full command line, so an edit to either builds
@@ -31,7 +32,7 @@ import numpy as np
 
 _SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "native")
-_SOURCES = ("fastx.cpp", "emit.cpp", "pack.cpp")
+_SOURCES = ("fastx.cpp", "emit.cpp", "pack.cpp", "hk.cpp")
 BUILD_DIR = os.path.join(_SRC_DIR, "build")
 
 _lock = threading.Lock()
@@ -135,6 +136,18 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
             ctypes.POINTER(ctypes.c_uint8)]
         lib.dtpu_pack2bit.restype = ctypes.c_int
+        lib.dtpu_hk_create.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_uint64, ctypes.c_double]
+        lib.dtpu_hk_create.restype = ctypes.c_void_p
+        lib.dtpu_hk_destroy.argtypes = [ctypes.c_void_p]
+        lib.dtpu_hk_destroy.restype = None
+        lib.dtpu_hk_add.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64]
+        lib.dtpu_hk_add.restype = None
+        lib.dtpu_hk_query.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint32)]
+        lib.dtpu_hk_query.restype = None
         _lib = lib
         return _lib
 

@@ -18,8 +18,10 @@ routes, as the JAX package chooses them:
 A file can also be count-min filtered (sketch -b/-f, dist -y): two passes
 over its tiles, the first counting every k-mer's hash into a count-min
 sketch on the device, the second admitting the k-mers whose estimated
-count reaches the threshold (`_count_filtered_tiles`).  Filtered tiles
-take the ASCII route, since the count-min needs the 64-bit hashes.
+count reaches the threshold (`_count_filtered_tiles`); under
+DASHING_TPU_USE_HK=1 a HeavyKeeper on the host counts instead
+(`_hk_filtered_tiles`).  Filtered tiles take the ASCII route, since the
+filters need the 64-bit hashes.
 Many small files fold in one launch into a (B, 2^p) register bank
 (`sketch_small_batch_async`: the banked K1, or the PyTorch encoders and a
 banked scatter-max), and so do a batch of sequence records
@@ -42,7 +44,7 @@ from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
-from . import NotPorted, device as devmod, metrics
+from . import device as devmod, metrics
 from .hashes import shr, wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
@@ -613,9 +615,12 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
                           device: torch.device):
     """The two-pass filter over the tiles `tiles()` yields (called once a
     pass).  Yields (hashes, admitted) a tile, both on `device`: admitted =
-    valid & (estimated count >= params.min_count).  No host pull."""
+    valid & (estimated count >= params.min_count).  No host pull, unless
+    DASHING_TPU_USE_HK=1 swaps the count-min for HeavyKeeper
+    (_hk_filtered_tiles)."""
     if os.environ.get("DASHING_TPU_USE_HK", "") not in ("", "0"):
-        raise NotPorted("DASHING_TPU_USE_HK=1 (the HeavyKeeper count filter)")
+        yield from _hk_filtered_tiles(tiles, params, sp, device)
+        return
     nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed
     _check_cm_size(size)
     kw = _encode_kw(params, sp)
@@ -646,6 +651,58 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
             admitted = valid & (_cm_query(counts, h, nh, size, seed)
                                 >= params.min_count)
         yield h, admitted
+
+
+def _hk_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
+                       params: SketchParams, sp: Spacer,
+                       device: torch.device):
+    """The two passes of _count_filtered_tiles through one host HeavyKeeper
+    a file (sketch/heavykeeper.py; geometry from the same -q/-t/-R knobs:
+    params.cm_nhashes rows of 2^cm_size_log2 slots, seed cm_seed), as
+    the JAX package's `_hk_filtered_tiles`: pass 1 pulls each tile's
+    valid hashes and adds them in row-major order (HeavyKeeper's state
+    depends on that order); pass 2 queries them and yields (hashes,
+    admitted) on `device`.  The pulled tiles are kept on the host between
+    the passes within _CM_HASH_CACHE_BYTES; the rest are hashed again.
+    Buckets `sketch.hk_add` and `sketch.hk_query` time the passes."""
+    from .sketch.heavykeeper import HeavyKeeper
+    hk = HeavyKeeper(params.cm_nhashes, params.cm_size_log2, params.cm_seed)
+    kw = _encode_kw(params, sp)
+
+    def pulled(tile):
+        h, valid = _hashed_tile(tile, kw, device)
+        return h, h.cpu().numpy().view(np.uint64), valid.cpu().numpy()
+
+    cached = {}
+    budget = _CM_HASH_CACHE_BYTES
+    mark = metrics.total("host.parse")
+    with metrics.accum("sketch.hk_add"):
+        for i, tile in enumerate(tiles()):
+            _, hv, vm = pulled(tile)
+            hk.add_np(hv[vm])
+            cost = tile.size * 9
+            if budget >= cost:
+                cached[i] = (hv, vm)
+                budget -= cost
+    metrics.add_time("host.parse.hk_add", metrics.total("host.parse") - mark)
+    mark = metrics.total("host.parse")
+    stream = enumerate(tiles())
+    while True:
+        with metrics.accum("sketch.hk_query"):
+            nxt = next(stream, None)
+            if nxt is None:
+                metrics.add_time("host.parse.hk_query",
+                                 metrics.total("host.parse") - mark)
+                return
+            i, tile = nxt
+            if i in cached:
+                hv, vm = cached.pop(i)
+                h = torch.from_numpy(hv.view(np.int64)).to(device)
+            else:
+                h, hv, vm = pulled(tile)
+            admitted = vm.copy()
+            admitted[vm] = hk.query_np(hv[vm]) >= params.min_count
+        yield h, torch.from_numpy(admitted).to(device)
 
 
 def sketch_hll_async(tiles: Callable[[], Iterable[np.ndarray]],

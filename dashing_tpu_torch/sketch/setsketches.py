@@ -19,8 +19,9 @@ Size mapping from the single -S (log2 bytes) knob (`make_typed`):
 
 `build_typed` takes the device routes where the JAX package has one
 (pipeline.sketch_file_bbmh_mins, sketch_file_bottomk_values) and else
-inserts the file's raw k-mers on the host.  The wide HLL, HyperMinHash
-and SuperMinHash classes are in sketch/extra.py.
+inserts the file's raw k-mers on the host (`sketch_of_values`, which
+also builds the exact k-mer hash sets of sketch/khset.py).  The wide HLL,
+HyperMinHash and SuperMinHash classes are in sketch/extra.py.
 """
 from __future__ import annotations
 
@@ -588,18 +589,32 @@ def make_typed(sketch_type: str, opts):
     raise SystemExit(f"Sketch {sketch_type} not yet supported.")
 
 
+def sketch_of_values(sketch_type: str, opts, values: np.ndarray):
+    """The sketch of the requested type holding `values` (raw k-mers, or
+    a weighted sketch's labelled elements): an exact k-mer hash set of
+    them (KSet.from_values), or an empty sketch (make_typed) that inserts
+    them and is finalised.  Each type hashes them as its addh_np does."""
+    if sketch_type == "khset":
+        from .khset import KSet
+        return KSet.from_values(values)
+    sk = make_typed(sketch_type, opts)
+    sk.addh_np(values)
+    sk.finalize()
+    return sk
+
+
 def build_typed(sketch_type: str, path: str, opts, params, device,
                 tiles=None):
     """One path's sketch of a set-sketch type.  The b-bit minima and the
     bottom-k values are made on `device` (only the finished bank is
-    pulled); the other types (the wide HLL's host route among them; the
-    CLI builds it by the HLL engine), and a count-min filtered file,
-    insert the path's raw k-mers on the host (metrics bucket
-    `sketch.host_insert`).
+    pulled); the other types (the exact k-mer hash set, the wide HLL's
+    host route; the CLI builds the wide HLL by the HLL engine), and a
+    count-min filtered file, insert the path's raw k-mers on the host
+    (sketch_of_values, metrics bucket `sketch.host_insert`).
     `tiles()`, if given, yields the path's tiles (a prefetched parse)."""
     from .. import pipeline
-    sk = make_typed(sketch_type, opts)
     if sketch_type == "bbmh":
+        sk = make_typed(sketch_type, opts)
         mins = pipeline.sketch_file_bbmh_mins(path, params, sk.p, device,
                                               tiles)
         if mins is not None:
@@ -607,6 +622,7 @@ def build_typed(sketch_type: str, path: str, opts, params, device,
             sk.finalize()
             return sk
     if sketch_type == "rmh":
+        sk = make_typed(sketch_type, opts)
         vals = pipeline.sketch_file_bottomk_values(path, params, sk.kk,
                                                    device, tiles)
         if vals is not None:
@@ -615,9 +631,7 @@ def build_typed(sketch_type: str, path: str, opts, params, device,
             return sk
     raw = pipeline.file_raw_kmers(path, params, device, tiles)
     with metrics.accum("sketch.host_insert", items=raw.size):
-        sk.addh_np(raw)
-        sk.finalize()
-    return sk
+        return sketch_of_values(sketch_type, opts, raw)
 
 
 TYPES = {"bf": BloomFilter, "rmh": BottomK, "crmh": CountingBottomK,
@@ -627,6 +641,7 @@ TYPES = {"bf": BloomFilter, "rmh": BottomK, "crmh": CountingBottomK,
 def read_typed(path, sketch_type: str):
     from .extra import DensifiedMinHash, HyperMinHash, SuperMinHash, \
         WideHLL
+    from .khset import KSet
     if sketch_type == "superminhash":
         # SuperMinHash files are DTPUSMH2; older ones hold the densified
         # MinHash (DTPUSMH1)
@@ -634,7 +649,8 @@ def read_typed(path, sketch_type: str):
             return SuperMinHash.read(path)
         except ValueError:
             return DensifiedMinHash.read(path)
-    cls = dict(TYPES, wide_hll=WideHLL, hmh=HyperMinHash).get(sketch_type)
+    cls = dict(TYPES, wide_hll=WideHLL, hmh=HyperMinHash,
+               khset=KSet).get(sketch_type)
     if cls is None:
         raise SystemExit(f"Sketch {sketch_type} not yet supported.")
     return cls.read(path)

@@ -2,9 +2,9 @@
 `sketch_by_seq`/`sbs` streams and .names byte for byte (decompressed),
 `-b -n 2` (exact within-record counts) too; `dist_by_seq`/`cmp_by_seq`
 values, symmetric and with -q, and `panel`'s best matches and values at
-rtol 1e-4 (the bar of test_torch_slice.test_dist_matches_jax_cli); the
-k-mer hash set form refused by name; and the new subcommands run with jax and
-the JAX package blocked."""
+rtol 1e-4 (the bar of test_torch_slice.test_dist_matches_jax_cli); every
+family letter of `dist_by_seq` reading its stream; and the new subcommands
+run with jax and the JAX package blocked."""
 import gzip
 import os
 import subprocess
@@ -144,17 +144,14 @@ def test_dist_by_seq_matches_jax_cli(data, cpu_env):
 
 @pytest.mark.parametrize("flag", ["-B", "-S", "-8", "-K", "-r"])
 def test_dist_by_seq_refuses_other_families(data, cpu_env, flag):
-    """-K (k-mer hash sets) stays refused by name.  The other letters,
-    refused until the set sketches were ported, read their family's
-    stream (test_torch_setsketch_cli.py holds the values to the JAX CLI)
-    and fail on an HLL stream's magic, as the JAX CLI does."""
-    if flag == "-K":
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tmain.main(["dist_by_seq", flag, "-n", "x.names", "x.sbs"])
-        return
+    """Each family letter, refused until its family was ported, reads its
+    family's stream (test_torch_setsketch_cli.py and test_torch_khset.py
+    hold the values to the JAX CLI); all but -K fail on an HLL stream's
+    magic, as the JAX CLI does (a `.khs` record has no magic: both CLIs
+    read an HLL stream's magic as a key count and stop on it)."""
     fa, _, _ = data
-    type_flag = {"-B": "--use-bloom-filter", "-r": "--use-range-minhash"
-                 }.get(flag, "-8")
+    type_flag = {"-B": "--use-bloom-filter", "-r": "--use-range-minhash",
+                 "-K": "--use-full-khash-sets"}.get(flag, "-8")
     assert tmain.main(["sbs", "-k", str(K), "-S", str(S), type_flag, "-o",
                        "t.sbs", fa]) == 0
     assert tmain.main(["sbs", "-k", str(K), "-S", str(S), "-o", "h.sbs",
@@ -164,6 +161,8 @@ def test_dist_by_seq_refuses_other_families(data, cpu_env, flag):
     n, mat = distmat.read_binary("t.dbs")
     assert n == 40 and mat.shape == (40 * 39 // 2,)
     assert np.isfinite(mat).all()
+    if flag == "-K":
+        return
     with pytest.raises(SystemExit, match="bad sketch magic"):
         tmain.main(["dist_by_seq", flag, "-n", "h.sbs.names", "h.sbs"])
 

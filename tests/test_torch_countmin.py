@@ -3,10 +3,10 @@ CPU: the count-min arithmetic (`_cm_indices`, `_cm_add`, `_cm_query`)
 exactly equal, the admitted k-mer set equal, and filtered registers
 bitwise equal to JAX `sketch_file_hll` for FASTA and FASTQ, whole and
 streamed, with every tile's hashes cached between the passes, none, or
-some.  Also the streamed files' read-ahead thread, the refusal of the
-HeavyKeeper swap, and no CPU fallback.  The card-only checks (the
-filtered path on `cuda` against `cpu`, tables of 2^28 counters) carry the
-`cuda` marker and skip without a card."""
+some.  Also the streamed files' read-ahead thread and no CPU fallback
+(test_torch_heavykeeper.py holds the HeavyKeeper swap).  The card-only
+checks (the filtered path on `cuda` against `cpu`, tables of 2^28
+counters) carry the `cuda` marker and skip without a card."""
 import gzip
 import threading
 import time
@@ -17,7 +17,7 @@ import torch
 
 from dashing_tpu import pipeline as jpipe
 from dashing_tpu import u64
-from dashing_tpu_torch import NotPorted, pipeline
+from dashing_tpu_torch import pipeline
 from dashing_tpu_torch.cli import main as tmain
 
 torch.set_num_threads(1)
@@ -247,17 +247,6 @@ def test_readahead_early_exit_stops_producer():
     it.close()
     assert _wait_gone() and closed.wait(5.0)
     assert list(pipeline._readahead(iter(range(7)))) == list(range(7))
-
-
-def test_heavykeeper_swap_refused(filtered_files, monkeypatch):
-    path = filtered_files["fastq"][0]
-    monkeypatch.setenv("DASHING_TPU_USE_HK", "1")
-    with pytest.raises(NotPorted, match="HeavyKeeper"):
-        pipeline.sketch_file_hll(path, pipeline.SketchParams(
-            k=31, use_counting_filter=True, min_count=2), 12, CPU)
-    monkeypatch.setenv("DASHING_TPU_TORCH_DEVICE", "cpu")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain.main(["sketch", "-k", "31", "-S", "12", "-b", "-n", "2", path])
 
 
 def test_no_cpu_fallback(filtered_files, tmp_path, monkeypatch):

@@ -15,7 +15,10 @@ or out of range, rows across segment edges, p = 10, 14 and 21, and more
 rows than one grid dimension); and the set sketches' PyTorch ops on the
 card against the CPU (the int64 scatter-min at p = 15 and 26, the
 bottom-k merge); the wide HLL's K1 registers through K4, K3 and K5 as
-the HLL's, and a wide `-J` pair against its CPU run.  Marked `cuda`: they skip without a card.  Run them on one:
+the HLL's, and a wide `-J` pair against its CPU run; raw k-mers at k =
+32, HeavyKeeper-filtered registers, a weighted wide HLL pair through K4,
+K3 and K5, and gf64_mul/clhash against the CPU.  Marked `cuda`: they
+skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
@@ -962,3 +965,116 @@ def test_wide_joint_pair_on_the_card_matches_cpu(rng, cuda):
     cpu = np.array(wide[0].full_set_comparison(wide[1], torch.device("cpu")))
     np.testing.assert_allclose(got, cpu, rtol=2e-4, atol=5e-2)
     assert abs(got[2] / got.sum() - cpu[2] / cpu.sum()) <= 2e-6
+
+
+def _genome_files(rng, root, n=2, length=20000, rate=0.02):
+    """n FASTAs of one ancestor at a planted substitution rate, each two
+    records, with a run of N."""
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    anc = rng.integers(0, 4, length).astype(np.uint8)
+    paths = []
+    for i in range(n):
+        g = anc.copy()
+        hit = np.flatnonzero(rng.random(g.size) < rate * i)
+        g[hit] = (g[hit] + 1) & 3
+        seq = lut[g].copy()
+        seq[1000:1100] = ord("N")
+        cut = seq.size // 2
+        path = root / f"g{i}.fa"
+        path.write_bytes(b">a\n%s\n>b\n%s\n" % (seq[:cut].tobytes(),
+                                                 seq[cut:].tobytes()))
+        paths.append(str(path))
+    return paths
+
+
+def test_raw_kmers_k32_on_the_card_match_cpu(rng, cuda, tmp_path):
+    """A file's raw k-mers at k = 32 (the exact hash sets' keys, the top
+    bit set on a quarter of them) pulled from the card in the CPU's
+    order, and the hash set of them equal."""
+    from dashing_tpu_torch.sketch.khset import KSet
+    path = _genome_files(rng, tmp_path, n=1)[0]
+    params = pipeline.SketchParams(k=32)
+    got = pipeline.file_raw_kmers(path, params, cuda)
+    want = pipeline.file_raw_kmers(path, params, torch.device("cpu"))
+    assert got.dtype == np.uint64 and got.size > 19000
+    np.testing.assert_array_equal(got, want)
+    assert (got >= np.uint64(1 << 63)).any()
+    np.testing.assert_array_equal(KSet.from_values(got).keys,
+                                  KSet.from_values(want).keys)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_hk_filtered_registers_on_the_card_match_cpu(rng, cuda, tmp_path,
+                                                     monkeypatch, streamed):
+    """DASHING_TPU_USE_HK=1: the HeavyKeeper-filtered registers of reads
+    (hashed on the card, added on the host in the tiles' row-major order)
+    bitwise the CPU run's, whole and streamed in 2-row windows."""
+    from dashing_tpu_torch.sketch.heavykeeper import HeavyKeeper
+    assert HeavyKeeper(2, 8).native
+    lut = np.frombuffer(b"ACGT", np.uint8)
+    g = rng.integers(0, 4, 30000).astype(np.uint8)
+    starts = rng.integers(0, g.size - 100, 3000)
+    codes = g[starts[:, None] + np.arange(100)]
+    hit = rng.random(codes.shape) < 0.005
+    codes[hit] = (codes[hit] + 1) & 3
+    path = tmp_path / "r.fq"
+    path.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, lut[c].tobytes(),
+                                                      b"I" * 100)
+                              for i, c in enumerate(codes)))
+    monkeypatch.setenv("DASHING_TPU_USE_HK", "1")
+    if streamed:
+        monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
+        monkeypatch.setattr(pipeline, "MAX_ROWS", 2)
+    params = pipeline.SketchParams(k=31, use_counting_filter=True,
+                                   min_count=2, cm_size_log2=14)
+    got = pipeline.sketch_file_hll(str(path), params, 14, cuda)
+    want = pipeline.sketch_file_hll(str(path), params, 14,
+                                    torch.device("cpu"))
+    assert 0 < int(got.sum())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_weighted_wide_pair_through_the_kernels(rng, cuda, tmp_path):
+    """A `--wj-exact --use-wide-hll` pair (built on the host route, its
+    registers the CPU's) through K4's X-only form and K3 on the card
+    (`dist`), and K4's joint form and K5 (`-J`): each kernel launched,
+    Jaccard within 2e-6 of the CPU run's."""
+    from dashing_tpu_torch.cli import core
+    from dashing_tpu_torch.sketch.extra import WideHLL
+    paths = _genome_files(rng, tmp_path)
+    opts = core.CommonOpts(k=21, sketch_size=14, sketch_type="wide_hll",
+                           exact_weighted=True)
+    assert not core.hll_engine(opts)
+    built = {}
+    for dev in (cuda, torch.device("cpu")):
+        built[dev.type] = [core.build_sketch(
+            p, None, opts, core.sketch_params(opts), dev) for p in paths]
+    for a, b in zip(built["cuda"], built["cpu"]):
+        assert isinstance(a, WideHLL)
+        np.testing.assert_array_equal(a.regs, b.regs)
+    for jestim, mods in ((est.ERTL_MLE, ((js, "cum_union_launches"),
+                                         (um, "launches"))),
+                         (est.ERTL_JOINT_MLE, ((js, "launches"),
+                                               (jm, "launches")))):
+        before = [getattr(m, c) for m, c in mods]
+        got = pw.all_pairs_condensed(built["cuda"], pw.JI, 21, est.ERTL_MLE,
+                                     jestim, cuda)
+        assert all(getattr(m, c) > b for (m, c), b in zip(mods, before))
+        want = pw.all_pairs_condensed(built["cpu"], pw.JI, 21, est.ERTL_MLE,
+                                      jestim, torch.device("cpu"))
+        assert np.isfinite(got).all() and 0.1 < got[0] < 1
+        np.testing.assert_allclose(got, want, atol=2e-6)
+
+
+def test_gf64_on_the_card(rng, cuda):
+    """gf64_mul and clhash on int64 tensors on the card equal the numpy
+    forms on 2^16 random pairs."""
+    from dashing_tpu_torch import hashes
+    a = rng.integers(0, 2**64, 1 << 16, dtype=np.uint64)
+    b = rng.integers(0, 2**64, 1 << 16, dtype=np.uint64)
+    ta = torch.from_numpy(a.view(np.int64)).to(cuda)
+    tb = torch.from_numpy(b.view(np.int64)).to(cuda)
+    got = hashes.gf64_mul(ta, tb).cpu().numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, hashes.gf64_mul_np(a, b))
+    got = hashes.clhash(ta, 11).cpu().numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, hashes.clhash_np(a, 11))

@@ -8,8 +8,8 @@ Jaccard, 1e-6 else; the triples are the same float64 numpy arithmetic,
 only the float32 measure is each package's own), `-o` sizes exactly,
 `-Q`, `--nearest-neighbors` (ids exactly), `-W`, `-y`, `union -r/-b`,
 `view` and `view --header`, `card`, `mkdist`, `sketch_by_seq` and
-`dist_by_seq -B -S -8 -r`; the type-mismatch and mixed-geometry messages
-word for word; and the flags still to port refused by name."""
+`dist_by_seq -B -S -8 -r`; and the type-mismatch and mixed-geometry
+messages word for word."""
 import gzip
 import os
 import shutil
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from dashing_tpu.cli import main as jmain
-from dashing_tpu_torch import NotPorted
 from dashing_tpu_torch.cli import main as tmain
 from dashing_tpu_torch.io import distmat
 
@@ -367,24 +366,3 @@ def test_messages_word_for_word(sketched, cpu_env, capfd):
            if l.startswith("Note:")]
     assert len(err) == 4 and err[:2] == err[2:]
     assert "is a .bmh sketch; loading as bbmh (requested hll)" in err[0]
-
-
-@pytest.mark.parametrize("argv,what", [
-    (["dist", "--use-full-khash-sets"], "hash sets"),
-    (["sketch", "--use-full-khash-sets"], "hash sets"),
-    (["dist", "--wj", "-8"], "weighted set sketches"),
-    (["dist", "--wj-exact", "--use-range-minhash"], "weighted set sketches"),
-    (["sketch", "--wj", "--use-bloom-filter"], "weighted set sketches"),
-    (["union", "-H"], "union -H"),
-    (["dist_by_seq", "-K", "-n", "x.names"], "dist_by_seq -K"),
-])
-def test_refused_by_name(genomes, cpu_env, argv, what):
-    with pytest.raises(NotPorted, match=what):
-        tmain.main(argv + genomes[:2])
-
-
-def test_heavykeeper_with_a_type_refused(genomes, cpu_env, monkeypatch):
-    monkeypatch.setenv("DASHING_TPU_USE_HK", "1")
-    with pytest.raises(NotPorted, match="HeavyKeeper"):
-        tmain.main(["dist", "-8", "-y", "-c", "2", "-k", str(K)]
-                   + genomes[:2])

@@ -356,15 +356,24 @@ rc |= main(["dist", "-k", "15", "-S", "10", "-8", "-O", sys.argv[2] + ".bb"]
            + sys.argv[3:])
 rc |= main(["dist", "-k", "15", "-S", "10", "--use-range-minhash", "-O",
             sys.argv[2] + ".rmh"] + sys.argv[3:])
-for flag, ext in (("--use-wide-hll", "whll"), ("--use-hyperminhash", "hmh"),
-                  ("--use-superminhash", "smh")):
-    rc |= main(["dist", "-k", "15", "-S", "10", flag, "-O",
-                sys.argv[2] + "." + ext] + sys.argv[3:])
+for flags, ext in ((["--use-wide-hll"], "whll"),
+                   (["--use-hyperminhash"], "hmh"),
+                   (["--use-superminhash"], "smh"),
+                   (["--use-full-khash-sets"], "khs"),
+                   (["--wj-exact", "--use-wide-hll"], "wjw")):
+    rc |= main(["dist", "-k", "15", "-S", "10", "-O",
+                sys.argv[2] + "." + ext] + flags + sys.argv[3:])
 import glob, os
 sk = os.path.join(os.path.dirname(sys.argv[2]), "sk")
 os.mkdir(sk)
 rc |= main(["sketch", "-k", "15", "-S", "10", "-b", "-n", "2", "-P", sk]
            + sys.argv[3:])
+os.environ["DASHING_TPU_USE_HK"] = "1"
+rc |= main(["sketch", "-k", "15", "--use-full-khash-sets", "-b", "-n", "2",
+            "-P", sk] + sys.argv[3:])
+del os.environ["DASHING_TPU_USE_HK"]
+rc |= main(["union", "-H", "-o", sys.argv[2] + ".khs.union"]
+           + sorted(glob.glob(os.path.join(sk, "*.khs"))))
 rc |= main(["hll", "-k", "15", "-S", "12"] + sys.argv[3:])
 rc |= main(["card", "-k", "15", "-S", "10", "-o", sys.argv[2] + ".card"]
            + sys.argv[3:])
@@ -381,6 +390,12 @@ import dashing_tpu_torch.sketch.sparse  # noqa: F401
 import dashing_tpu_torch.sketch.weighted  # noqa: F401
 import dashing_tpu_torch.sketch.batch_compare  # noqa: F401
 import dashing_tpu_torch.sketch.extra  # noqa: F401
+import dashing_tpu_torch.sketch.khset  # noqa: F401
+from dashing_tpu_torch.sketch.heavykeeper import HeavyKeeper
+assert HeavyKeeper(2, 8).native
+import torch
+from dashing_tpu_torch.hashes import clhash
+assert clhash(torch.arange(8)).unique().numel() == 8
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert rc == 0 and not leaked, (rc, leaked)
 print("NOJAX-OK")
@@ -398,10 +413,12 @@ def test_port_never_imports_jax(genomes, tmp_path):
     assert "NOJAX-OK" in res.stdout
     assert (tmp_path / "d.txt").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.rf").read_text().startswith(">g0_r0 |")
-    for ext in ("J", "w", "nt", "bb", "rmh", "whll", "hmh", "smh"):
+    for ext in ("J", "w", "nt", "bb", "rmh", "whll", "hmh", "smh", "khs",
+                "wjw"):
         assert (tmp_path / f"d.txt.{ext}").read_text().count("\n") == 4
     assert (tmp_path / "d.txt.card").read_text().count("\n") == 4
-    assert len(os.listdir(tmp_path / "sk")) == 3
+    assert len(os.listdir(tmp_path / "sk")) == 6
+    assert (tmp_path / "d.txt.khs.union").stat().st_size > 0
     assert HLL.read(str(tmp_path / "d.txt.union")).p == 10
     assert "Estimated number of unique exact matches" in res.stdout
 
@@ -430,7 +447,8 @@ def test_cuda_request_without_card_raises(genomes, tmp_path, monkeypatch):
     ["--wj"], ["--wj-cm-sketch-size", "12"], ["--use-bloom-filter"], ["-W"],
     ["--use-range-minhash"], ["-N", "--cache-sketches"],
     ["--wj-exact"], ["--use-bb-minhash"], ["-8"], ["--use-hyperminhash"],
-    ["--use-superminhash"],
+    ["--use-superminhash"], ["--use-full-khash-sets"],
+    ["--wj-exact", "--use-wide-hll"],
 ])
 def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
                                     extra):
@@ -438,12 +456,12 @@ def test_out_of_slice_flags_refused(genomes, tmp_path, monkeypatch, cpu_env,
     them ported since.  The sketch cache flags (-W, --cache-sketches) run:
     the same matrix as without them, and a cache file beside each input
     (under -P).  The weighted-Jaccard flags and the set-sketch type flags
-    (Bloom filter, bottom-k, b-bit MinHash, HyperMinHash, SuperMinHash)
-    run too: a finite matrix of
-    another value than without them (test_torch_weighted.py and
-    test_torch_setsketch_cli.py and test_torch_extra_cli.py hold them to
-    the JAX CLI).  The flags
-    still refused are in test_torch_setsketch_cli.test_refused_by_name."""
+    (Bloom filter, bottom-k, b-bit MinHash, HyperMinHash, SuperMinHash,
+    the exact k-mer hash sets, a weighted wide HLL) run too: a finite
+    matrix of another value than without them (test_torch_weighted.py,
+    test_torch_weighted_types.py, test_torch_setsketch_cli.py,
+    test_torch_extra_cli.py and test_torch_khset.py hold them to the JAX
+    CLI)."""
     if extra[-1] not in ("-W", "--cache-sketches"):
         monkeypatch.chdir(tmp_path)
         base = ["dist", "-k", str(K), "-S", str(S), "-M", "-b"]

@@ -16,6 +16,7 @@ import torch
 from dashing_tpu.cli import main as jmain
 from dashing_tpu.io import distmat
 from dashing_tpu_torch.cli import main as tmain
+from dashing_tpu_torch.sketch.khset import KSet
 
 torch.set_num_threads(1)
 K, S = 21, 12
@@ -222,17 +223,30 @@ def test_union_matches_jax_cli(sketches, tmp_path, capsysbinary):
 
 
 def test_union_refusals(sketches, tmp_path):
-    """union -H (k-mer hash sets) stays refused by name.  -r and -b,
-    refused until the set sketches were ported, now ask for bottom-k and
-    Bloom filter files: on HLL files they stop with the JAX CLI's
-    type-mismatch message, word for word (test_torch_setsketch_cli.py
-    merges real ones).  An HLL and a Bloom filter stop as mixed types
-    (the JAX CLI fails there on a missing attribute); HLLs of two
-    precisions as before."""
+    """-H, -r and -b, refused until their families were ported, ask for
+    k-mer hash set, bottom-k and Bloom filter files: -H merges two `.khs`
+    files into the union of their keys, as the JAX CLI does; on HLL files
+    each stops with the JAX CLI's type-mismatch message, word for word
+    (test_torch_setsketch_cli.py and test_torch_khset.py merge real
+    ones).  An HLL and a Bloom filter stop as mixed types (the JAX CLI
+    fails there on a missing attribute); HLLs of two precisions as
+    before."""
     hlls, p14 = sketches
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tmain.main(["union", "-H"] + hlls)
-    for flag in (["-r"], ["-b", "x"]):
+    rng = np.random.default_rng(0x4B)
+    sets = []
+    for i in range(2):
+        sets.append(str(tmp_path / f"s{i}.khs"))
+        KSet(rng.integers(0, 1 << 64, 300, dtype=np.uint64,
+                          endpoint=False)).write(sets[-1])
+    for tag, fn in (("jax", jmain.main), ("port", tmain.main)):
+        assert fn(["union", "-H", "-o", str(tmp_path / f"{tag}.khs")]
+                  + sets) == 0
+    got = KSet.read(str(tmp_path / "port.khs"))
+    np.testing.assert_array_equal(got.keys, KSet.read(str(
+        tmp_path / "jax.khs")).keys)
+    np.testing.assert_array_equal(got.keys, np.union1d(
+        KSet.read(sets[0]).keys, KSet.read(sets[1]).keys))
+    for flag in (["-r"], ["-b", "x"], ["-H"]):
         msgs = []
         for fn in (jmain.main, tmain.main):
             with pytest.raises(SystemExit) as e:

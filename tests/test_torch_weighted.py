@@ -3,7 +3,8 @@ JAX package, on the CPU: the labelled elements of the host functions and
 of the device labelling bitwise (as multisets), sketch files of `sketch
 --wj-exact` and `--wj` record for record, `dist --wj-exact -M` at rtol
 1e-4, the -W cache names, the device route's registers equal to the host
-route's, and the refusals that stay."""
+route's, and the flags' parse (test_torch_weighted_types.py holds every
+other sketch type to the JAX CLI)."""
 import gzip
 import os
 
@@ -17,7 +18,7 @@ from dashing_tpu import u64
 from dashing_tpu.cli import main as jmain
 from dashing_tpu.io import distmat
 from dashing_tpu.sketch import weighted as jw
-from dashing_tpu_torch import NotPorted, pipeline
+from dashing_tpu_torch import pipeline
 from dashing_tpu_torch.cli import core
 from dashing_tpu_torch.cli import main as tmain
 from dashing_tpu_torch.sketch import weighted as tw
@@ -201,9 +202,10 @@ def test_device_route_equals_host_route(reads, monkeypatch):
         host[reads[0]])
 
 
-def test_weighted_refusals(reads, cpu_env):
-    """Weighted sketches of the other families stay refused by name;
-    --wj parses and mkdist leaves it to its per-k passes."""
+def test_weighted_refusals(reads, tmp_path, cpu_env):
+    """--wj parses; the weighted sketches of the other families, refused
+    until they were ported, run (a finite matrix of the two files); and
+    mkdist leaves weighted sketches to its per-k passes."""
     o = core.CommonOpts()
     for flag, val in (("--wj", ""), ("--wj-exact", ""),
                       ("--wj-cm-sketch-size", "16"),
@@ -213,8 +215,11 @@ def test_weighted_refusals(reads, cpu_env):
         and o.wj_nhashes == 4
     for extra in (["--use-full-khash-sets"], ["--use-bb-minhash"], ["-8"],
                   ["--use-range-minhash"]):
-        with pytest.raises(NotPorted):
-            tmain.main(["dist", "-k", str(K), "--wj"] + extra + reads[:2])
+        out = str(tmp_path / "w.out")
+        assert tmain.main(["dist", "-k", str(K), "--wj", "-b", "-O", out]
+                          + extra + reads[:2]) == 0
+        n, mat = distmat.read_binary(out)
+        assert n == 2 and mat.shape == (1,) and 0 < mat[0] <= 1
     assert tmain._mkdist_presketch(["-k", "15", "--wj-exact"] + reads,
                                    [15, 17], torch.device("cpu")) == \
         (None, None)
