@@ -183,6 +183,24 @@ Phases, each printing its own lines with seconds:
                   / `sketch.hk_query`, each filtered cardinality's error
                   against the k-mers seen at least twice); the phase's
                   seconds
+              (q) phase `parallel`: the CLI as 2 and 3 gloo ranks sharing
+                  the one card (DASHING_TPU_DISTRIBUTED=1, each rank on
+                  cuda:0, spawned by torch.multiprocessing, compare tiles
+                  of PAR_TILE rows) over (h)'s 1,000 genomes: `dist -M -b
+                  -O` (rank-local mmap stripes) and as TSV at 2 and 3
+                  ranks; at 2 also `-J -M -b -O`, `-Q` of 500 queries (ten
+                  byte copies of references, at distance 0) as `-M -b` and
+                  `--nearest-neighbors 5`, `hll`, `sketch -P` and `union`:
+                  each output byte-identical to one process's, banked K1,
+                  K4 X-only and K3 (K4 joint and K5 under -J) launched on
+                  every rank, each rank set inside PAR_TIMEOUT or the
+                  phase fails; rank 0's walls (processes sharing one card,
+                  not scaling) and buckets.  Its mesh half runs in e2e
+                  after (c): the mesh pinned to (cuda:0, cuda:0), `dist -k
+                  31 -S 16 -M -b` and `-J` bit for bit (b)'s and (c)'s
+                  matrices with each genome's chunks on both shards, and
+                  the 100 sketches' compare at MESH_TILE-row tiles bit for
+                  bit one card's with tiles on both shards
 The line before the last is the per-kernel JSON record (launches from the
 run of the kernel's path (the two-bank records: from e2e (g)'s -Q -M
 and -J -Q runs; banked K1 from e2e (h)'s sketch, banked K2 from e2e (j)'s
@@ -493,7 +511,6 @@ def phase_b1_peak(dev):
     lib = _b1_lib()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     scratch = torch.empty(2 * sms * 256, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rates = {}
     # (entry, what, iters, one-bit multiply-adds per block and iteration)
     for fn, what, iters, per in (
@@ -501,11 +518,9 @@ def phase_b1_peak(dev):
             ("dtt_b1_peak_wgmma", "wgmma m64n128k256", 2000,
              8 * 64 * 128 * 256)):
         blocks = 2 * sms
-        entry = getattr(lib, fn)
 
         def run():
-            _build.check(entry(blocks, iters, scratch.data_ptr(), stream), fn,
-                         lib)
+            _build.launch(lib, fn, dev, blocks, iters, scratch.data_ptr())
 
         ms = min(cuda_ms(run, 1) for _ in range(3))
         rates[what] = blocks * iters * per / ms * 1e3
@@ -1567,6 +1582,7 @@ def phase_e2e(dev, bank, other, counts, records):
         _e2e_encodings(dev, genomes, total_bases, tmp, counts)
         sketches = _phase_times(dev, paths, total_bases)
         _config2_kernels(dev, sketches, records)
+        _e2e_mesh(dev, paths, sketches, tmp, out_b, out_c)
         hlls, cond_m = _e2e_joint_bank(bank, tmp)
         _e2e_query(dev, other, hlls, cond_m, paths[:20], tmp, counts)
         _e2e_setsketch(dev, genomes, tmp)
@@ -2108,7 +2124,7 @@ def _metrics_run(argv, what):
 def _buckets(b) -> str:
     return ", ".join(f"{k} {v:.3f}s" for k, v in sorted(b.items())
                      if k.startswith(("sketch", "host", "compare",
-                                      "cardinality")))
+                                      "cardinality", "dist.")))
 
 
 def _setsketch_tile_check(dev):
@@ -3503,6 +3519,7 @@ def phase_e2e_small(dev, counts):
         _e2e_mkdist(genomes, tmp)
         _e2e_records(dev, paths, tmp, counts, rng)
         _e2e_panel(genomes, ancestors, db, tmp, rng)
+        _e2e_parallel(genomes, tmp, rng)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3827,6 +3844,320 @@ def _e2e_panel(genomes, ancestors, db, tmp, rng):
         f"{wall:.3f}s")
     if js.launches == 0 or jm.launches == 0:
         fail("e2e (k): panel did not launch K4's joint form and K5")
+
+
+# ---------------------------------------------------------------------------
+# phase `parallel`, e2e (q): the port's CLI as 2 and 3 gloo ranks sharing
+# the one card over (h)'s collection, against one process; its mesh half is
+# in phase_e2e (the mesh pinned to (cuda:0, cuda:0) over config 2)
+# ---------------------------------------------------------------------------
+
+PAR_TILE = "256"          # compare tile rows: 4 blocks of (h)'s 1,000, so
+#                           every one of 3 ranks owns stripes (the default
+#                           1,024 gives rank 0 the only block)
+PAR_FRESH, PAR_COPIES = 490, 10      # -Q: fresh genomes, byte copies
+PAR_TIMEOUT = 420                    # seconds a rank set may take
+_PAR_COUNTERS = (("K1 banked", "encode_hash", "banks_launches"),
+                 ("K1", "encode_hash", "launches"),
+                 ("K4 X-only", "joint_stats", "cum_union_launches"),
+                 ("K3", "union_mle", "launches"),
+                 ("row estimates", "union_mle", "estimate_launches"),
+                 ("K4 joint", "joint_stats", "launches"),
+                 ("K5", "joint_mle", "launches"))
+
+
+def _par_rank(rank, nprocs, port, runs, cwd, results):
+    """One process of a rank set (spawned): the runs in order through the
+    CLI entry on cuda:0, each with the counters and the metrics buckets
+    reset before it; puts (rank, [(wall, counters, buckets, stdout)]) or
+    (rank, error text) on `results`."""
+    import contextlib
+    import importlib
+    import io
+    import traceback
+    os.environ.update(DASHING_TPU_TORCH_DEVICE="cuda:0",
+                      DASHING_TPU_COMPARE_TILE=PAR_TILE)
+    if nprocs > 1:
+        os.environ.update(DASHING_TPU_DISTRIBUTED="1",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                          WORLD_SIZE=str(nprocs), RANK=str(rank))
+    try:
+        import torch
+        from dashing_tpu_torch import metrics
+        from dashing_tpu_torch.cli.main import main
+        os.chdir(cwd)
+        mods = {m: importlib.import_module(f"dashing_tpu_torch.ops.{m}")
+                for m in ("encode_hash", "joint_stats", "union_mle",
+                          "joint_mle")}
+        out = []
+        for argv in runs:
+            for _, m, attr in _PAR_COUNTERS:
+                setattr(mods[m], attr, 0)
+            metrics._ENABLED = True
+            metrics._totals.clear()
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = main([a.replace("{P}", str(nprocs)) for a in argv])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"{argv[0]} returned {rc}")
+            out.append((wall, {name: getattr(mods[m], attr)
+                               for name, m, attr in _PAR_COUNTERS},
+                        dict(metrics._totals), text.getvalue()))
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+
+
+def _par_spawn(nprocs, runs, cwd):
+    """Run `runs` as nprocs spawned processes (gloo on 127.0.0.1 when
+    nprocs > 1), each on cuda:0; every process must end within
+    PAR_TIMEOUT seconds with its results, or the phase fails (and the
+    processes are killed).  Returns the per-rank results in rank order."""
+    import queue
+    import socket
+    import torch.multiprocessing as tmp_mp
+    ctx = tmp_mp.get_context("spawn")
+    results = ctx.Queue()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = [ctx.Process(target=_par_rank,
+                         args=(r, nprocs, port, runs, cwd, results))
+             for r in range(nprocs)]
+    for pr in procs:
+        pr.start()
+    got = {}
+    deadline = time.perf_counter() + PAR_TIMEOUT
+    try:
+        while len(got) < nprocs:
+            try:
+                rank, res = results.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                fail(f"e2e (q): {nprocs} ranks: no result from ranks "
+                     f"{sorted(set(range(nprocs)) - set(got))} within "
+                     f"{PAR_TIMEOUT}s (a hung rank or a deadlock)")
+            if isinstance(res, str):
+                fail(f"e2e (q): {nprocs} ranks: rank {rank} failed:\n{res}")
+            got[rank] = res
+        for pr in procs:
+            pr.join(timeout=max(1.0, deadline - time.perf_counter()))
+            if pr.exitcode != 0:
+                fail(f"e2e (q): {nprocs} ranks: a rank exited with "
+                     f"{pr.exitcode}")
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    return [got[r] for r in range(nprocs)]
+
+
+MESH_TILE = 16            # compare tile rows of the mesh's direct check
+
+
+def _e2e_mesh(dev, paths, sketches, tmp, out_b, out_c):
+    """(q)'s mesh half: the mesh pinned to (cuda:0, cuda:0) by the test
+    hook, `dist -k 31 -S 16 -M -b` and `-J` over config 2's 100 genomes
+    in process, bit for bit (b)'s and (c)'s matrices, each genome's chunks
+    spread over both shards (K1 into each shard's registers); then, as
+    the CLI's 100 x 100 compare is one tile (one shard), the condensed
+    compare of the same sketches at MESH_TILE-row tiles with and without
+    the mesh, bit for bit, with tiles on both shards.  A second card is
+    not exercised: one H100 cannot show a kernel launched on cuda:1."""
+    import collections
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import pairwise as pw
+    from dashing_tpu_torch.parallel import mesh as pmesh
+    from dashing_tpu_torch.sketch import estimators as est
+    cuda0 = torch.device("cuda", 0)
+    since, streams, shard_tiles = set(), [], collections.Counter()
+    orig_k1, orig_rr = pipeline.packed_to_registers, pw._round_robin
+    orig_merge = pmesh.max_merge
+
+    def k1(packed, vbits, regs, **kw):
+        since.add(regs.data_ptr())
+        return orig_k1(packed, vbits, regs, **kw)
+
+    def merge(parts):
+        # a stream's end: how many of its shards' registers K1 filled
+        streams.append(sum(q.data_ptr() in since for q in parts))
+        since.clear()
+        return orig_merge(parts)
+
+    def round_robin(keys, reps, one):
+        ids = [id(r) for r in reps]
+
+        def counted(banks, *key):
+            shard_tiles[ids.index(id(banks))] += 1
+            return one(banks, *key)
+        return orig_rr(keys, reps, counted)
+
+    pipeline.packed_to_registers, pw._round_robin = k1, round_robin
+    pmesh.max_merge = merge
+    pmesh._set_local_mesh_for_tests((cuda0, cuda0))
+    try:
+        for tag, extra, want in (("-M", [], out_b), ("-J -M", ["-J"], out_c)):
+            out = os.path.join(tmp, f"mesh{len(extra)}.bin")
+            streams.clear()
+            shard_tiles.clear()
+            wall = _timed(["dist", "-k", "31", "-S", "16", "-M", "-b", "-O",
+                           out, "-o", out + ".sizes", "--avoid-sorting"]
+                          + extra + paths, f"e2e (q) mesh {tag}")
+            if open(out, "rb").read() != open(want, "rb").read():
+                fail(f"e2e (q): the (cuda:0, cuda:0) mesh's dist {tag} "
+                     "differs from the one-card matrix")
+            if streams != [2] * len(paths):
+                fail(f"e2e (q): mesh {tag}: K1 filled both shards' "
+                     f"registers in {streams.count(2)} of {len(paths)} "
+                     f"genomes' streams ({len(streams)} streams)")
+            log(f"[e2e q] mesh (cuda:0, cuda:0) dist -k 31 -S 16 {tag} -b: "
+                f"bit for bit the one-card matrix; K1 into both shards' "
+                f"registers in each of the {len(paths)} genomes' chunk "
+                f"streams; compare tiles by shard {dict(shard_tiles)} (one "
+                f"tile); wall {wall:.3f}s")
+        for tag, jestim in (("-M", est.ERTL_MLE),
+                            ("-J -M", est.ERTL_JOINT_MLE)):
+            run = lambda: pw.all_pairs_condensed(  # noqa: E731
+                sketches, pw.MASH_DIST, 31, est.ERTL_MLE, jestim, dev,
+                tile=MESH_TILE)
+            shard_tiles.clear()
+            on = run()
+            tiles = dict(shard_tiles)
+            pmesh._set_local_mesh_for_tests(None, frozen=True)
+            off = run()
+            pmesh._set_local_mesh_for_tests((cuda0, cuda0))
+            if not np.array_equal(on, off) or min(
+                    tiles.get(0, 0), tiles.get(1, 0)) == 0:
+                fail(f"e2e (q): mesh compare {tag} at {MESH_TILE}-row tiles:"
+                     f" equal {np.array_equal(on, off)}, tiles by shard "
+                     f"{tiles}")
+            log(f"[e2e q] mesh compare {tag} of the {len(sketches)} sketches "
+                f"at {MESH_TILE}-row tiles: bit for bit one card's; tiles by "
+                f"shard {tiles}")
+    finally:
+        pipeline.packed_to_registers, pw._round_robin = orig_k1, orig_rr
+        pmesh.max_merge = orig_merge
+        pmesh._set_local_mesh_for_tests(None, frozen=False)
+    log(f"[e2e q] torch.cuda.device_count() = {torch.cuda.device_count()}: "
+        "the mesh ran as two shards of one card")
+
+
+def _par_bytes(path: str) -> bytes:
+    with open(path, "rb") as fp:
+        data = fp.read()
+    return gzip.decompress(data) if data[:2] == b"\x1f\x8b" else data
+
+
+def _e2e_parallel(genomes, tmp, rng):
+    """(q) phase `parallel` over (h)'s 1,000 genomes, k21 S14: as one
+    process, then 2 and 3 gloo ranks on the one card
+    (DASHING_TPU_DISTRIBUTED=1, each rank on cuda:0, started with
+    torch.multiprocessing's spawn, compare tiles of PAR_TILE rows): `dist
+    -M -b -O` (rank-local mmap stripes) and the same as TSV at 2 and 3
+    ranks; at 2 ranks also `-J -M -b -O`, `-Q` with 500 queries (490
+    fresh genomes, ten byte copies of references) as `-M -b` and
+    `--nearest-neighbors 5`, `hll`, `sketch -P` (each rank its stride of
+    per-file sketches) and `union` over the one-process sketches.  Each
+    output is byte-identical to one process's (gzip files once
+    decompressed); on every rank banked K1, K4's X-only form and K3 launch
+    (K4's joint form and K5 under -J); the copies sit at distance 0 from
+    their references; rank 0's walls and buckets printed."""
+    qdir = os.path.join(tmp, "parq")
+    os.makedirs(qdir)
+    fresh = [g[0] for g in _write_genomes(qdir, PAR_FRESH // len(RATES),
+                                          SMALL_LEN, rng)]
+    paths = [g[0] for g in genomes]
+    copies = [3 + j * (len(paths) // PAR_COPIES) for j in range(PAR_COPIES)]
+    for j, i in enumerate(copies):
+        fresh.append(os.path.join(qdir, f"copy{j}.fa"))
+        shutil.copyfile(paths[i], fresh[-1])
+    qlist = _write_list(os.path.join(tmp, "parq.txt"), fresh)
+    for d in ("sk1", "sk2"):
+        os.makedirs(os.path.join(tmp, d))
+    dist = ["dist", "-k", "21", "-S", "14", "--avoid-sorting"]
+    runs = {
+        "-M -b -O (mmap stripes)": (dist + ["-M", "-b", "-O", "m{P}.bin"]
+                                    + paths, ["m{P}.bin"]),
+        "-M TSV": (dist + ["-M", "-O", "m{P}.tsv"] + paths, ["m{P}.tsv"]),
+        "-J -M -b -O": (dist + ["-J", "-M", "-b", "-O", "j{P}.bin"] + paths,
+                        ["j{P}.bin"]),
+        "-Q -M -b": (dist + ["-Q", qlist, "-M", "-b", "-O", "q{P}.bin"]
+                     + paths, ["q{P}.bin"]),
+        "-Q --nearest-neighbors 5": (
+            dist + ["-Q", qlist, "--nearest-neighbors", "5", "-O",
+                    "nn{P}.tsv"] + paths, ["nn{P}.tsv"]),
+        "hll": (["hll", "-k", "21", "-S", "14"] + paths, []),
+        "sketch -P": (["sketch", "-k", "21", "-S", "14", "--avoid-sorting",
+                       "-P", "sk{P}"] + paths,
+                      [os.path.join("sk{P}", os.path.basename(q)
+                                    + ".w.21.spacing.14.hll")
+                       for q in paths]),
+        "union": (["union", "-o", "u{P}.hll"] + [
+            os.path.join("sk1", os.path.basename(q) + ".w.21.spacing.14.hll")
+            for q in paths], ["u{P}.hll"]),
+    }
+    names = list(runs)
+    t_phase = time.perf_counter()
+    one = _par_spawn(1, [runs[k][0] for k in names], tmp)[0]
+    for key, (wall, _, buckets, _) in zip(names, one):
+        log(f"[e2e q] {key}, one process (spawned, cuda:0): wall "
+            f"{wall:.3f}s; buckets: {_buckets(buckets)}")
+    q = np.frombuffer(open(os.path.join(tmp, "q1.bin"), "rb").read(),
+                      "<f4").reshape(len(fresh), len(paths))
+    worst = max(abs(float(q[len(fresh) - PAR_COPIES + j, i]))
+                for j, i in enumerate(copies))
+    if worst != 0.0:
+        fail(f"e2e (q): a byte copy's Mash distance to its reference is "
+             f"{worst}, not 0")
+    for nprocs, which in ((2, names), (3, names[:2])):
+        t0 = time.perf_counter()
+        ranks = _par_spawn(nprocs, [runs[k][0] for k in which], tmp)
+        spawn = time.perf_counter() - t0
+        for i, key in enumerate(which):
+            files = runs[key][1]
+            for f in files:
+                a = _par_bytes(os.path.join(tmp, f.replace("{P}", "1")))
+                b = _par_bytes(os.path.join(tmp, f.replace(
+                    "{P}", str(nprocs))))
+                if a != b:
+                    fail(f"e2e (q): {key} at {nprocs} ranks: {f} differs "
+                         "from one process's")
+            if ranks[0][i][3] != one[names.index(key)][3]:
+                fail(f"e2e (q): {key} at {nprocs} ranks: rank 0 printed "
+                     "other text than one process")
+            if any(r[i][3] for r in ranks[1:]):
+                fail(f"e2e (q): {key} at {nprocs} ranks: a rank but 0 "
+                     "printed")
+            need = {"hll": ("K1 banked",), "union": (), "sketch -P": (
+                "K1 banked",), "-J -M -b -O": ("K1 banked", "K4 joint",
+                                               "K5")}.get(
+                key, ("K1 banked", "K4 X-only", "K3"))
+            for r, res in enumerate(ranks):
+                missing = [c for c in need if res[i][1][c] == 0]
+                if missing:
+                    fail(f"e2e (q): {key} at {nprocs} ranks: rank {r} "
+                         f"launched no {missing}: {res[i][1]}")
+            wall, cnt, buckets, _ = ranks[0][i]
+            log(f"[e2e q] {key} at {nprocs} ranks sharing one card "
+                f"(walls of {nprocs} processes on one card, not scaling): "
+                f"byte-identical to one process ({len(files)} files); "
+                f"rank 0 wall {wall:.3f}s (one process "
+                f"{one[names.index(key)][0]:.3f}s); launches by rank "
+                + " | ".join(", ".join(f"{c} {v}" for c, v in
+                                       res[i][1].items() if v)
+                             for res in ranks)
+                + f"; rank 0 buckets: {_buckets(buckets)}")
+        log(f"[e2e q] {nprocs} ranks: {len(which)} runs, spawn to last "
+            f"result {spawn:.1f}s")
+    log(f"[e2e q] phase parallel: {time.perf_counter() - t_phase:.1f}s")
 
 
 def main() -> int:

@@ -16,6 +16,8 @@ layout so each module has an obvious counterpart:
                  compare engines; the exact k-mer hash sets; the
                  HeavyKeeper count filter
   pipeline    -- files -> packed tiles -> device registers
+  parallel    -- several processes on torch.distributed (gloo), and the
+                 cards of one host (the mesh)
   io, native  -- FASTA/FASTQ parsing, sketch names, distance-matrix files
                  (its own copies of the JAX package's host modules, C++
                  loader and HeavyKeeper, built at first use)

@@ -25,6 +25,7 @@ import torch
 from .. import metrics, pipeline
 from ..io import cache, paths
 from ..ops import pairwise as pw
+from ..parallel import distributed, mesh
 from ..sketch import batch_compare, estimators as est
 from ..sketch.extra import DensifiedMinHash, WideHLL
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
@@ -35,9 +36,11 @@ SKETCH_EXTS = {"hll": ".hll", "khset": ".khs", "bf": ".bf", "rmh": ".rmh",
                "bbmh": ".bmh", "crmh": ".crmh", "superminhash": ".bbs",
                "hmh": ".hmh", "wide_hll": ".whll", "cbbmh": ".cbmh"}
 
-# rows a block of the set-sketch compare engines (the JAX CLI's default
-# DASHING_TPU_HOST_COMPARE_TILE, which sizes its multi-host stripes)
-HOST_COMPARE_TILE = 512
+# rows a block of the set-sketch compare engines; the multi-process
+# stripes of these types take their block ownership from it, so every
+# process of a run must see the same DASHING_TPU_HOST_COMPARE_TILE
+HOST_COMPARE_TILE = int(os.environ.get("DASHING_TPU_HOST_COMPARE_TILE",
+                                       "512"))
 
 
 def eprint(*a, **kw):
@@ -302,16 +305,19 @@ def sketch_jobs(files, params, p: int, device: torch.device, filt=None):
     (the JAX package also flushes on a change of row count; the registers
     are the same either way).  `filt(index)` gives a file's count-min
     filter parameters, or None: a filtered file takes its two passes
-    alone."""
+    alone.  On a mesh the batches go round-robin over its cards, each
+    banked on one card."""
     batch = pipeline.small_batch_size(p)
     ids: List[int] = []
     chunks: List[np.ndarray] = []
+    devs = mesh.cards(device)
+    batches = itertools.count()
 
     def flush():
         if not ids:
             return []
         job = (tuple(ids), pipeline.sketch_small_batch_async(
-            chunks, params, p, device))
+            chunks, params, p, devs[next(batches) % len(devs)]))
         ids.clear()
         chunks.clear()
         return [job]
@@ -561,7 +567,9 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
     weighted wide HLLs among them).  Under -W an
     HLL whose registers mkdist parked on the device carries them as
     `dev_regs`, so the compare stacks its bank there
-    (ops/pairwise._device_regs_for)."""
+    (ops/pairwise._device_regs_for).  Under several processes the HLL
+    engine's list is split across them (parallel/distributed.py); the
+    other types are built whole on every process, as in the JAX CLI."""
     if opts.presketched:
         return [read_sketch_auto(path, opts.sketch_type,
                                  opts.sketch_type_explicit)
@@ -574,6 +582,16 @@ def sketch_paths(paths_list: List[str], opts: CommonOpts,
     p = hll_p_from_S(opts.sketch_size)
     cls = register_class(opts)
     run = weighted_run if opts.weighted else device_hll_run
+    if (distributed.process_count() > 1 and opts.sketch_type == "hll"
+            and not opts.weighted):
+        # several processes: each sketches its stride of the list, then one
+        # register max all-reduce rebuilds every sketch on every process
+        # (the rows a process did not sketch are zero)
+        regs = np.zeros((len(paths_list), 1 << p), np.uint8)
+        device_hll_run(distributed.my_shard(list(enumerate(paths_list))),
+                       opts, regs.__setitem__, device)
+        regs = distributed.global_register_max(regs)
+        return [cls(p, opts.estim, opts.jestim, r) for r in regs]
     run(list(enumerate(paths_list)), opts,
         lambda i, regs: out.__setitem__(
             i, cls(p, opts.estim, opts.jestim, regs)),
@@ -620,24 +638,36 @@ def host_measure(tri: np.ndarray, result_type: int, ksinv: float,
     return pw.measure_from_triples(t, result_type, ksinv).cpu().numpy()
 
 
+def _per_pair_engine(row_blocks) -> None:
+    if row_blocks is not None:
+        raise ValueError("multi-process stripes need the device tile "
+                         "engine or a batched host engine")
+
+
 def compare_condensed(sketches, result_type: int, k: int, estim: int,
                       jestim: int, device: torch.device,
-                      out: Optional[np.ndarray] = None) -> np.ndarray:
+                      out: Optional[np.ndarray] = None,
+                      row_blocks=None) -> np.ndarray:
     """Symmetric all-pairs condensed vector: the device tile engine for
     HLL and wide HLL sketches; for the other types the batched numpy
     engines over blocks of HOST_COMPARE_TILE rows of the upper triangle
     (a block's rows pack contiguously in the condensed vector), each
     block's measures in one call on `device`; a type without an engine
     (the exact k-mer hash sets) pair by pair on the host, every pair's
-    measure in one call."""
+    measure in one call.  `row_blocks` restricts the compare to those
+    tile-row starts (a process's stripes; the other entries of a new
+    vector are zero)."""
     check_compatible(sketches)
     if isinstance(sketches[0], RegisterSketch):
         return pw.all_pairs_condensed(sketches, result_type, k, estim,
-                                      jestim, device, out=out)
+                                      jestim, device, out=out,
+                                      row_blocks=row_blocks)
     n = len(sketches)
     if out is None:
-        out = np.empty(n * (n - 1) // 2, np.float32)
+        out = (np.zeros if row_blocks is not None else np.empty)(
+            n * (n - 1) // 2, np.float32)
     if not batch_compare.supports(sketches):
+        _per_pair_engine(row_blocks)
         with metrics.accum("compare.host"):
             tri = np.array([a.full_set_comparison(b) for a, b in
                             itertools.combinations(sketches, 2)],
@@ -646,7 +676,7 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
             out[:] = host_measure(tri, result_type, 1.0 / k, device)
         return out
     T = HOST_COMPARE_TILE
-    for i0 in range(0, n, T):
+    for i0 in range(0, n, T) if row_blocks is None else sorted(row_blocks):
         with metrics.accum("compare.host"):
             rect = batch_compare.batch_triples(sketches[i0:i0 + T],
                                                sketches[i0:])
@@ -660,15 +690,27 @@ def compare_condensed(sketches, result_type: int, k: int, estim: int,
 
 
 def compare_rect(refs, queries, result_type: int, k: int, estim: int,
-                 jestim: int, device: torch.device) -> np.ndarray:
+                 jestim: int, device: torch.device,
+                 ref_blocks=None) -> np.ndarray:
     """Query x reference (nq, nr) matrix, the reference on the lhs of
     each pair's triples: the device tile engine for HLL and wide HLL
     sketches, the batched numpy engines for the other types, pair by pair
-    on the host for a type without one (the exact k-mer hash sets)."""
+    on the host for a type without one (the exact k-mer hash sets).
+    `ref_blocks` restricts the compare to the references of those tile
+    starts (a process's column stripes; the other columns are zero)."""
     check_compatible(list(refs) + list(queries))
     if isinstance(refs[0], RegisterSketch):
         return pw.rect_pairs(refs, queries, result_type, k, estim, jestim,
-                             device)
+                             device, ref_blocks=ref_blocks)
+    if ref_blocks is not None:
+        if not batch_compare.supports(refs):
+            _per_pair_engine(ref_blocks)
+        out = np.zeros((len(queries), len(refs)), np.float32)
+        for i0 in sorted(ref_blocks):
+            sub = refs[i0:i0 + HOST_COMPARE_TILE]
+            out[:, i0:i0 + len(sub)] = compare_rect(
+                sub, queries, result_type, k, estim, jestim, device)
+        return out
     with metrics.accum("compare.host"):
         if batch_compare.supports(refs):
             tri = batch_compare.batch_triples(refs, queries)
@@ -682,20 +724,24 @@ def compare_rect(refs, queries, result_type: int, k: int, estim: int,
 
 def host_nn_topk(refs, queries, result_type: int, k: int, estim: int,
                  jestim: int, nn: int, exclude_self: bool,
-                 device: torch.device, tile: int = HOST_COMPARE_TILE):
+                 device: torch.device, tile: int = HOST_COMPARE_TILE,
+                 ref_blocks=None):
     """Streaming k-nearest neighbours of every type but HLL (the wide HLL
     too, as in the JAX CLI) -> (vals, idx), each (n_q, nn): reference
     tiles through compare_rect and a stable host merge, O(n_q * (nn +
     tile)) memory.  Ties order by ascending reference
     index, as the dense argsort would: a tile's stable argsort keeps them
-    in index order and earlier tiles come first in the merge."""
+    in index order and earlier tiles come first in the merge.
+    `ref_blocks` restricts the scan to those reference tile starts (a
+    process's stripes; padded with (worst, -1) below nn candidates)."""
     sim = pw.is_similarity(result_type)
     nq, nr = len(queries), len(refs)
     nn = min(nn, nr)
     worst = -np.inf if sim else np.inf
     best_v = np.full((nq, 0), worst, np.float32)
     best_i = np.zeros((nq, 0), np.int64)
-    for j0 in range(0, nr, tile):
+    for j0 in range(0, nr, tile) if ref_blocks is None else sorted(
+            ref_blocks):
         block = compare_rect(refs[j0:j0 + tile], queries, result_type, k,
                              estim, jestim, device)
         rt = block.shape[1]

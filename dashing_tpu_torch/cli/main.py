@@ -33,6 +33,10 @@ read as the JAX CLI reads it.  DASHING_TPU_USE_HK=1 count filters through
 HeavyKeeper instead of the count-min sketch.  The device comes from
 DASHING_TPU_TORCH_DEVICE (default "cuda"); asking for CUDA without a
 card raises.  The file tools run on the host and never create a device.
+DASHING_TPU_DISTRIBUTED=1 runs every subcommand across the processes of
+a torch.distributed group (parallel/distributed.py), with the output of
+one process; the bare "cuda" spreads the work over every card of the
+host (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ from .. import NotPorted, __version__, device as devmod, metrics, pipeline
 from ..background import mkmat2jcdistmat
 from ..io import distmat, fasta, paths
 from ..ops import pairwise as pw
-from ..sketch import estimators as est
+from ..parallel import distributed
+from ..sketch import batch_compare, estimators as est
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
 from ..sketch.setsketches import sketch_of_values
 from . import core
@@ -201,26 +206,49 @@ def dist_main(argv: List[str], device) -> int:
         if hasattr(sk, "jestim"):
             sk.jestim = o.jestim
 
-    fp_sizes, close_sizes = core.open_output(out_sizes)
-    core.emit_cardinalities(fp_sizes, names, sketches, device)
-    if close_sizes:
-        fp_sizes.close()
+    # Several processes: every process holds every sketch (the sketch
+    # phase's register max); the compare is split into tile-row stripes
+    # (the register families: DEFAULT_TILE rows; the batched host engines:
+    # HOST_COMPARE_TILE rows), and rank 0 writes every output.  The
+    # per-pair engine (the exact k-mer hash sets) stays on rank 0.
+    shard = _shard_tile(sketches)
+    if not distributed.is_main() and not shard:
+        return 0
+    if distributed.is_main():
+        fp_sizes, close_sizes = core.open_output(out_sizes)
+        core.emit_cardinalities(fp_sizes, names, sketches, device)
+        if close_sizes:
+            fp_sizes.close()
 
     if o.number_neighbors > 0:
         return _nn_emit(sketches, names, o, result_type, emit_fmt, out_dists,
-                        nq, device)
+                        nq, device, shard)
     if nq:
         return _rect_emit(sketches, names, o, result_type, emit_fmt,
-                          out_dists, nq, use_scientific, device)
+                          out_dists, nq, use_scientific, device, shard)
 
     n = len(sketches)
     use_mmap = (emit_fmt == BINARY
                 and out_dists not in (None, "-", "/dev/stdout"))
-    mm = distmat.create_binary_mmap(out_dists, n) if use_mmap else None
+    row_blocks = distributed.owned_tile_rows(n, shard) if shard else None
+    if use_mmap and shard:
+        mm = _shared_mmap(out_dists, n)
+        use_mmap = mm is not None
+    else:
+        mm = distmat.create_binary_mmap(out_dists, n) if use_mmap else None
     with metrics.phase("all-pairs compare", items=n * (n - 1) / 2,
                        unit="pairs"):
         cond = core.compare_condensed(sketches, result_type, o.k, o.estim,
-                                      o.jestim, device, out=mm)
+                                      o.jestim, device, out=mm,
+                                      row_blocks=row_blocks)
+    if shard:
+        if use_mmap:
+            mm.flush()
+            distributed.barrier("dashing_tpu_distmat_fill")
+        else:
+            cond = distributed.combine_condensed(cond, n, shard)
+        if not distributed.is_main():
+            return 0
     if emit_fmt == BINARY:
         if mm is not None:
             mm.flush()
@@ -250,17 +278,61 @@ def dist_main(argv: List[str], device) -> int:
     return 0
 
 
+def _shard_tile(sketches) -> int:
+    """The stripe width of a multi-process compare of `sketches`, or 0 for
+    none (one process, or the per-pair engine, which stays on rank 0)."""
+    if distributed.process_count() == 1 or not sketches:
+        return 0
+    if isinstance(sketches[0], RegisterSketch):
+        return pw.DEFAULT_TILE
+    return core.HOST_COMPARE_TILE if batch_compare.supports(sketches) else 0
+
+
+def _shared_mmap(out_dists: str, n: int):
+    """The binary matrix file that every rank fills with its own stripes:
+    rank 0 lays it out, a barrier orders that before the others attach.
+    Stripe boundaries fall at arbitrary byte offsets, so the ranks must
+    share one page cache (one host), unless DASHING_TPU_SHARED_MMAP=1
+    asserts a coherent parallel file system; else None, and the stripes
+    are gathered to rank 0 instead."""
+    import socket
+    host = np.frombuffer(socket.gethostname().encode()[:64].ljust(64),
+                         np.uint8)
+    hosts = distributed.allgather_np(host)
+    if not ((hosts == hosts[0]).all() or os.environ.get(
+            "DASHING_TPU_SHARED_MMAP", "") not in ("", "0")):
+        if distributed.is_main():
+            eprint(f"note: ranks span multiple hosts; landing {out_dists} "
+                   "by stripe gather to rank 0 (set DASHING_TPU_SHARED_MMAP=1"
+                   " on a coherent parallel filesystem for rank-local "
+                   "writes)")
+        return None
+    mm = (distmat.create_binary_mmap(out_dists, n) if distributed.is_main()
+          else None)
+    distributed.barrier("dashing_tpu_distmat_create")
+    return mm if mm is not None else distmat.attach_binary_mmap(out_dists, n)
+
+
 def _rect_emit(sketches, names, o: CommonOpts, result_type: int,
                emit_fmt: int, out_dists: Optional[str], nq: int,
-               use_scientific: bool, device) -> int:
+               use_scientific: bool, device, shard: int = 0) -> int:
     """Query x reference emission: headerless float32 rows (nq, nr) for
     -b, with the .labels sidecar of every name (references, then
-    queries); otherwise one TSV row a query, whatever -T/-U say."""
+    queries); otherwise one TSV row a query, whatever -T/-U say.  With
+    `shard` (the stripe width) each process computes its reference
+    columns and rank 0 writes."""
     nr = len(sketches) - nq
     with metrics.phase("query/reference compare", items=nq * nr,
                        unit="pairs"):
-        mat = core.compare_rect(sketches[:nr], sketches[nr:], result_type,
-                                o.k, o.estim, o.jestim, device)
+        mat = core.compare_rect(
+            sketches[:nr], sketches[nr:], result_type, o.k, o.estim,
+            o.jestim, device,
+            ref_blocks=distributed.owned_tile_rows(nr, shard) if shard
+            else None)
+    if shard:
+        mat = distributed.combine_columns(mat, nr, shard)
+        if not distributed.is_main():
+            return 0
     if emit_fmt == BINARY:
         fp, close = core.open_output(out_dists, binary=True)
         fp.write(np.ascontiguousarray(mat, np.float32).tobytes())
@@ -276,10 +348,14 @@ def _rect_emit(sketches, names, o: CommonOpts, result_type: int,
 
 
 def _nn_emit(sketches, names, o: CommonOpts, result_type: int, emit_fmt: int,
-             out_dists: Optional[str], nq: int, device) -> int:
+             out_dists: Optional[str], nq: int, device, shard: int = 0
+             ) -> int:
     """k-nearest-neighbour mode: TSV rows 'name\tid:value...' or binary
     (u32 rows, u32 nn, then (f32 value, u32 id) records row by row).
-    Without -Q every sketch is a query against all the others."""
+    Without -Q every sketch is a query against all the others.  With
+    `shard`, each process scans its reference tile stripes (the HLL's
+    DEFAULT_TILE, the others' HOST_COMPARE_TILE), and one gather of the
+    candidates merges them on rank 0."""
     nn = o.number_neighbors
     n = len(sketches)
     nref = n - nq if nq else n
@@ -293,13 +369,22 @@ def _nn_emit(sketches, names, o: CommonOpts, result_type: int, emit_fmt: int,
     with metrics.phase("nearest-neighbour compare", items=npairs * nref,
                        unit="pairs"):
         if isinstance(sketches[0], HLL):
-            vals, order = pw.nn_topk(refs, queries, result_type, o.k,
-                                     o.estim, o.jestim, nn,
-                                     exclude_self=not nq, device=device)
+            vals, order = pw.nn_topk(
+                refs, queries, result_type, o.k, o.estim, o.jestim, nn,
+                exclude_self=not nq, device=device,
+                ref_blocks=(distributed.owned_tile_rows(nref, pw.DEFAULT_TILE)
+                            if shard else None))
         else:
-            vals, order = core.host_nn_topk(refs, queries, result_type, o.k,
-                                            o.estim, o.jestim, nn, not nq,
-                                            device)
+            vals, order = core.host_nn_topk(
+                refs, queries, result_type, o.k, o.estim, o.jestim, nn,
+                not nq, device,
+                ref_blocks=(distributed.owned_tile_rows(
+                    nref, core.HOST_COMPARE_TILE) if shard else None))
+    if shard:
+        vals, order = distributed.combine_nn(vals, order, nn,
+                                             pw.is_similarity(result_type))
+        if not distributed.is_main():
+            return 0
     if emit_fmt == BINARY:
         fp, close = core.open_output(out_dists, binary=True)
         fp.write(np.uint32(npairs).tobytes())
@@ -377,11 +462,20 @@ def sketch_main(argv: List[str], device) -> int:
     if not o.avoid_sorting:
         inpaths = paths.sort_paths_by_fsize(inpaths)
     p = core.hll_p_from_S(o.sketch_size)
+    work = list(enumerate(inpaths))
+    if distributed.process_count() > 1:
+        # one -o stream has one writer; per-file outputs are written by
+        # every process for its stride of the list
+        if output_file:
+            if not distributed.is_main():
+                return 0
+        else:
+            work = distributed.my_shard(work)
     fnames = {i: core._cache_fname(path, o, wj_ext=False)
-              for i, path in enumerate(inpaths)}
+              for i, path in work}
     results: dict = {}
     todo = []
-    for i, path in enumerate(inpaths):
+    for i, path in work:
         # -c: a file whose sketch file exists is not sketched again
         if skip_cached and os.path.isfile(fnames[i]):
             if output_file:
@@ -453,6 +547,8 @@ def card_main(argv: List[str], device) -> int:
         querypaths = paths.sort_paths_by_fsize(querypaths)
     inpaths += querypaths
     sketches = core.sketch_paths(inpaths, o, device)
+    if not distributed.is_main():
+        return 0
     if emit_binary:
         batch_reports([s for s in sketches
                        if isinstance(s, RegisterSketch)], device)
@@ -495,9 +591,11 @@ def hll_main(argv: List[str], device) -> int:
         got = pipeline.registers_to_numpy(dev_regs)
         np.maximum(regs, got.max(axis=0) if got.ndim == 2 else got, out=regs)
 
+    # several processes: each folds its stride of the files, then one
+    # register max all-reduce merges them
     inflight: deque = deque()
-    for _, dev_regs in core.device_hll_jobs(list(enumerate(inpaths)), o,
-                                            device):
+    for _, dev_regs in core.device_hll_jobs(
+            distributed.my_shard(list(enumerate(inpaths))), o, device):
         if dev_regs is None:                 # an empty file
             continue
         inflight.append(dev_regs)
@@ -505,6 +603,9 @@ def hll_main(argv: List[str], device) -> int:
             fold(inflight.popleft())
     for dev_regs in inflight:
         fold(dev_regs)
+    regs = distributed.global_register_max(regs)
+    if not distributed.is_main():
+        return 0
     h = HLL(p, o.estim, o.jestim, regs)
     batch_reports([h], device)
     print(f"Estimated number of unique exact matches: {h.report():f}")
@@ -539,14 +640,32 @@ def union_main(argv: List[str]) -> int:
     plist += positional
     if not plist:
         _union_usage()
-    merged = core.read_sketch_auto(plist[0], sketch_type, explicit)
-    for path in plist[1:]:
-        other = core.read_sketch_auto(path, sketch_type, explicit)
-        if type(other) is not type(merged):
-            names = sorted({type(merged).__name__, type(other).__name__})
+
+    def read(path):
+        return core.read_sketch_auto(path, sketch_type, explicit)
+
+    def merge(into, other):
+        if type(other) is not type(into):
+            names = sorted({type(into).__name__, type(other).__name__})
             raise SystemExit(f"union: mixed sketch types {names} cannot be "
                              "merged")
-        merged += other
+        into += other
+        return into
+
+    merged = read(plist[0])
+    if type(merged) is HLL and distributed.process_count() > 1:
+        # each process folds its stride of the files, then one register
+        # max all-reduce merges the strides
+        part = HLL(merged.p, merged.estim, merged.jestim)
+        for path in distributed.my_shard(plist):
+            merge(part, read(path))
+        merged.regs = distributed.global_register_max(part.regs)
+        merged._card = None
+    else:
+        for path in plist[1:]:
+            merge(merged, read(path))
+    if not distributed.is_main():
+        return 0
     if opath in ("-", "/dev/stdout"):
         # gzipped on stdout too, so that every subcommand reads it back
         with gzip.GzipFile(fileobj=sys.stdout.buffer, mode="wb",
@@ -643,6 +762,8 @@ def _view_dump(sk, fp) -> None:
 def view_main(argv: List[str]) -> int:
     """Dumps of sketch files (any family the port reads), or with
     --header/-H every container's header."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     header_only = False
     paths_ = []
     for a in argv:
@@ -664,6 +785,8 @@ def view_main(argv: List[str]) -> int:
 def fold_main(argv: List[str]) -> int:
     """Fold an HLL or a wide HLL exactly to a smaller precision (-p;
     default p - 1)."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     out, inp, destp = "/dev/stdout", "/dev/stdin", -1
     optlist, positional = _getopts(argv, "p:o:h?", ["help"])
     for flag, val in optlist:
@@ -689,6 +812,8 @@ def fold_main(argv: List[str]) -> int:
 
 def printmat_main(argv: List[str]) -> int:
     """A binary distance matrix (`dist -b`) as text."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     use_scientific = False
     outpath = ""
     optlist, positional = _getopts(argv, "o:sh?", ["help"])
@@ -712,6 +837,8 @@ def printmat_main(argv: List[str]) -> int:
 
 def flatten_main(argv: List[str]) -> int:
     """Per-k binary matrices -> one flattened container."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     optlist, positional = _getopts(argv, "o:k:h?", ["help"])
     out = "flattened.bin"
     ks: List[int] = []
@@ -737,10 +864,12 @@ def _mkdist_presketch(rest: List[str], ks: List[int], device):
     parked on the device for their compares.  Returns (extra dist
     arguments, cleanup), or (None, None) where the run cannot be fused
     (queries, a count-min filter, presketched inputs, the rolling hashes,
-    entropy minimizers, weighted Jaccard, k outside 4..32): the per-k
-    passes then sketch alone.  Unlike the JAX package, which falls back
-    to per-k sketching on any exception here, a device or kernel error
-    raises."""
+    entropy minimizers, weighted Jaccard, k outside 4..32, several
+    processes): the per-k passes then sketch alone.  Unlike the JAX
+    package, which falls back to per-k sketching on any exception here, a
+    device or kernel error raises."""
+    if distributed.process_count() > 1:
+        return None, None          # the per-k passes split their work
     o = CommonOpts()
     try:
         optlist, positional = _getopts(list(rest), DIST_SHORT_OPTS, DIST_LONG)
@@ -854,6 +983,9 @@ def mkdist_main(argv: List[str], device) -> int:
         pipeline.device_rows_clear()
         if cleanup:
             cleanup()
+    # the per-k passes split their compares; flattening has one writer
+    if not distributed.is_main():
+        return 0
     eprint("Finished distance matrix calculations. Now flattening")
     rc = distmat.flatten_all(fpaths, outpref + ".bin", ks)
     if rc != 0 or not jukes_cantor:
@@ -877,6 +1009,8 @@ def sketch_by_seq_main(argv: List[str], device) -> int:
     type flag), into one gzip stream, with a .names sidecar headed
     '#k=<k>:'.  With -b -n N a record keeps the k-mers it holds at least N
     times, counted exactly within the record."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     o = CommonOpts()
     o.mincount = 1
     outpath = "/dev/stdout"
@@ -1027,9 +1161,19 @@ def dist_by_seq_main(argv: List[str], device) -> int:
             sk.estim = o.estim
         if hasattr(sk, "jestim"):
             sk.jestim = o.jestim
+    # several processes: the compare splits into stripes as dist's does
+    shard = _shard_tile(sketches)
+    if not distributed.is_main() and not shard:
+        return 0
     if otherpath:
-        mat = core.compare_rect(sketches, qsketches, result_type, k,
-                                o.estim, o.jestim, device)
+        mat = core.compare_rect(
+            sketches, qsketches, result_type, k, o.estim, o.jestim, device,
+            ref_blocks=(distributed.owned_tile_rows(len(sketches), shard)
+                        if shard else None))
+        if shard:
+            mat = distributed.combine_columns(mat, len(sketches), shard)
+            if not distributed.is_main():
+                return 0
         fp, close = core.open_output(outpath, binary=(emit_fmt == BINARY))
         if emit_fmt == BINARY:
             fp.write(np.ascontiguousarray(mat, np.float32).tobytes())
@@ -1039,8 +1183,14 @@ def dist_by_seq_main(argv: List[str], device) -> int:
         if not pw.is_symmetric(result_type):
             raise SystemExit("Can't perform asymmetric comparison without "
                              "query paths")
-        cond = core.compare_condensed(sketches, result_type, k, o.estim,
-                                      o.jestim, device)
+        cond = core.compare_condensed(
+            sketches, result_type, k, o.estim, o.jestim, device,
+            row_blocks=(distributed.owned_tile_rows(len(sketches), shard)
+                        if shard else None))
+        if shard:
+            cond = distributed.combine_condensed(cond, len(sketches), shard)
+            if not distributed.is_main():
+                return 0
         fp, close = core.open_output(outpath, binary=(emit_fmt == BINARY))
         if emit_fmt == BINARY:
             distmat.write_binary(fp, cond, len(labels))
@@ -1100,7 +1250,17 @@ def panel_main(argv: List[str], device) -> int:
         list(enumerate(qpaths)), o,
         lambda i, regs: queries.__setitem__(
             i, HLL(p, o.estim, est.ERTL_JOINT_MLE, regs)), device)
-    tri = pw.rect_triples(refs, queries, o.estim, est.ERTL_JOINT_MLE, device)
+    # several processes: every one sketches the queries, computes its
+    # reference tile stripes, and rank 0 writes
+    shard = distributed.process_count() > 1
+    tri = pw.rect_triples(
+        refs, queries, o.estim, est.ERTL_JOINT_MLE, device,
+        ref_blocks=(distributed.owned_tile_rows(len(refs), pw.DEFAULT_TILE)
+                    if shard else None))
+    if shard:
+        tri = distributed.combine_columns(tri, len(refs), pw.DEFAULT_TILE)
+        if not distributed.is_main():
+            return 0
     # lhs = reference, so t1 is the query's own mass
     shared = tri[..., 2]
     cont = np.where(tri[..., 1] + shared > 0,
@@ -1132,6 +1292,8 @@ def readfilt_main(argv: List[str], device) -> int:
     in the JAX CLI's format: FASTQ mate 1 '@name comment|CI:%lf|onlyq|
     onlyref|shared|', later mates and FASTA records '...|%lf'; a mate 1
     without qualities makes the pair FASTA."""
+    if not distributed.is_main():     # one writer: rank 0
+        return 0
     o = CommonOpts()
     o.k = 21
     hllpath = ""
@@ -1309,11 +1471,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "Subcommands: " + ", ".join(SUBCOMMANDS)
                          + ", " + ", ".join(HOST_SUBCOMMANDS))
     cmd = argv[0]
+    # several processes (DASHING_TPU_DISTRIBUTED=1): join the process group
+    # before the device is resolved, then give the rank its card
+    distributed.maybe_initialize()
     if cmd in HOST_SUBCOMMANDS:
         run = HOST_SUBCOMMANDS[cmd]
     elif cmd in SUBCOMMANDS:
         try:
-            device = devmod.from_env()
+            device = distributed.rank_device(devmod.from_env())
         except RuntimeError as e:
             raise SystemExit(f"{cmd}: {e}")
         run = lambda args: SUBCOMMANDS[cmd](args, device)  # noqa: E731

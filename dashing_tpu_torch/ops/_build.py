@@ -13,7 +13,8 @@ reusing one made another way.  ptxas's report (-Xptxas -v) of each
 kernel's registers, stack frame and spills is kept in `build_logs[name]`
 when the library is built in this process.  The C entry points take raw
 device pointers and the CUDA stream as `void*` and return
-`cudaGetLastError()` after the launch; `check` raises on anything but 0.
+`cudaGetLastError()` after the launch; `launch` calls one on its device's
+current stream, and `check` raises on anything but 0.
 Nothing is built or imported when this module is imported.
 """
 from __future__ import annotations
@@ -100,6 +101,19 @@ def load(name: str, signatures: Dict[str, tuple],
         lib.dtt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def launch(lib: ctypes.CDLL, entry: str, device, *args) -> None:
+    """Call the C entry point `entry` of `lib` with `args` and the current
+    stream of CUDA `device`, with `device` the runtime's current device
+    (a kernel launch and cudaFuncSetAttribute act on the current device,
+    not the stream's, and an entry may read the current device's SM
+    count); raise on an error.  Every kernel launch goes through here."""
+    import torch
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    check(err, entry, lib)
 
 
 def check(err: int, what: str, lib: ctypes.CDLL) -> None:

@@ -130,14 +130,10 @@ def packed_to_registers(packed: torch.Tensor, vbits: torch.Tensor,
     vbits = vbits.contiguous()
     if not regs.is_contiguous():
         raise ValueError("registers must be contiguous (updated in place)")
-    lib = _lib()
     R, C = packed.shape[0], packed.shape[1] * 4
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    with torch.cuda.device(regs.device):
-        err = lib.dtt_encode_hash_regs(packed.data_ptr(), vbits.data_ptr(),
-                                       regs.data_ptr(), R, C, k, p,
-                                       int(bool(canon)), stream)
-    _build.check(err, "encode_hash_regs", lib)
+    _build.launch(_lib(), "dtt_encode_hash_regs", regs.device,
+                  packed.data_ptr(), vbits.data_ptr(), regs.data_ptr(), R, C,
+                  k, p, int(bool(canon)))
     global launches
     launches += 1
     return regs
@@ -171,12 +167,9 @@ def encode_hash_keys(tile: torch.Tensor, *, k: int, p: int,
     R, C = tile.shape
     keys = torch.empty((R, max(C - k + 1, 0)), dtype=torch.int32,
                        device=tile.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(tile.device).cuda_stream
-    with torch.cuda.device(tile.device):
-        err = lib.dtt_ascii_hash_keys(tile.data_ptr(), keys.data_ptr(), R, C,
-                                      k, p, int(bool(canon)), stream)
-    _build.check(err, "ascii_hash_keys", lib)
+    _build.launch(_lib(), "dtt_ascii_hash_keys", tile.device,
+                  tile.data_ptr(), keys.data_ptr(), R, C, k, p,
+                  int(bool(canon)))
     global keys_launches
     keys_launches += 1
     return keys
@@ -205,13 +198,10 @@ def ascii_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, k: int,
     if not regs.is_contiguous():
         raise ValueError("registers must be contiguous (updated in place)")
     tile = tile.contiguous()
-    lib = _lib()
     R, C = tile.shape
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    with torch.cuda.device(regs.device):
-        err = lib.dtt_ascii_hash_regs(tile.data_ptr(), regs.data_ptr(), R, C,
-                                      k, p, int(bool(canon)), stream)
-    _build.check(err, "ascii_hash_regs", lib)
+    _build.launch(_lib(), "dtt_ascii_hash_regs", regs.device,
+                  tile.data_ptr(), regs.data_ptr(), R, C, k, p,
+                  int(bool(canon)))
     global ascii_launches
     ascii_launches += 1
     return regs
@@ -265,14 +255,10 @@ def packed_to_banks(packed: torch.Tensor, vbits: torch.Tensor,
     if regs.device.type != "cuda":
         raise ValueError(f"unsupported device {regs.device}")
     packed, vbits, bank = (t.contiguous() for t in (packed, vbits, bank))
-    lib = _lib()
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    with torch.cuda.device(regs.device):
-        err = lib.dtt_encode_hash_banks(
-            packed.data_ptr(), vbits.data_ptr(), bank.data_ptr(),
-            regs.shape[0], regs.data_ptr(), R, C4 * 4, k, p,
-            int(bool(canon)), stream)
-    _build.check(err, "encode_hash_banks", lib)
+    _build.launch(_lib(), "dtt_encode_hash_banks", regs.device,
+                  packed.data_ptr(), vbits.data_ptr(), bank.data_ptr(),
+                  regs.shape[0], regs.data_ptr(), R, C4 * 4, k, p,
+                  int(bool(canon)))
     global banks_launches
     banks_launches += 1
     return regs
@@ -301,14 +287,10 @@ def ascii_to_banks(tile: torch.Tensor, bank: torch.Tensor,
     if tile.device.type == "cpu":
         return ascii_to_banks_plain(tile, bank, regs, k=k, p=p, canon=canon)
     tile, bank = tile.contiguous(), bank.contiguous()
-    lib = _lib()
     R, C = tile.shape
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    with torch.cuda.device(regs.device):
-        err = lib.dtt_ascii_hash_banks(tile.data_ptr(), bank.data_ptr(),
-                                       regs.shape[0], regs.data_ptr(), R, C,
-                                       k, p, int(bool(canon)), stream)
-    _build.check(err, "ascii_hash_banks", lib)
+    _build.launch(_lib(), "dtt_ascii_hash_banks", regs.device,
+                  tile.data_ptr(), bank.data_ptr(), regs.shape[0],
+                  regs.data_ptr(), R, C, k, p, int(bool(canon)))
     global ascii_banks_launches
     ascii_banks_launches += 1
     return regs

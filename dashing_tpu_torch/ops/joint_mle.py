@@ -98,16 +98,11 @@ def joint_triples(eq: torch.Tensor, gt_a: torch.Tensor, gt_b: torch.Tensor,
     if c_u is not None:
         c_u = c_u.contiguous()
     out = torch.empty((3, na, nb), dtype=torch.float32, device=eq.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(eq.device).cuda_stream
-    with torch.cuda.device(eq.device):
-        err = lib.dtt_joint_mle(eq.data_ptr(), gt_a.data_ptr(),
-                                gt_b.data_ptr(), ha.data_ptr(), hb.data_ptr(),
-                                c_a.data_ptr(), c_b.data_ptr(),
-                                None if c_u is None else c_u.data_ptr(),
-                                out.data_ptr(), K, na, nb, p, kmin,
-                                est.jmle_iters(p), stream)
-    _build.check(err, "joint_mle", lib)
+    _build.launch(_lib(), "dtt_joint_mle", eq.device, eq.data_ptr(),
+                  gt_a.data_ptr(), gt_b.data_ptr(), ha.data_ptr(),
+                  hb.data_ptr(), c_a.data_ptr(), c_b.data_ptr(),
+                  None if c_u is None else c_u.data_ptr(), out.data_ptr(), K,
+                  na, nb, p, kmin, est.jmle_iters(p))
     global launches
     launches += 1
     return out

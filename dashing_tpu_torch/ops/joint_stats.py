@@ -150,14 +150,9 @@ def _launch(a, b, kmin, kmax, *, joint):
     one_bank = a.data_ptr() == b.data_ptr() and na == nb
     planes_b = planes_a if one_bank else torch.empty(
         words * nb, dtype=torch.int32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    entry = lib.dtt_joint_pair_stats if joint else lib.dtt_cum_union
-    with torch.cuda.device(a.device):
-        err = entry(a.data_ptr(), b.data_ptr(), planes_a.data_ptr(),
-                    planes_b.data_ptr(), out.data_ptr(), na, nb, m, kmin, K,
-                    stream)
-    _build.check(err, "joint_pair_stats" if joint else "cum_union_counts",
-                 lib)
+    _build.launch(lib, "dtt_joint_pair_stats" if joint else "dtt_cum_union",
+                  a.device, a.data_ptr(), b.data_ptr(), planes_a.data_ptr(),
+                  planes_b.data_ptr(), out.data_ptr(), na, nb, m, kmin, K)
     return out
 
 

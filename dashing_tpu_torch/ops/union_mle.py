@@ -90,13 +90,9 @@ def union_triples(cum: torch.Tensor, c_a: torch.Tensor, c_b: torch.Tensor,
     c_a = c_a.contiguous()
     c_b = c_b.contiguous()
     out = torch.empty((3, na, nb), dtype=torch.float32, device=cum.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(cum.device).cuda_stream
-    with torch.cuda.device(cum.device):
-        err = lib.dtt_union_triples(cum.data_ptr(), c_a.data_ptr(),
-                                    c_b.data_ptr(), out.data_ptr(), K, na, nb,
-                                    p, kmin, method, stream)
-    _build.check(err, "union_triples", lib)
+    _build.launch(_lib(), "dtt_union_triples", cum.device, cum.data_ptr(),
+                  c_a.data_ptr(), c_b.data_ptr(), out.data_ptr(), K, na, nb,
+                  p, kmin, method)
     global launches
     launches += 1
     return out
@@ -135,13 +131,9 @@ def estimate_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
         raise ValueError(f"unsupported device {hist.device}")
     hist = hist.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=hist.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(hist.device).cuda_stream
     code = _MLE_CHAIN if chain and method == est.ERTL_MLE else method
-    with torch.cuda.device(hist.device):
-        err = lib.dtt_estimate_rows(hist.data_ptr(), out.data_ptr(), n, K, p,
-                                    kmin, code, iters, stream)
-    _build.check(err, "estimate_rows", lib)
+    _build.launch(_lib(), "dtt_estimate_rows", hist.device, hist.data_ptr(),
+                  out.data_ptr(), n, K, p, kmin, code, iters)
     global estimate_launches
     estimate_launches += 1
     return out

@@ -29,7 +29,9 @@ banked scatter-max), and so do a batch of sequence records
 one file at several k from one upload a chunk (mkdist).  The b-bit
 MinHash and bottom-k sketches take the ASCII tiles too
 (`sketch_file_bbmh_mins`, `sketch_file_bottomk_values`).
-No mesh: the TPU banks and sharded steps are not ported.
+On several cards of one host (parallel/mesh.py) the chunks of a stream
+and the count-min passes go round-robin over the cards, each card into its
+own partial registers, merged at the end of the stream.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
 from .ops.encode_hash import ascii_to_banks, encode_hash_keys, \
     packed_to_banks, packed_to_registers
 from .ops.hll_update import bucket_rank, update_banks, update_registers
+from .parallel import mesh
 
 # Tile geometry: CONTENT bases of payload per row + halo; rows per upload.
 CONTENT = 8192
@@ -410,22 +413,26 @@ def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
     on `device` (returned without synchronising): the packed upload to K1
     where `packed_ok`, else the ASCII tile to `tile_to_registers` (JAX
     `_sketch_chunk_stream`, and `sketch_chunks_async` for the small-file
-    batcher's multi-chunk files)."""
+    batcher's multi-chunk files).  On a mesh (parallel/mesh.py) the chunks
+    go round-robin over its cards, each into its own registers, merged on
+    the first card at the end of the stream."""
     sp = check_supported(params)
-    regs = torch.zeros(1 << p, dtype=torch.int32, device=device)
+    devs = mesh.cards(device)
+    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
     packed_route = packed_ok(params, sp, p)
     kw = _encode_kw(params, sp)
-    for tile in chunks:
+    for i, tile in enumerate(chunks):
+        d = i % len(devs)
         if packed_route:
             packed, vbits = _pack_tile_host(tile)
             with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                packed_to_registers(*_upload(packed, vbits, device=device),
-                                    regs, k=sp.k, p=p, canon=params.canon)
+                packed_to_registers(*_upload(packed, vbits, device=devs[d]),
+                                    regs[d], k=sp.k, p=p, canon=params.canon)
         else:
             with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                tile_to_registers(_upload(tile, device=device)[0], regs,
+                tile_to_registers(_upload(tile, device=devs[d])[0], regs[d],
                                   **kw, p=p)
-    return regs
+    return mesh.max_merge(regs)
 
 
 # ---------------------------------------------------------------------------
@@ -610,32 +617,45 @@ def _hashed_tile(tile: np.ndarray, kw: dict, device: torch.device):
     return tile_hashes(torch.from_numpy(tile).to(device), **kw)
 
 
+def _use_hk() -> bool:
+    return os.environ.get("DASHING_TPU_USE_HK", "") not in ("", "0")
+
+
 def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
                           params: SketchParams, sp: Spacer,
-                          device: torch.device):
+                          device: torch.device, devs=None):
     """The two-pass filter over the tiles `tiles()` yields (called once a
     pass).  Yields (hashes, admitted) a tile, both on `device`: admitted =
     valid & (estimated count >= params.min_count).  No host pull, unless
     DASHING_TPU_USE_HK=1 swaps the count-min for HeavyKeeper
-    (_hk_filtered_tiles)."""
-    if os.environ.get("DASHING_TPU_USE_HK", "") not in ("", "0"):
+    (_hk_filtered_tiles).  With `devs`, several cards of one host, tile i
+    goes to devs[i % len(devs)] in both passes: each card counts its
+    tiles, the counts are summed (exact integers) onto every card between
+    the passes, and tile i's pair is yielded on its card."""
+    if _use_hk():
         yield from _hk_filtered_tiles(tiles, params, sp, device)
         return
     nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed
     _check_cm_size(size)
     kw = _encode_kw(params, sp)
-    counts = torch.zeros((nh, 1 << size), dtype=torch.int32, device=device)
+    devs = devs or (device,)
+    counts = [torch.zeros((nh, 1 << size), dtype=torch.int32, device=d)
+              for d in devs]
     cached = {}
     budget = _CM_HASH_CACHE_BYTES
     mark = metrics.total("host.parse")       # the parse seconds of each pass
     with metrics.accum("sketch.cm_count"):
         for i, tile in enumerate(tiles()):
-            h, valid = _hashed_tile(tile, kw, device)
-            _cm_add(counts, h, valid, nh, size, seed)
+            d = i % len(devs)
+            h, valid = _hashed_tile(tile, kw, devs[d])
+            _cm_add(counts[d], h, valid, nh, size, seed)
             cost = tile.size * 9
             if budget >= cost:
                 cached[i] = (h, valid)
                 budget -= cost
+        for c in counts[1:]:
+            counts[0] += c.to(counts[0].device)
+        counts = [counts[0]] + [counts[0].to(d, copy=True) for d in devs[1:]]
     metrics.add_time("host.parse.cm_count", metrics.total("host.parse") - mark)
     mark = metrics.total("host.parse")
     stream = enumerate(tiles())
@@ -647,8 +667,10 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
                                  metrics.total("host.parse") - mark)
                 return
             i, tile = nxt
-            h, valid = cached.pop(i, None) or _hashed_tile(tile, kw, device)
-            admitted = valid & (_cm_query(counts, h, nh, size, seed)
+            d = i % len(devs)
+            h, valid = (cached.pop(i, None)
+                        or _hashed_tile(tile, kw, devs[d]))
+            admitted = valid & (_cm_query(counts[d], h, nh, size, seed)
                                 >= params.min_count)
         yield h, admitted
 
@@ -710,14 +732,18 @@ def sketch_hll_async(tiles: Callable[[], Iterable[np.ndarray]],
                      device: torch.device) -> torch.Tensor:
     """(2^p,) int32 registers on `device`, not synchronised, of the tiles
     that `tiles()` yields: one pass, or the two of the count-min filter
-    when `params.filtered` (its tiles take the ASCII route)."""
+    when `params.filtered` (its tiles take the ASCII route); on a mesh,
+    round-robin over its cards."""
     if not params.filtered:
         return sketch_chunk_stream(tiles(), params, p, device)
     sp = check_supported(params)
-    regs = torch.zeros(1 << p, dtype=torch.int32, device=device)
-    for h, admitted in _count_filtered_tiles(tiles, params, sp, device):
-        update_registers(regs, h, admitted, p)
-    return regs
+    # HeavyKeeper's passes run on the host, and on one card
+    devs = (device,) if _use_hk() else mesh.cards(device)
+    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
+    for i, (h, admitted) in enumerate(
+            _count_filtered_tiles(tiles, params, sp, device, devs)):
+        update_registers(regs[i % len(devs)], h, admitted, p)
+    return mesh.max_merge(regs)
 
 
 def registers_to_numpy(regs: torch.Tensor) -> np.ndarray:

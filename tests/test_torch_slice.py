@@ -391,6 +391,8 @@ import dashing_tpu_torch.sketch.weighted  # noqa: F401
 import dashing_tpu_torch.sketch.batch_compare  # noqa: F401
 import dashing_tpu_torch.sketch.extra  # noqa: F401
 import dashing_tpu_torch.sketch.khset  # noqa: F401
+import dashing_tpu_torch.parallel.distributed  # noqa: F401
+import dashing_tpu_torch.parallel.mesh  # noqa: F401
 from dashing_tpu_torch.sketch.heavykeeper import HeavyKeeper
 assert HeavyKeeper(2, 8).native
 import torch
