@@ -11,6 +11,8 @@
 //     (64 x 128 x 256 one-bit multiply-adds each, A in registers, B from
 //     4 KiB of shared memory) and waits for each group.
 // Neither touches global memory in its loop; the caller times the launch.
+// A third entry, dtt_empty, launches an empty <<<1, 32>>> kernel: the
+// floor against which chip_smoke.py reads the times of short kernels.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -102,7 +104,14 @@ wgmma_kernel(int iters, uint32_t seed, uint32_t* __restrict__ out) {
     out[blockIdx.x * 128 + threadIdx.x] = s;     // keeps the loop alive
 }
 
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+extern "C" int dtt_empty(void* stream) {
+    empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
 
 // out: blocks * 256 uint32 of scratch.  One-bit multiply-adds done:
 // blocks * 8 warps * iters * 8 MMAs * 16 * 8 * 256.

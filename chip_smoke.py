@@ -11,7 +11,9 @@ Phases, each printing its own lines with seconds:
               of the binary tensor-core MMAs (mma.sync, which K4 runs, and
               wgmma), measured by the loops of b1_peak.cu beside this
               script (the data sheet gives none); K4's bounds are reckoned
-              against the faster
+              against the faster; and the floor of short kernels' times,
+              an empty <<<1, 32>>> launch (b1_peak.cu), alone and as
+              launched
   3. K1       fused encode/hash/register-max kernel vs its plain PyTorch
               version on the card, one 256-row chunk at k=31 p=14, k=21
               p=16 and k=31 p=16: registers must be bitwise equal; the
@@ -28,8 +30,11 @@ Phases, each printing its own lines with seconds:
               pairs at p=14, ORIGINAL / IMPROVED / MLE: bit for bit (max
               abs err 0, non-finite entries alike) and inside the old bar
               rtol=2e-4 atol=5e-2 on triples; the row-estimate kernel
-              (marginals, MLE by the chain as the compare takes them) at
-              rtol=1e-5; K4's X-only form (cum_union of the main path)
+              (marginals, MLE by the chain as the compare takes them, and
+              a ragged 1001 rows) bit for bit, through the wrapper and 8
+              and 32 lanes a row, each form timed alone and as launched (every
+              row-estimate check does so, at every shape the main path
+              gives the kernel); K4's X-only form (cum_union of the main path)
               bitwise equal to its plain version on that same-bank
               1024 x 2^14 bank
   5. K4, K5   joint pair statistics (K4) vs their plain version, bitwise
@@ -54,7 +59,9 @@ Phases, each printing its own lines with seconds:
               every bank folded alone by the single-bank entry; timed
               alone and as launched
   The build phase also prints SASS instruction counts: K1/K2 per window,
-  and the Newton step of K3 (MLE) and K5 at K = 32 per level-step.
+  and the Newton step of K3 (MLE) and K5 at K = 32 per level-step, and of
+  the row-estimate kernel's main-path instantiations, with their ptxas
+  registers and spills.
   6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
               process at its full geometry, its JSON line printed; K2 must
               launch 30 times per run and the registers equal the plain
@@ -76,7 +83,9 @@ Phases, each printing its own lines with seconds:
               genomes' registers must equal the plain version's on the card.
               Then K3, the row-estimate kernel, both forms of K4 and K5 are
               held against their plain versions at the shapes config 2
-              gives them (one 100 x 100 tile at p=16; the -o histograms).
+              gives them (one 100 x 100 tile at p=16, its marginals by
+              the chain and by the direct form of the -J start; the -o
+              histograms; one sketch's full histogram).
               (e) the ASCII-tile route: the same genomes through `dist -k 31
                   -S 16 -M -b` with -s 1x4, with -w 50, with -g -w 50, and
                   with --use-nthash -k 41: each matrix finite and
@@ -227,12 +236,12 @@ import numpy as np
 
 SEED = 20260
 K3_RTOL, K3_ATOL = 2e-4, 5e-2
-EST_RTOL = 1e-5            # row estimates (cardinalities) vs plain
 JI_ATOL = 2e-6             # Jaccard of the K5 triples vs plain
 K1_SRC = "dashing_tpu_torch/csrc/encode_hash.cu"
 K2_REPLACES = "dashing_tpu/ops/pallas_encode.py:54"
 K3_SRC = "dashing_tpu_torch/csrc/union_mle.cu"
 K3_REPLACES = "dashing_tpu/ops/pallas_mle.py:77"
+ROWS_SRC = "dashing_tpu_torch/csrc/estimate_rows.cu"
 K4_SRC = "dashing_tpu_torch/csrc/joint_stats.cu"
 K4_REPLACES = "dashing_tpu/ops/pallas_stats.py:112"
 K5_SRC = "dashing_tpu_torch/csrc/joint_mle.cu"
@@ -250,6 +259,8 @@ INT32_OPS = 67e12 / 4
 # one-bit multiply-adds a second of the faster binary MMA (.b1 .and.popc,
 # mma.sync or wgmma), measured in this run by phase_b1_peak
 B1_MACS = {"rate": None}
+# an empty <<<1, 32>>> launch, alone and as launched (empty_launch_floor)
+EMPTY_MS = {"alone": float("nan"), "paced": float("nan")}
 
 
 def log(msg: str) -> None:
@@ -302,8 +313,10 @@ def k3_ops(n: int, K: int, method: int, iters: int, nonempty: int) -> int:
     start (2 per level, ~150 for the sigma/tau series) and per Newton step
     the chain step (2 per level), ~25 (exp, the expm1 seed, the top bin,
     the clamped step), and 12 per nonempty level (w = z ((1 - c) / c) 3,
-    the two sums 9; empty levels are skipped).  The direct form of the
-    row estimates computes every level: pass nonempty = n * K."""
+    the two sums 9; empty levels are skipped).  The row estimates' direct
+    form (an expm1f and a division a level) skips them too up to 16 steps
+    (hll_estimators.cuh SKIP_EMPTY_ITERS); above, every level is
+    computed: pass nonempty = n * K."""
     if method == 0:
         return n * (2 * K + 3 * K + 10)
     if method == 1:
@@ -353,7 +366,7 @@ def phase_build():
                                        joint_stats, union_mle)
     t0 = time.perf_counter()
     builds = [m._lib for m in (encode_hash, union_mle, joint_stats,
-                               joint_mle)] + [_b1_lib]
+                               joint_mle)] + [union_mle._rows_lib, _b1_lib]
     with ThreadPoolExecutor(len(builds)) as ex:
         for f in [ex.submit(b) for b in builds]:
             f.result()
@@ -368,7 +381,10 @@ def phase_build():
                 log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
     nvcc = _build.nvcc()
     _sass_report(encode_hash._lib()._name, nvcc)
-    _sass_newton_report(union_mle._lib()._name, joint_mle._lib()._name, nvcc)
+    _sass_newton_report({"union_mle": union_mle._lib()._name,
+                         "joint_mle": joint_mle._lib()._name,
+                         "estimate_rows": union_mle._rows_lib()._name},
+                        nvcc)
 
 
 def _sass_functions(so: str, nvcc: str):
@@ -437,11 +453,22 @@ def _sass_report(so: str, nvcc: str) -> None:
         log(f"[sass] {form}: {len(ins)} instructions; {per}")
 
 
-# (kernel, mangled-name stem, levels a loop pass): K3's MLE instantiation
-# at K = 32 (its 32 levels unrolled into the Newton step) and K5 (its level
-# loop unrolled by two, `#pragma unroll 2` in csrc/joint_mle.cu)
-NEWTON_SASS = (("K3 MLE", "union_triples_kernelILi32ELb1ELi2E", 32),
-               ("K5", "joint_mle_kernel", 2))
+# (kernel, library, mangled-name stem, levels a loop pass): K3's MLE
+# instantiation at K = 32 (its 32 levels unrolled into the Newton step), K5
+# (its level loop unrolled by two, `#pragma unroll 2` in csrc/joint_mle.cu)
+# and the row-estimate kernel at the main path's shapes: the direct form at
+# 24 levels 8 lanes a row (readfilt's batches), at 58 levels a warp a row
+# (the -o sizes' K = 50); the chain at 32 levels a warp a row (the compare
+# marginals)
+NEWTON_SASS = (
+    ("K3 MLE", "union_mle", "union_triples_kernelILi32ELb1ELi2E", 32),
+    ("K5", "joint_mle", "joint_mle_kernel", 2),
+    ("rows direct, 8 lanes a row, KT=24", "estimate_rows",
+     "row_group_kernelILi24ELi2ELi8E", 24),
+    ("rows direct, a warp a row, KT=58", "estimate_rows",
+     "row_group_kernelILi58ELi2ELi32E", 58),
+    ("rows chain, a warp a row, KT=32", "estimate_rows",
+     "row_group_kernelILi32ELi3ELi32E", 32))
 
 
 def _mufu(ins) -> dict:
@@ -453,23 +480,44 @@ def _mufu(ins) -> dict:
     return out
 
 
-def _sass_newton_report(k3_so: str, k5_so: str, nvcc: str) -> None:
-    """SASS of the Newton step of K3 (MLE, K = 32) and K5: the whole
-    kernel; the step, its largest loop (backward branch span); the
-    instructions a level-step: the smallest loop inside the step that
-    holds a division (MUFU.RCP), when the level loop is rolled, else the
-    step, over the levels one pass of it holds; and the special-function
-    (MUFU) and call instructions of the step (expf, one expm1f seed a
-    chain; a call is an IEEE division's slow path)."""
-    for (what, stem, levels), so in zip(NEWTON_SASS, (k3_so, k5_so)):
-        funcs = _sass_functions(so, nvcc) or {}
-        hits = [(n, f) for n, f in funcs.items() if stem in n]
+def _ptxas_of(lib: str, stem: str) -> str:
+    """ptxas's registers and stack/spill line for the kernel whose mangled
+    name holds `stem`, from the build log of library `lib` (empty when
+    the library was not built in this process)."""
+    from dashing_tpu_torch.ops import _build
+    entry, props = None, {}
+    for line in _build.build_logs.get(lib, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("stack frame" in line or "registers" in line):
+            props.setdefault(entry, []).append(
+                line.replace("ptxas info    : ", "").strip())
+    hits = [v for k, v in props.items() if stem in k]
+    return "; ".join(hits[0]) if hits else ""
+
+
+def _sass_newton_report(sos: dict, nvcc: str) -> None:
+    """SASS of the Newton step of each kernel of NEWTON_SASS (`sos`: its
+    library's path by name): the whole kernel; the step, its largest loop
+    (backward branch span); the instructions a level-step: the smallest
+    loop inside the step that holds a division (MUFU.RCP), when the level
+    loop is rolled, else the step, over the levels one pass of it holds;
+    the special-function (MUFU), call and shuffle (SHFL) instructions of
+    the step (expf, expm1f; a call is an IEEE division's slow path); and
+    ptxas's registers and spills."""
+    funcs_of = {}
+    for what, lib, stem, levels in NEWTON_SASS:
+        if lib not in funcs_of:
+            funcs_of[lib] = _sass_functions(sos[lib], nvcc) or {}
+        hits = [(n, f) for n, f in funcs_of[lib].items() if stem in n]
         if not hits:
             log(f"[sass] {what}: kernel {stem} not found")
             continue
         ins, loops = hits[0][1]
+        regs = _ptxas_of(lib, stem)
+        regs = f"; ptxas: {regs}" if regs else ""
         if not loops:
-            log(f"[sass] {what}: {len(ins)} instructions; no loop found")
+            log(f"[sass] {what}: {len(ins)} instructions; no loop found{regs}")
             continue
         j, i = max(loops, key=lambda s: s[1] - s[0])
         step = ins[j:i + 1]
@@ -486,7 +534,7 @@ def _sass_newton_report(k3_so: str, k5_so: str, nvcc: str) -> None:
         log(f"[sass] {what}: {len(ins)} instructions; Newton step loop "
             f"{len(step)} instructions, {per}; in the step: "
             f"{_mufu(step) or 'no MUFU'}, {sum('CALL' in x for x in step)} "
-            "calls")
+            f"calls, {sum('SHFL' in x for x in step)} shuffles{regs}")
 
 
 def _b1_lib():
@@ -496,7 +544,8 @@ def _b1_lib():
     ci, vp = ctypes.c_int, ctypes.c_void_p
     sig = ([ci, ci, vp, vp], ci)
     return _build.load("b1_peak", {"dtt_b1_peak": sig,
-                                   "dtt_b1_peak_wgmma": sig},
+                                   "dtt_b1_peak_wgmma": sig,
+                                   "dtt_empty": ([vp], ci)},
                        src=os.path.join(os.path.dirname(
                            os.path.abspath(__file__)), "b1_peak.cu"))
 
@@ -937,42 +986,104 @@ def phase_k3(dev, records):
                                f"{n} rows p={p} K={K}", records, chain=True)
         _check_triples(cumT, c_a, c_a, p, kmin, method, name,
                        f"{n}x{n} pairs p={p} K={K}", 10, 3, records)
+    # a ragged row count: 1001 rows, no whole number of blocks or warps
+    _check_estimates(stats["hist_a"][:1001], p, kmin, est.ERTL_MLE,
+                     est.WINDOW_MLE_ITERS, "marginals MLE ragged",
+                     f"1001 rows p={p} K={K}", records, chain=True)
+
+
+def _bitwise(got, want, what):
+    """Fail unless got equals want bit for bit: max abs err 0 on the
+    finite entries, the same finite, NaN and infinite entries."""
+    import torch
+    fin = torch.isfinite(want)
+    inf = torch.isinf(want)
+    if not (torch.equal(fin, torch.isfinite(got))
+            and torch.equal(torch.isnan(want), torch.isnan(got))
+            and torch.equal(got[inf], want[inf])):
+        fail(f"{what}: non-finite entries differ")
+    err = (got - want).abs()[fin]
+    max_err = float(err.max()) if err.numel() else 0.0
+    if max_err != 0.0 or not torch.equal(got[fin], want[fin]):
+        fail(f"{what}: not bit for bit equal to the plain version (max abs "
+             f"err {max_err})")
+
+
+def empty_launch_floor(dev):
+    """The floor a short kernel's times are read against: an empty
+    <<<1, 32>>> launch (b1_peak.cu `dtt_empty`) through the same ctypes
+    path, timed alone and as launched (kernel_alone_ms)."""
+    from dashing_tpu_torch.ops import _build
+    lib = _b1_lib()
+    alone, paced = kernel_alone_ms(
+        lambda i: _build.launch(lib, "dtt_empty", dev), lambda: None,
+        "empty launch")
+    EMPTY_MS.update(alone=alone, paced=paced)
+    log(f"[floor] empty <<<1, 32>>> launch: alone {alone:.4f} ms, as "
+        f"launched {paced:.4f} ms")
+
+
+def _rows_times(hist, p, kmin, code, iters, lanes_all):
+    """{lanes: (alone ms, as-launched ms)} of the row-estimate kernel on
+    hist in each form of lanes_all.  Raw launches into one output (no
+    wrapper, no count)."""
+    import torch
+    from dashing_tpu_torch.ops import _build
+    from dashing_tpu_torch.ops import union_mle as um
+    n, K = hist.shape
+    dev = hist.device
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = um._rows_lib()
+    args = (hist.data_ptr(), out.data_ptr(), n, K, p, kmin, code, iters)
+    return {x: kernel_alone_ms(
+        lambda i, x=x: _build.launch(lib, "dtt_estimate_rows", dev, *args, x),
+        lambda: None, f"rows lanes {x}") for x in lanes_all}
 
 
 def _check_estimates(hist, p, kmin, method, iters, what, shape, records,
                      chain=False):
-    """Row-estimate kernel vs its plain version at rtol=EST_RTOL; returns
-    the kernel's estimates.  `chain`: MLE by the complement chain, as a
-    compare tile's marginals take it."""
+    """Row-estimate kernel vs its plain version, bit for bit (max abs err
+    0, non-finite entries alike), through the wrapper and, for an MLE, in
+    both forms (8 and 32 lanes a row); returns the wrapper's estimates.
+    `chain`: MLE by the complement chain, as a compare tile's marginals
+    take it.  Each form timed alone and as launched (`_rows_times`),
+    beside the empty-launch floor; the record's ms is the wrapper's form
+    alone."""
     import torch
     from dashing_tpu_torch.ops import union_mle as um
-    got = um.estimate_rows(hist, p=p, kmin=kmin, method=method, iters=iters,
-                           chain=chain)
+    from dashing_tpu_torch.sketch import estimators as est
+    n, K = hist.shape
+    auto = um.row_lanes(n, method)
+    lanes_all = (8, 32) if method == est.ERTL_MLE else (1,)
     want = um.estimate_rows_plain(hist, p=p, kmin=kmin, method=method,
                                   iters=iters, chain=chain)
+    result = um.estimate_rows(hist, p=p, kmin=kmin, method=method,
+                              iters=iters, chain=chain)
     torch.cuda.synchronize()
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)):
-        fail(f"estimate_rows {what}: non-finite entries differ")
-    err = (got - want).abs()[fin]
-    max_err = float(err.max()) if err.numel() else 0.0
-    bad = int((err > EST_RTOL * want.abs()[fin]).sum())
-    if bad:
-        fail(f"estimate_rows {what}: {bad} of {want.numel()} estimates "
-             f"outside rtol={EST_RTOL} (max abs err {max_err})")
-    ms = cuda_ms(lambda: um.estimate_rows(hist, p=p, kmin=kmin, method=method,
-                                          iters=iters, chain=chain), 20)
+    _bitwise(result, want, f"estimate_rows {what} ({shape}, the wrapper)")
+    for lanes in lanes_all:
+        got = um._launch_rows(hist, p=p, kmin=kmin, method=method,
+                              iters=iters, chain=chain, lanes=lanes)
+        torch.cuda.synchronize()
+        _bitwise(got, want, f"estimate_rows {what} ({shape}, lanes {lanes})")
+    code = 3 if chain and method == est.ERTL_MLE else method
+    times = _rows_times(hist, p, kmin, code, iters, lanes_all)
+    ms = times[auto][0]
     plain_ms = cuda_ms(lambda: um.estimate_rows_plain(
         hist, p=p, kmin=kmin, method=method, iters=iters, chain=chain), 3)
-    log(f"[est] {what}, {shape}: within rtol={EST_RTOL}, max abs err "
-        f"{max_err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    n, K = hist.shape
-    # the chain skips empty levels; the direct form computes them all
-    nonempty = int((hist != 0).sum()) if chain else n * K
-    record(records, f"estimate_rows {what} ({shape})", K3_SRC, K3_REPLACES,
-           "estimate_rows", max_err, ms, plain_ms, 4 * n * K + 4 * n,
+    forms = ", ".join(f"lanes {k} {v[0]:.4f} / {v[1]:.4f}"
+                      for k, v in times.items())
+    log(f"[est] {what}, {shape}: bit for bit (max abs err 0) in every form; "
+        f"ms alone / as launched: {forms} (the wrapper takes lanes {auto}); "
+        f"empty launch {EMPTY_MS['alone']:.4f} / {EMPTY_MS['paced']:.4f}; "
+        f"plain {plain_ms:.4f} ms")
+    # the MLE forms skip empty levels up to SKIP_EMPTY_ITERS steps; with
+    # more, every level is computed
+    nonempty = int((hist != 0).sum()) if iters <= 16 else n * K
+    record(records, f"estimate_rows {what} ({shape})", ROWS_SRC, K3_REPLACES,
+           "estimate_rows", 0.0, ms, plain_ms, 4 * n * K + 4 * n,
            k3_ops(n, K, method, iters, nonempty), FP32_OPS)
-    return got
+    return result
 
 
 def _check_triples(cumT, c_a, c_b, p, kmin, method, name, shape, reps,
@@ -2737,12 +2848,17 @@ def _config2_kernels(dev, sketches, records):
     _check_estimates(hists.to(dev), p, 0, est.ERTL_MLE, est.FULL_MLE_ITERS,
                      "-o sizes MLE config 2", f"{n} rows p={p} K={64 - p + 2}",
                      records)
+    # one sketch's full histogram: HLL.report, union_triple_incl_excl
+    _check_estimates(hists[:1].to(dev), p, 0, est.ERTL_MLE,
+                     est.FULL_MLE_ITERS, "HLL.report config 2",
+                     f"1 row p={p} K={64 - p + 2}", records)
     check_cum_union(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     st = check_k4(regs_d, regs_d, kmin, kmax, True, "config 2", records)
     ha = stats["hist_a"].T
     # the -J start takes the direct MLE marginals
-    c_j = um.estimate_rows(stats["hist_a"], p=p, kmin=kmin,
-                           method=est.ERTL_MLE)
+    c_j = _check_estimates(stats["hist_a"], p, kmin, est.ERTL_MLE,
+                           est.WINDOW_MLE_ITERS, "-J start config 2",
+                           f"{n} rows p={p} kmin={kmin} K={K}", records)
     check_k5(st, slice(None), ha, ha.contiguous(), c_j, c_j, p, kmin,
              "config 2", records)
 
@@ -3077,8 +3193,8 @@ def phase_sparse(dev, records, genome):
     genome sketched at p = 16, at the shapes the engine gives its
     kernels: K2's keys bitwise equal to the plain version; the sparse
     statistics on the card bitwise equal to the same code on the CPU; the
-    row-estimate kernel's direct form on hist_a and hist_u within
-    rtol=EST_RTOL; K5 given c_u, (kb, READFILT_BATCH, 1), and without
+    row-estimate kernel's direct form on hist_a and hist_u, the
+    reference's one row and a last batch's 288 rows, bit for bit; K5 given c_u, (kb, READFILT_BATCH, 1), and without
     c_u, bit for bit; K4's joint form on one 100 kbp record against the
     reference (ertl_joint's 1 x 1 tile over [0, q+1]) bitwise.  Their
     records count launches from e2e (l)."""
@@ -3142,7 +3258,13 @@ def phase_sparse(dev, records, genome):
     c_u = _check_estimates(st["hist_u"].T.contiguous(), p, 0, est.ERTL_MLE,
                            est.WINDOW_MLE_ITERS, "readfilt hist_u", shape,
                            records)
-    c_b = um.estimate_rows(hist_d[None], p=p, kmin=0, method=est.ERTL_MLE)
+    c_b = _check_estimates(hist_d[None], p, 0, est.ERTL_MLE,
+                           est.WINDOW_MLE_ITERS, "readfilt reference",
+                           f"1 row p={p} K={kb}", records)
+    # e2e (l)'s last batch: 500,000 pairs leave 288 rows of 8,192
+    _check_estimates(st["hist_a"].T[:288].contiguous(), p, 0, est.ERTL_MLE,
+                     est.WINDOW_MLE_ITERS, "readfilt last batch",
+                     f"288 rows p={p} K={kb}", records)
     kst = {key: st[key][:, :, None] for key in ("eq", "gt_a", "gt_b")}
     hb = hist_d[:, None].contiguous()
     tri = check_k5(kst, slice(None), st["hist_a"], hb, c_a, c_b, p, 0,
@@ -3282,6 +3404,14 @@ def phase_e2e_readfilt(dev, counts, genome):
                  f"row estimates {um.estimate_launches}, K5 {jm.launches}")
         if js.launches:
             fail("e2e (l): a read took the dense ertl_joint path")
+        # c_a and c_u a batch (one K5 launch each), the reference's c_b
+        # once a level window (at most 7: multiples of 8 up to q+2)
+        windows = um.estimate_launches - 2 * jm.launches
+        if not 1 <= windows <= (64 - RF_P + 2 + 7) // 8:
+            fail(f"e2e (l): {um.estimate_launches} row-estimate launches "
+                 f"for {jm.launches} batches: not 2 a batch and 1 a window")
+        log(f"[e2e l] row-estimate launches {um.estimate_launches} = 2 x "
+            f"{jm.launches} batches + {windows} level window(s)")
         kept = {"R": 0, "F": 0}
         cis = {}
         with open(out) as fp:
@@ -4178,6 +4308,7 @@ def main() -> int:
     phase_device()
     phase_build()
     phase_b1_peak(dev)
+    empty_launch_floor(dev)
     records: list = []
     counts: dict = {}
     phase_k1(dev, records)

@@ -63,6 +63,7 @@ from ..parallel import distributed
 from ..sketch import batch_compare, estimators as est
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
 from ..sketch.setsketches import sketch_of_values
+from ..sketch.sparse import reference_cardinalities
 from . import core
 from .core import CommonOpts, eprint
 
@@ -1331,6 +1332,8 @@ def readfilt_main(argv: List[str], device) -> int:
     else:
         pairs = ((rec,) for rec in streams[0])
     truncated = False
+    # the reference's cardinality, estimated once a level window
+    ref_card = reference_cardinalities(ref_hist, ref.p)
     while True:
         with metrics.accum("readfilt.parse"):
             batch = []
@@ -1347,7 +1350,8 @@ def readfilt_main(argv: List[str], device) -> int:
             break
         seqs = [sep.join(r[2] for r in recs) for recs in batch]
         tri = pipeline.records_joint_triples(seqs, params, ref_regs,
-                                             ref_hist, ref.p, device)
+                                             ref_hist, ref.p, device,
+                                             ref_card=ref_card)
         denom = tri[:, 0] + tri[:, 2]
         ci = np.where(denom > 0, tri[:, 2] / np.maximum(denom, 1e-300), 0.0)
         with metrics.accum("readfilt.emit"):

@@ -1,21 +1,22 @@
 // HLL cardinality estimators on a level window, shared by the kernels of
-// union_mle.cu (K3 and the row estimates) and joint_mle.cu (K5's union
-// estimate for the inclusion-exclusion start).
+// union_mle.cu (K3), estimate_rows.cu (the row estimates) and
+// joint_mle.cu (K5's union estimate for the inclusion-exclusion start).
 //
 // The math is dashing_tpu/sketch/estimators.py `*_estimate_windowed`, on a
 // histogram h[l] of levels kmin..kmin+K-1.  The plain versions
 // (dashing_tpu_torch/sketch/estimators.py) follow this operation order:
-// levels summed one by one from the lowest, every operation rounded on its
-// own when the including file is built with -fmad=false.
+// levels summed one by one from the lowest (the chain's from the top),
+// every operation rounded on its own when the including file is built with
+// -fmad=false.
 //
-// Two forms.  The pointer forms (original_est, improved_est, mle_est) take
-// a runtime K and serve the row-estimate kernel.  The window forms
-// (*_win<KT>) serve K3 and K5: their level loops are unrolled over KT, a
-// width from pairwise._K_BUCKETS, so a histogram read as h(l) with a
-// compile-time l stays in registers; a narrower runtime K skips the levels
-// l >= K.  Inside a window, level kmin + l is level 0 only at l = 0 with
-// has0 and the top bin q+1 only at l = K-1 with hastop, so those two
-// flags, not comparisons of levels, pick the special levels.
+// Every form takes a histogram h(l), l = 0..K-1, read through an accessor
+// (a register array, or a warp shuffle in the row-estimate kernel's
+// group form), and is a template over KT, a width from pairwise._K_BUCKETS:
+// the level loops are unrolled over KT, so a histogram read as h(l) with
+// a compile-time l stays in registers; a narrower runtime K skips the
+// levels l >= K.  Inside a window, level kmin + l is level 0 only at
+// l = 0 with has0 and the top bin q+1 only at l = K-1 with hastop, so
+// those two flags, not comparisons of levels, pick the special levels.
 #pragma once
 #include <cmath>
 #include <cuda_runtime.h>
@@ -70,62 +71,6 @@ __device__ __forceinline__ float pow2neg(int l) {
     return __int_as_float((127 - l) << 23);
 }
 
-__device__ float original_est(const float* h, const Window& w) {
-    float denom = 0.f;
-    for (int l = 0; l < w.K; ++l) denom += h[l] * pow2neg(w.kmin + l);
-    const float m = w.m;
-    const float e = w.orig_am2 / denom;
-    const float c0 = w.has0 ? h[0] : 0.f;
-    if (e <= 2.5f * m && c0 > 0.f) return m * logf(m / fmaxf(c0, 1e-9f));
-    return e;
-}
-
-__device__ float improved_est(const float* h, const Window& w) {
-    float denom = 0.f;
-    for (int l = w.lo; l <= w.hi; ++l) denom += h[l - w.kmin] * pow2neg(l);
-    const float m = w.m;
-    if (w.has0) denom += m * sigma(h[0] / m, w.p + 6);
-    if (w.hastop) denom += m * tau(1.f - h[w.K - 1] / m, 24) * pow2neg(w.q);
-    return w.imp_am2 / denom;
-}
-
-__device__ float mle_est(const float* h, float mtot, const Window& w,
-                         int iters) {
-    const float c0 = w.has0 ? h[0] : 0.f;
-    const float ctop = w.hastop ? h[w.K - 1] : 0.f;
-    const bool empty = c0 >= mtot;
-    const bool full = ctop >= mtot;
-    const float x0 = fminf(fmaxf(improved_est(h, w) / w.m, 1e-12f),
-                           ldexpf(1.f, w.q + 1));
-    float u = logf(x0);
-    const float zq = pow2neg(w.q);
-    for (int it = 0; it < iters; ++it) {
-        const float x = expf(u);
-        float d1 = 0.f, d2 = 0.f;
-        for (int l = w.lo; l <= w.hi; ++l) {
-            const float z = pow2neg(l);
-            const float wl = z / expm1f(fmaxf(x * z, 1e-30f));
-            const float c = h[l - w.kmin];
-            d1 += c * (wl - z);
-            d2 += c * (-(wl * wl + z * wl));
-        }
-        d1 -= c0;
-        const float wq = zq / expm1f(fmaxf(x * zq, 1e-30f));
-        d1 += ctop * wq;
-        d2 += ctop * (-(wq * wq + zq * wq));
-        const float dldu = x * d1;
-        const float dd = dldu + x * x * d2;
-        const float step = dldu / fminf(dd, -1e-9f);
-        u = u - fminf(fmaxf(step, -1.f), 1.f);
-    }
-    float est = expf(u) * w.m;
-    if (full) est = INFINITY;      // full first, empty last
-    if (empty) est = 0.f;
-    return est;
-}
-
-// ---- window forms: histogram h(l), l = 0..K-1, K <= KT ----
-
 template <int KT, class H>
 __device__ __forceinline__ float original_win(const H& h, int K,
                                               const Window& w) {
@@ -140,7 +85,11 @@ __device__ __forceinline__ float original_win(const H& h, int K,
     return e;
 }
 
-// the window's top bin h(K-1) (a select per level when K is not KT)
+// the window's top bin h(K-1) (a select per level when K is not KT).
+// improved_win also takes it as `top` from a caller that can read it
+// directly: with a runtime K, the compiler may fold this select chain
+// into h[K-1] and move the whole histogram to local memory (it did, at
+// KT = 16-32, in the row-estimate kernel).
 template <int KT, class H>
 __device__ __forceinline__ float top_bin(const H& h, int K) {
     float t = 0.f;
@@ -150,9 +99,10 @@ __device__ __forceinline__ float top_bin(const H& h, int K) {
     return t;
 }
 
+// `top`: h(K-1), read only when the window holds the top bin
 template <int KT, class H>
 __device__ __forceinline__ float improved_win(const H& h, int K,
-                                              const Window& w) {
+                                              const Window& w, float top) {
     float denom = 0.f;
 #pragma unroll
     for (int l = 0; l < KT; ++l)
@@ -160,10 +110,23 @@ __device__ __forceinline__ float improved_win(const H& h, int K,
             denom += h(l) * pow2neg(w.kmin + l);
     const float m = w.m;
     if (w.has0) denom += m * sigma(h(0) / m, w.p + 6);
-    if (w.hastop)
-        denom += m * tau(1.f - top_bin<KT>(h, K) / m, 24) * pow2neg(w.q);
+    if (w.hastop) denom += m * tau(1.f - top / m, 24) * pow2neg(w.q);
     return w.imp_am2 / denom;
 }
+
+template <int KT, class H>
+__device__ __forceinline__ float improved_win(const H& h, int K,
+                                              const Window& w) {
+    return improved_win<KT>(h, K, w, w.hastop ? top_bin<KT>(h, K) : 0.f);
+}
+
+// Empty levels add exactly +-0 to the Newton sums of the MLE (the chain
+// below, the row-estimate kernel's group form) while w w is finite: w <=
+// 1/x (w = z / expm1(max(x z, 1e-30)), and expm1 is at least its
+// argument) and x >= 1e-12 e^{-iters}, so up to 16 steps such a level may
+// be skipped; with more, 0 w w may be 0 inf = NaN, which the plain
+// versions compute, so every level is computed.
+constexpr int SKIP_EMPTY_ITERS = 16;
 
 // ERTL_MLE by the complement chain, the form the TPU kernel runs
 // (dashing_tpu/sketch/estimators.py `_mle_dlogl12_chain`): per Newton
@@ -179,7 +142,7 @@ __device__ __forceinline__ float mle_chain_win(const H& h, int K, float mtot,
     const float ctop = w.hastop ? top_bin<KT>(h, K) : 0.f;
     const bool empty = c0 >= mtot;
     const bool full = ctop >= mtot;
-    const float x0 = nmin(nmax(improved_win<KT>(h, K, w) / w.m, 1e-12f),
+    const float x0 = nmin(nmax(improved_win<KT>(h, K, w, ctop) / w.m, 1e-12f),
                           ldexpf(1.f, w.q + 1));
     float u = logf(x0);
     const float zq = pow2neg(w.q), zhi = pow2neg(w.hi);
@@ -191,11 +154,10 @@ __device__ __forceinline__ float mle_chain_win(const H& h, int K, float mtot,
         for (int l = KT - 1; l >= 0; --l) {
             if (l >= K || (l == K - 1 && w.hastop) || (l == 0 && w.has0))
                 continue;
-            // an empty level adds exactly +-0 while w w is finite: w = z /
-            // (e^{x z} - 1) <= 1/x and x >= 1e-12 e^{-iters}, so up to 16
-            // steps (K3 takes 12) such levels are skipped
+            // empty levels skipped up to SKIP_EMPTY_ITERS steps (K3
+            // takes 12)
             const float hl = h(l);
-            if (hl != 0.f || iters > 16) {
+            if (hl != 0.f || iters > SKIP_EMPTY_ITERS) {
                 const float z = pow2neg(w.kmin + l);
                 const float wl = z * ((1.f - c) / c);
                 d1 = d1 + hl * (wl - z);

@@ -21,12 +21,9 @@
 // with the levels past K skipped.  The ragged edge is masked by the thread
 // index, so callers need no padding.
 //
-// A second entry, dtt_estimate_rows, runs the estimators on (n, K)
-// histogram rows, one thread per row: the per-sketch sizes of `dist -o`
-// by the direct forms (an expm1f per level, as the JAX package estimates
-// them), and the marginal cardinalities c_a, c_b of a compare tile by the
-// chain, so that a pair's union and marginals come from one function (a
-// pair beside an empty sketch then shares exactly 0).
+// The same estimators on (n, K) histogram rows (a compare tile's
+// marginals, the sizes of `dist -o`) are the row-estimate kernel of
+// estimate_rows.cu.
 //
 // Built with -fmad=false: the plain versions (sketch/estimators.py) round
 // every operation on its own and sum levels in the same order, so the two
@@ -83,26 +80,6 @@ union_triples_kernel(const float* __restrict__ cum,
     out[2 * npairs + idx] = shared;
 }
 
-__global__ void estimate_rows_kernel(const float* __restrict__ hist,
-                                     float* __restrict__ out, int n, Window w,
-                                     int method, int iters) {
-    const int row = blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= n) return;
-    float h[KMAX];
-    float mtot = 0.f;
-    for (int l = 0; l < w.K; ++l) {
-        h[l] = __ldg(hist + (long long)row * w.K + l);
-        mtot += h[l];
-    }
-    float c;
-    if (method == 0) c = original_est(h, w);
-    else if (method == 1) c = improved_est(h, w);
-    else if (method == 2) c = mle_est(h, mtot, w, iters);
-    else c = mle_chain_win<KMAX>([&](int l) { return h[l]; }, w.K, mtot, w,
-                                 iters);
-    out[row] = c;
-}
-
 template <int KT, bool EXACT>
 void launch_triples(int method, unsigned blocks, cudaStream_t stream,
                     const float* cum, const float* ca, const float* cb,
@@ -143,24 +120,6 @@ extern "C" int dtt_union_triples(const void* cum, const void* ca,
         case 58: launch_triples<58, true>(method, blocks, s, c, a, b, o, na, nb, w); break;
         default: launch_triples<KMAX, false>(method, blocks, s, c, a, b, o, na, nb, w);
     }
-    return (int)cudaGetLastError();
-}
-
-// (n, K) row-major histograms over levels kmin..kmin+K-1 -> (n,) estimates;
-// `iters` Newton steps for ERTL_MLE (12 windowed, 24 on full histograms);
-// method 3 is ERTL_MLE by the complement chain, as union_triples takes it
-// (a compare tile's marginals).
-extern "C" int dtt_estimate_rows(const void* hist, void* out, int n, int K,
-                                 int p, int kmin, int method, int iters,
-                                 void* stream) {
-    Window w;
-    if (!make_window(K, p, kmin, &w) || method < 0 || method > 3 || n < 0
-            || iters < 0)
-        return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaGetLastError();
-    estimate_rows_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)hist, (float*)out, n, w, method, iters);
     return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,11 @@ kmin + l) and the marginal cardinalities, estimate each pair's union c_u
 with the chosen estimator and return (3, na, nb) float32
 (onlyA, onlyB, shared) with shared = max(0, c_a + c_b - c_u).
 
-`estimate_rows` runs the same estimators, from the same CUDA file, on
-(n, K) histogram rows: the marginal cardinalities of a compare tile (MLE
-by the chain, as union_triples) and the sizes of `dist -o` (MLE by the
-direct form, an expm1 per level).
+`estimate_rows` runs the same estimators on (n, K) histogram rows, by
+the row-estimate kernel (csrc/estimate_rows.cu): the marginal
+cardinalities of a compare tile (MLE by the chain, as union_triples), the
+sizes of `dist -o` and readfilt's cardinalities (MLE by the direct form,
+an expm1 per level).
 
 Both wrappers launch their CUDA kernel for CUDA tensors and run the plain
 PyTorch version (the windowed estimators of sketch/estimators.py) for CPU
@@ -109,9 +110,22 @@ def estimate_rows_plain(hist: torch.Tensor, *, p: int, kmin: int,
     return est.estimate_windowed(hist, p, kmin, method)
 
 
+def row_lanes(n: int, method: int) -> int:
+    """Lanes a row the row-estimate kernel takes for n rows: for an MLE a
+    warp a row up to a compare tile's 1,024 rows (the Newton steps'
+    latency spread over its lanes), 8 lanes a row above (enough warps to
+    fill the card at a readfilt batch's 8,192 rows, 3 levels a lane at
+    K = 24); ORIGINAL and ERTL_IMPROVED a thread a row.  chip_smoke.py
+    times both MLE forms at every row shape of the main path (PERF.md
+    section 6)."""
+    if method != est.ERTL_MLE:
+        return 1
+    return 32 if n <= 1024 else 8
+
+
 def estimate_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
-                  iters: int = est.WINDOW_MLE_ITERS, chain: bool = False
-                  ) -> torch.Tensor:
+                  iters: int = est.WINDOW_MLE_ITERS,
+                  chain: bool = False) -> torch.Tensor:
     """(n, K) float32 histograms over levels kmin..kmin+K-1 -> (n,) float32
     cardinality estimates; `iters` Newton steps for ERTL_MLE, by the
     direct form or, with `chain`, by the complement chain that
@@ -127,23 +141,40 @@ def estimate_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
     if hist.device.type == "cpu":
         return estimate_rows_plain(hist, p=p, kmin=kmin, method=method,
                                    iters=iters, chain=chain)
+    return _launch_rows(hist, p=p, kmin=kmin, method=method, iters=iters,
+                        chain=chain, lanes=row_lanes(n, method))
+
+
+def _launch_rows(hist: torch.Tensor, *, p: int, kmin: int, method: int,
+                 iters: int, chain: bool, lanes: int) -> torch.Tensor:
+    """The row-estimate kernel on a CUDA `hist` that estimate_rows has
+    checked, in the form `lanes` (1 for ORIGINAL and ERTL_IMPROVED, 8 or
+    32 for ERTL_MLE; the kernel refuses any other); the card's tests and
+    chip_smoke.py force each form through it."""
     if hist.device.type != "cuda":
         raise ValueError(f"unsupported device {hist.device}")
+    n, K = hist.shape
     hist = hist.contiguous()
     out = torch.empty(n, dtype=torch.float32, device=hist.device)
     code = _MLE_CHAIN if chain and method == est.ERTL_MLE else method
-    _build.launch(_lib(), "dtt_estimate_rows", hist.device, hist.data_ptr(),
-                  out.data_ptr(), n, K, p, kmin, code, iters)
+    _build.launch(_rows_lib(), "dtt_estimate_rows", hist.device,
+                  hist.data_ptr(), out.data_ptr(), n, K, p, kmin, code, iters,
+                  lanes)
     global estimate_launches
     estimate_launches += 1
     return out
-
 
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("union_mle", {
         "dtt_union_triples": ([vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp],
-                              ci),
-        "dtt_estimate_rows": ([vp, vp, ci, ci, ci, ci, ci, ci, vp], ci)},
+                              ci)},
         # no FMA contraction: the plain version rounds every operation
+        flags=["-fmad=false"])
+
+
+def _rows_lib():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return _build.load("estimate_rows", {
+        "dtt_estimate_rows": ([vp, vp] + [ci] * 7 + [vp], ci)},
         flags=["-fmad=false"])

@@ -1050,7 +1050,9 @@ def _sync(device: torch.device) -> None:
 def records_joint_triples(seqs: Sequence[bytes], params: SketchParams,
                           ref_regs: torch.Tensor, ref_hist: torch.Tensor,
                           p: int, device: torch.device,
-                          batch: int = READFILT_BATCH) -> np.ndarray:
+                          batch: int = READFILT_BATCH,
+                          ref_card: Optional[Callable[[int], torch.Tensor]]
+                          = None) -> np.ndarray:
     """Each record's joint-MLE triple (onlyRecord, onlyRef, shared) against
     ONE dense reference -> (n, 3) float64.
 
@@ -1060,12 +1062,19 @@ def records_joint_triples(seqs: Sequence[bytes], params: SketchParams,
     contiguous k-mers at p <= 25 (bitwise the JAX package's keys, which it
     takes from K1), else from the PyTorch encoders; then the sparse
     statistics against the reference, windowed to the batch's largest
-    level (sketch/sparse.py).  A record wider than MAX_RECORD_WIDTH is
-    sketched alone and compared by `ertl_joint`."""
+    level (sketch/sparse.py).  The reference's cardinality on a batch's
+    window comes from `ref_card` (sparse.reference_cardinalities of
+    ref_hist and p, made here when not given), which estimates it once a
+    window: a caller passing one for every call with this reference
+    (readfilt, batch after batch) estimates it once a window for the run.
+    A record wider than MAX_RECORD_WIDTH is sketched alone and compared
+    by `ertl_joint`."""
     from .sketch.hll import HLL, ertl_joint
-    from .sketch.sparse import level_window_bins, stats_kfirst, \
-        triples_kfirst
+    from .sketch.sparse import level_window_bins, \
+        reference_cardinalities, stats_kfirst, triples_kfirst
     device = devmod.resolve(device)
+    if ref_card is None:
+        ref_card = reference_cardinalities(ref_hist, p)
     sp = check_supported(params)
     kw = _encode_kw(params, sp)
     keys_route = packed_ok(params, sp, p) and p <= 25
@@ -1095,5 +1104,6 @@ def records_joint_triples(seqs: Sequence[bytes], params: SketchParams,
             st = stats_kfirst(idx, rank, ref_regs, hist, p, kb)
             _sync(device)
         with metrics.accum("readfilt.estimate_jmle", items=len(take)):
-            out[take] = triples_kfirst(st, hist, p).cpu().numpy()
+            out[take] = triples_kfirst(st, hist, p,
+                                       ref_card(kb)).cpu().numpy()
     return out

@@ -29,7 +29,7 @@ layout (K, B, 1) against the reference's (K, 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,14 +123,19 @@ def sparse_joint_triples(idx: torch.Tensor, rank: torch.Tensor,
 
 
 def triples_kfirst(st: Dict[str, torch.Tensor], ref_hist: torch.Tensor,
-                   p: int) -> torch.Tensor:
-    """K-first sparse statistics -> (B, 3) float32 triples: the
-    reference's cardinality once, the queries' and the unions' by one
-    row-estimate launch each (the direct MLE), then K5 given c_u."""
+                   p: int, c_b: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """K-first sparse statistics -> (B, 3) float32 triples: the queries'
+    and the unions' cardinalities by one row-estimate launch each (the
+    direct MLE), then K5 given c_u.  `c_b`, the reference's cardinality
+    on this level window ((1,) float32, from `reference_cardinalities`),
+    is estimated here when not given: a caller comparing many batches
+    against one reference estimates it once a window."""
     def mle(h):
         return estimate_rows(h, p=p, kmin=0, method=est.ERTL_MLE)
 
-    c_b = mle(ref_hist[None].contiguous())
+    if c_b is None:
+        c_b = mle(ref_hist[None].contiguous())
     c_a = mle(st["hist_a"].T.contiguous())
     c_u = mle(st["hist_u"].T.contiguous())
     tri = joint_triples(st["eq"][:, :, None], st["gt_a"][:, :, None],
@@ -138,6 +143,21 @@ def triples_kfirst(st: Dict[str, torch.Tensor], ref_hist: torch.Tensor,
                         ref_hist[:, None].contiguous(), c_a, c_b,
                         c_u[:, None], p=p, kmin=0)
     return tri[:, :, 0].T
+
+
+def reference_cardinalities(ref_hist: torch.Tensor, p: int
+                            ) -> Callable[[int], torch.Tensor]:
+    """kbins -> (1,) float32 direct-MLE cardinality of the reference's
+    (q+2,) histogram `ref_hist` windowed to its first kbins bins
+    (triples_kfirst's c_b), each window estimated once."""
+    cards: Dict[int, torch.Tensor] = {}
+
+    def card(kbins: int) -> torch.Tensor:
+        if kbins not in cards:
+            cards[kbins] = estimate_rows(ref_hist[None, :kbins].contiguous(),
+                                         p=p, kmin=0, method=est.ERTL_MLE)
+        return cards[kbins]
+    return card
 
 
 def level_window_bins(max_rank: int, q: int) -> int:

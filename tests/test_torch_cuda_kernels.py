@@ -420,31 +420,75 @@ def test_union_kernel_exact_beside_empty_and_identical(rng, cuda):
     assert tri[1, 2, 0] == 0 and tri[1, 2, 1] == 0 and tri[1, 2, 2] > 0
 
 
-@pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,
-                                    est.ERTL_MLE])
-@pytest.mark.parametrize("p,kmin,K,iters", [
-    (10, 0, 12, 12),     # compare window holding bin 0
-    (16, 8, 24, 12),     # interior window at config 2's p
-    (12, 0, 54, 24),     # full histogram (levels 0..q+1), the -o sizes
-])
-def test_estimate_kernel_matches_plain(rng, cuda, method, p, kmin, K, iters):
-    n = 300                          # more rows than one thread block
-    regs = rng.integers(kmin, kmin + 10, size=(n, 1 << p))
-    regs[0] = kmin                   # the window floor everywhere
-    if kmin + K - 1 == 64 - p + 1:
-        regs[1::5, :6] = 64 - p + 1  # saturated registers in the top bin
-    regs[2, :] = 64 - p + 1          # fully saturated
-    hist = pw.marginal_histograms(torch.from_numpy(regs).to(cuda), kmin, K)
-    hist[3] = 0                      # no mass in the window
-    before = um.estimate_launches
-    got = um.estimate_rows(hist, p=p, kmin=kmin, method=method, iters=iters)
-    assert um.estimate_launches == before + 1
-    want = um.estimate_rows_plain(hist, p=p, kmin=kmin, method=method,
-                                  iters=iters)
-    torch.cuda.synchronize()
-    got, want = got.cpu().numpy(), want.cpu().numpy()
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
-    np.testing.assert_allclose(got, want, rtol=1e-5)
+# Row-estimate windows (p, kmin, K): every bucket width of the row kernel
+# and three between (12; 50, the -o sizes' full histogram at p=16; 62, the
+# widest window, 0..q+1 at p=4, which runs the 66-level instantiation: no
+# window holds 66 levels)
+ROW_WINDOWS = [
+    (14, 3, 8),      # interior
+    (10, 0, 12),     # bin 0 in the window
+    (12, 0, 16),
+    (16, 0, 24),     # readfilt's batches
+    (14, 0, 32),     # the compare marginals
+    (10, 2, 44),     # interior, kmin > 0
+    (16, 0, 50),     # full histograms at p=16 (config 2's -o sizes)
+    (6, 2, 58),      # 2..q+1: top bin, no bin 0
+    (4, 0, 62),      # 0..q+1 at p=4
+]
+ROW_COUNTS = (1, 31, 100, 1024, 8193)    # ragged against blocks and warps
+
+
+def _row_hists(rng, n, p, kmin, K):
+    """(n, K) float32 histograms of 2^p registers over levels
+    kmin..kmin+K-1, drawn from the Poisson model (P(register <= k) =
+    exp(-x 2^-k)) at x = cardinality / 2^p log-uniform in [1e-3,
+    2^(kmin+K)], the mass below the window at its floor and above it at
+    its top; row 3 at the floor (empty when kmin = 0), row 4 at the top
+    (saturated when the window holds q+1), row 5 with no mass."""
+    m = 1 << p
+    x = np.exp(rng.uniform(np.log(1e-3), (kmin + K) * np.log(2.0), n))
+    cdf = np.exp(-x[:, None] * 2.0 ** -np.arange(kmin, kmin + K)[None])
+    cdf[:, -1] = 1.0
+    pmf = np.clip(np.diff(cdf, prepend=0.0, axis=1), 0.0, None)
+    h = rng.multinomial(m, pmf / pmf.sum(1, keepdims=True)).astype(np.float32)
+    h[3:6] = 0
+    h[3, 0] = h[4, -1] = m
+    return h
+
+
+@pytest.mark.parametrize("code", [0, 1, 2, 3])
+@pytest.mark.parametrize("p,kmin,K", ROW_WINDOWS)
+def test_estimate_kernel_matches_plain(rng, cuda, code, p, kmin, K):
+    """The row-estimate kernel bit for bit against its plain version:
+    ORIGINAL (code 0), IMPROVED (1), the MLE by the direct form (2) and by
+    the chain (3), at every window of ROW_WINDOWS, for the first n of 8193
+    rows (ROW_COUNTS), with 0, 12 and 24 Newton steps, through the wrapper
+    and in every form of the kernel (a thread a row for ORIGINAL and
+    IMPROVED; 8 and 32 lanes a row for the MLE); empty, saturated and
+    massless rows included."""
+    method, chain = min(code, est.ERTL_MLE), code == 3
+    hist = torch.from_numpy(_row_hists(rng, ROW_COUNTS[-1], p, kmin,
+                                       K)).to(cuda)
+    mle = method == est.ERTL_MLE
+    for n in ROW_COUNTS:
+        h = hist[:n]
+        for iters in (0, 12, 24) if mle else (12,):
+            want = um.estimate_rows_plain(h, p=p, kmin=kmin, method=method,
+                                          iters=iters, chain=chain)
+            for lanes in (None, 8, 32) if mle else (None, 1):
+                before = um.estimate_launches
+                if lanes is None:
+                    got = um.estimate_rows(h, p=p, kmin=kmin, method=method,
+                                           iters=iters, chain=chain)
+                else:
+                    got = um._launch_rows(h, p=p, kmin=kmin, method=method,
+                                          iters=iters, chain=chain,
+                                          lanes=lanes)
+                assert um.estimate_launches == before + 1
+                torch.cuda.synchronize()
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(),
+                    err_msg=f"n={n} iters={iters} lanes={lanes}")
 
 
 def test_union_kernel_empty_histograms(cuda):

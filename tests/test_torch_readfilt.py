@@ -688,6 +688,50 @@ def test_records_joint_triples_batch_independent(rng, tmp_path):
                                             want_start))
 
 
+def test_reference_cardinality_once_a_window(rng, tmp_path, monkeypatch):
+    """records_joint_triples estimates the reference's cardinality once a
+    level window: with one `ref_card` (sparse.reference_cardinalities)
+    over several calls (as readfilt passes it, batch after batch) the
+    triples equal bit for bit those of c_b estimated again in every batch
+    (triples_kfirst given no c_b), and the row estimates number 2 a batch
+    (c_a, c_u) plus 1 a window."""
+    hll, r1, _ = _read_set(rng, tmp_path, n_pairs=90)
+    from dashing_tpu_torch.io import fasta
+    seqs = [rec[2] for rec in fasta.iter_records_full(r1)]
+    seqs += [s[: 20 + 7 * i] for i, s in enumerate(seqs[:40])]
+    ref = HLL.read(hll)
+    args = (pipeline.SketchParams(k=15),
+            torch.from_numpy(ref.regs.astype(np.int32)),
+            torch.from_numpy(ref.histogram()), 12, CPU)
+    rows, windows = [], []
+    real_rows, real_tk = sparse.estimate_rows, sparse.triples_kfirst
+
+    def counted_rows(h, **kw):
+        rows.append(h.shape[0])
+        return real_rows(h, **kw)
+
+    def counted_tk(st, hist, p, c_b=None):
+        windows.append(st["eq"].shape[0])
+        return real_tk(st, hist, p, c_b)
+    monkeypatch.setattr(sparse, "estimate_rows", counted_rows)
+    monkeypatch.setattr(sparse, "triples_kfirst", counted_tk)
+    chunks = [seqs[:50], seqs[50:100], seqs[100:]]
+    card = sparse.reference_cardinalities(args[2], 12)
+    got = [pipeline.records_joint_triples(c, *args, batch=16, ref_card=card)
+           for c in chunks]
+    batches, cards = len(windows), len(set(windows))
+    assert 1 <= cards < batches
+    assert len(rows) == 2 * batches + cards
+    assert rows.count(1) == cards
+    with monkeypatch.context() as mp:         # c_b in every batch
+        mp.setattr(sparse, "triples_kfirst",
+                   lambda st, hist, p, c_b=None: counted_tk(st, hist, p))
+        want = [pipeline.records_joint_triples(c, *args, batch=16)
+                for c in chunks]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_readfilt_keys_route_equals_encoder_route(rng, tmp_path,
                                                   monkeypatch):
     """The keys of K2's plain version and those of the PyTorch encoders

@@ -258,6 +258,65 @@ def test_full_row_estimates_equal_report(rng, method):
     assert torch.equal(got, est.estimate(hists, P, method))
 
 
+# The row-estimate kernel's main-path shapes, plain version against the
+# JAX package's row estimators: (form, p, kmin, K, highest register,
+# Newton steps, rows).  K = 66, the widest bucket, holds no window (q+2 <=
+# 62): K = 61 and 62 run its instantiation.
+ROW_SHAPES = [
+    ("direct", 16, 0, 50, 14, 24, 16),   # config 2's -o sizes, HLL.report
+    ("direct", 16, 0, 24, 11, 12, 16),   # readfilt's batches
+    ("chain", 6, 2, 58, 20, 12, 16),     # 2..q+1 at p=6
+    ("chain", 5, 0, 61, 12, 12, 16),     # 0..q+1 at p=5
+    ("chain", 4, 0, 62, 12, 12, 16),     # 0..q+1 at p=4
+    ("direct", 16, 0, 24, 11, 12, 1),    # readfilt's reference: one row
+    ("chain", 14, 0, 32, 12, 12, 1),     # a one-row compare's marginal
+]
+
+
+@pytest.mark.parametrize("form,p,kmin,K,hi,iters,n", ROW_SHAPES)
+def test_row_estimates_match_jax_at_kernel_shapes(rng, form, p, kmin, K, hi,
+                                                  iters, n):
+    """estimate_rows' plain version (what the row-estimate kernel equals
+    bit for bit on a card) against the JAX package's windowed estimators
+    on CPU JAX: the direct form against `mle_estimate_windowed` (XLA's
+    K-last form) within the row bar rtol 1e-5, the chain against its
+    K-first form within rtol 5e-6 (test_chain_estimates_match_jax_kfirst)."""
+    hist = _hist(rng, p, kmin, K, hi, n=max(n, 8))[:n]
+    chain = form == "chain"
+    got = union_mle.estimate_rows(torch.from_numpy(hist), p=p, kmin=kmin,
+                                  method=est.ERTL_MLE, iters=iters,
+                                  chain=chain).numpy()
+    if chain:
+        want = np.asarray(jest.mle_estimate_windowed(
+            jnp.asarray(hist.T.copy()), p, kmin, iters=iters, kfirst=True))
+    else:
+        want = np.asarray(jest.mle_estimate_windowed(
+            jnp.asarray(hist), p, kmin, iters=iters))
+    assert got.shape == want.shape == (n,)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin],
+                               rtol=5e-6 if chain else 1e-5)
+
+
+def test_row_lanes_pick_and_refuse():
+    """The kernel's form by row count: an MLE a warp a row up to 1,024
+    rows, 8 lanes a row above; ORIGINAL and ERTL_IMPROVED a thread a row.
+    The form is the wrapper's own choice (estimate_rows takes no lanes),
+    and the launch it goes through never runs a CPU tensor."""
+    assert [union_mle.row_lanes(n, est.ERTL_MLE)
+            for n in (1, 1024, 1025, 8192, 131072)] == [32, 32, 8, 8, 8]
+    assert union_mle.row_lanes(100, est.ORIGINAL) == 1
+    assert union_mle.row_lanes(100, est.ERTL_IMPROVED) == 1
+    hist = torch.from_numpy(_hist(np.random.default_rng(3), P, 0, 12, 11))
+    with pytest.raises(TypeError):
+        union_mle.estimate_rows(hist, p=P, kmin=0, method=est.ERTL_MLE,
+                                lanes=8)
+    with pytest.raises(ValueError):
+        union_mle._launch_rows(hist, p=P, kmin=0, method=est.ERTL_MLE,
+                               iters=12, chain=False, lanes=8)
+
+
 def test_union_kernel_refuses_bad_windows():
     cum = torch.zeros((67, 1, 1))
     z = torch.zeros(1)
