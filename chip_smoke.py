@@ -53,11 +53,17 @@ Phases, each printing its own lines with seconds:
               at Jaccard 1 within 1e-5
      banks    the banked forms of K1 and K2 (one launch folds rows into
               the register banks of their files or records): K1 at the
-              1k-genome batch (64 files x 25 rows x 8224, k21 p14) and K2
-              at one sketch_by_seq batch (2,048 records padded to 4,096,
-              k21 p10), each bitwise equal to its plain version and to
-              every bank folded alone by the single-bank entry; timed
-              alone and as launched
+              1k-genome batch (64 files x 25 rows x 8224, k21 p14), at 64
+              files of 2 Mbp (250 rows), at p = 10 and 16 (64 files) and
+              p = 21 (8 files), on both sides of its on-chip cut (p = 14),
+              and at the 1k-genome batch with its rows in no order; K2 at
+              one sketch_by_seq batch (2,048 records padded to 4,096, k21
+              p10); each bitwise equal to its plain version and to every
+              bank folded alone by the single-bank entry, timed alone and
+              as launched, K1's merges logged beside its bound; then
+              the three genomes of tests/golden sketched by the CLI on
+              the card (one banked K1 launch), g0's registers equal to
+              golden.hll
   The build phase also prints SASS instruction counts: K1/K2 per window,
   and the Newton step of K3 (MLE) and K5 at K = 32 per level-step, and of
   the row-estimate kernel's main-path instantiations, with their ptxas
@@ -435,13 +441,16 @@ def _sass_report(so: str, nvcc: str) -> None:
     forms = {("0", "0", "0"): "K1 packed->regs",
              ("1", "0", "0"): "K2 ascii->regs",
              ("1", "1", "0"): "K2 ascii->keys",
-             ("0", "0", "1"): "K1 packed->banks",
+             ("0", "0", "1"): "K1 packed->banks (global form)",
              ("1", "0", "1"): "K2 ascii->banks"}
     for name, (ins, loops) in funcs.items():
-        if "encode_hash_kernel" not in name:
+        if "banks_onchip_kernel" in name:
+            form = "K1 packed->banks on chip"
+        elif "encode_hash_kernel" in name:
+            m = re.search(r"InE(\d)ELNS_3OutE(\d)ELb(\d)E", name)
+            form = forms.get(m.groups() if m else None, name)
+        else:
             continue
-        m = re.search(r"InE(\d)ELNS_3OutE(\d)ELb(\d)E", name)
-        form = forms.get(m.groups() if m else None, name)
         best = None
         for j, i in loops:
             brevs = sum("BREV" in x for x in ins[j:i + 1])
@@ -843,11 +852,21 @@ def phase_k2(dev, records):
 
 
 # Phase `banks`: the banked forms of K1 and K2 at the shapes the small-file
-# engine and sketch_by_seq give them: the 1k-genome batch (64 files of a
-# 200 kbp genome, 25 rows of 8224 each, k21 p14) and one record batch of
-# sketch_by_seq (2,048 records padded to width 4,096, k21 p10)
+# engine and sketch_by_seq give them.  Banked K1 (files, rows a file,
+# width, k, p): the 1k-genome batch (64 files of a 200 kbp genome, 25 rows
+# of 8224, k21 p14), the largest single-chunk files (64 of 2 Mbp, 250
+# rows), p = 10 and 16 at 64 files and p = 21 at 8 (the last p that
+# batches): the on-chip route up to ONCHIP_MAX_P = 14, the global form
+# above; then the 1k-genome batch with its rows in no order, which the
+# wrapper orders first.  Banked K2: one record batch of sketch_by_seq
+# (2,048 records padded to width 4,096, k21 p10).  Last, the three golden
+# genomes of tests/golden sketched by the CLI on the card.
 BANK_K1 = (64, 25, 8224, 21, 14)
+BANK_K1_SHAPES = (BANK_K1, (64, 250, 8224, 21, 14), (64, 25, 8224, 21, 10),
+                  (64, 25, 8224, 21, 16), (8, 25, 8224, 21, 21))
 BANK_K2 = (2048, 4096, 21, 10)
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden")
 
 
 def _check_banks(got, want, singles, what):
@@ -868,43 +887,166 @@ def _check_banks(got, want, singles, what):
         f"(at least {nz} nonzero registers a bank)")
 
 
-def phase_banks(dev, records):
-    """Banked K1 and K2 against their plain versions on the card, bitwise,
-    and against the single-bank entry bank by bank; kernel-alone and
-    as-launched times into a ring of fresh banks.  Bounds as K1's and
-    K2's, plus the bank vector read once and one bank load a row."""
+def _merge_work(pk, vb, bk, B, k, p, geo, order=None):
+    """(merges, stores) of banked K1's on-chip route on these rows, as the
+    kernel walks them: a merge for every run of one bank in a block's
+    units (2^p shared reads each), a store (one atomicMax) for every
+    nonzero entry of each merged copy."""
+    import torch
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops.hll_update import bucket_rank
+    dev = pk.device
+    R, C = pk.shape[0], pk.shape[1] * 4
+    nseg, seg, nb = geo["segments"], geo["segment"], geo["blocks"]
+    U = R * nseg
+    walk = (torch.arange(R, device=dev) if order is None
+            else order.to(torch.int64))
+    bank = bk.to(torch.int64)
+    starts = torch.arange(nb, device=dev, dtype=torch.int64) * U // nb
+    units = torch.arange(U, device=dev, dtype=torch.int64)
+    ubank = bank[walk[units // nseg]]
+    ublock = torch.searchsorted(starts, units, right=True) - 1
+    ok = (ubank >= 0) & (ubank < B)
+    run = (ublock * B + ubank)[ok]
+    merges = int((run[1:] != run[:-1]).sum()) + int(run.numel() > 0)
+    code, valid = eh.unpack_2bit(pk, vb, C)
+    h, wvalid = eh._hashes(code, valid, k, True)
+    del code, valid
+    idx, _ = bucket_rank(h, p)
+    del h
+    place = torch.empty(R, dtype=torch.int64, device=dev)
+    place[walk] = torch.arange(R, device=dev)
+    W = C - k + 1
+    wunit = place[:, None] * nseg + (torch.arange(W, device=dev) // seg)
+    wblock = torch.searchsorted(starts, wunit.reshape(-1),
+                                right=True).view(R, W) - 1
+    keep = wvalid & ((bank >= 0) & (bank < B))[:, None]
+    key = ((wblock * B + bank[:, None]) << p) + idx
+    stores = int(torch.unique(key[keep]).numel())
+    return merges, stores
+
+
+def _banks_k1(dev, records, rng, shape, shuffled=False):
+    """Banked K1 at one shape, bitwise against its plain version and the
+    single-bank entry; kernel-alone and as-launched times into a ring of
+    fresh banks; the function's bound, and beside it the work the on-chip
+    route's merges (and the wrapper's ordering, where it runs) add."""
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.ops import encode_hash as eh
-    rng = np.random.default_rng(SEED + 4)
-    B, rows, C, k, p = BANK_K1
+    B, rows, C, k, p = shape
     R = B * rows
     tile = _random_chunk(rng, R, C)
     packed, vbits = pipeline._pack_tile_host(tile)
     bank = np.repeat(np.arange(B, dtype=np.int32), rows)
-    pk, vb, bk = (torch.from_numpy(a).to(dev) for a in (packed, vbits, bank))
+    if shuffled:
+        bank = rng.permutation(bank)
+    pk, vb, bk = (torch.from_numpy(x).to(dev) for x in (packed, vbits, bank))
     got = torch.zeros((B, 1 << p), dtype=torch.int32, device=dev)
     want, singles = torch.zeros_like(got), torch.zeros_like(got)
-    eh.packed_to_banks(pk, vb, bk, got, k=k, p=p)
+    fold = lambda regs: eh.packed_to_banks(  # noqa: E731
+        pk, vb, bk, regs, k=k, p=p, bank_sorted=not shuffled)
+    fold(got)
     eh.packed_to_banks_plain(pk, vb, bk, want, k=k, p=p, canon=True)
     for j in range(B):
-        sl = slice(j * rows, (j + 1) * rows)
-        eh.packed_to_registers(pk[sl], vb[sl], singles[j], k=k, p=p)
-    _check_banks(got, want, singles, f"banked K1 k={k} p={p} ({B} files x "
-                 f"{rows} rows x {C})")
+        sel = torch.from_numpy(np.flatnonzero(bank == j)).to(dev)
+        eh.packed_to_registers(pk[sel], vb[sel], singles[j], k=k, p=p)
+    order = "rows in no order, " if shuffled else ""
+    what = f"banked K1 k={k} p={p} ({order}{B} files x {rows} rows x {C})"
+    _check_banks(got, want, singles, what)
     ring = torch.zeros((RING, B, 1 << p), dtype=torch.int32, device=dev)
-    ms, paced = kernel_alone_ms(
-        lambda i: eh.packed_to_banks(pk, vb, bk, ring[i], k=k, p=p),
-        ring.zero_, "banked K1")
+    ms, paced = kernel_alone_ms(lambda i: fold(ring[i]), ring.zero_, what)
     del ring
+    torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: eh.packed_to_banks_plain(
-        pk, vb, bk, want.zero_(), k=k, p=p, canon=True), 5)
-    nbytes = packed.nbytes + vbits.nbytes + bank.nbytes + 2 * 4 * B * (1 << p)
+        pk, vb, bk, want.zero_(), k=k, p=p, canon=True), 3)
+    geo = eh.banks_geometry(R, C, k, p, dev)
+    # the function's bound: bytes, the codes, validity bits and bank
+    # vector in, the registers read and written; operations, per window
+    # and valid window (ENC_*), a bank load a row
+    nbytes = packed.nbytes + vbits.nbytes + bank.nbytes + 8 * B * (1 << p)
     ops = enc_ops(R, C, k, _valid_windows(tile, k), False) + R
+    # what this implementation adds, outside the bound: on chip, 2^p
+    # shared reads a merge and a store a nonzero entry merged; the
+    # wrapper's ordering, the bank read and the order written and R log2 R
+    # comparisons
+    merges = stores = 0
+    if geo["onchip"]:
+        merges, stores = _merge_work(pk, vb, bk, B, k, p, geo,
+                                     eh.row_order(bk, not shuffled, p))
+    extra_ops = merges * (1 << p) + stores
+    extra_bytes = 0
+    if shuffled and geo["onchip"]:
+        extra_bytes = 8 * R
+        extra_ops += R * int(np.ceil(np.log2(R)))
+    extra_ms = max(extra_bytes / HBM_BPS, extra_ops / INT32_OPS) * 1e3
+    route = (f"on chip, {geo['blocks']} blocks ({geo['per_sm']} an SM, "
+             f"{geo['shared']} B shared)" if geo["onchip"] else
+             "global form")
+    log(f"[banks] {what}: {route}; beside the bound, {merges} merges x "
+        f"2^{p} shared reads + {stores} merged stores"
+        + (f" + the ordering ({extra_bytes} B, {R} log2 {R} comparisons)"
+           if extra_bytes else "")
+        + f" = {extra_ops} operations, {extra_ms:.4f} ms at the int32 rate, "
+        f"{100 * extra_ms / ms:.1f} % of the {ms:.4f} ms measured")
     _enc_log("banked K1", k, p, R, C, nbytes, ops, ms, paced, plain_ms, eh)
-    record(records, f"encode_hash_banks k={k} p={p} ({B}x{rows}x{C})",
+    record(records, f"encode_hash_banks k={k} p={p} ({order}{B}x{rows}x{C})",
            K1_SRC, "dashing_tpu/ops/pallas_encode.py:99", "encode_hash_banks",
            0.0, ms, plain_ms, nbytes, ops, INT32_OPS)
+
+
+def _banks_golden(dev):
+    """tests/golden's three genomes through `sketch -k 21 -S 12` on the
+    card: one banked K1 launch and no single-file one; g0's registers equal
+    to golden.hll, the JAX CLI's; every file's equal to its plain fold."""
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.sketch.hll import HLL
+    names = [f"g{i}.fa" for i in range(3)]
+    tmp = tempfile.mkdtemp(prefix="dtt_golden_")
+    cwd = os.getcwd()
+    try:
+        for name in names:
+            shutil.copy(os.path.join(GOLDEN, name), tmp)
+        os.chdir(tmp)
+        eh.launches = eh.banks_launches = 0
+        _timed(["sketch", "-k", "21", "-S", "12"] + names, "golden sketch")
+        if eh.banks_launches != 1 or eh.launches:
+            fail(f"golden genomes: {eh.banks_launches} banked and "
+                 f"{eh.launches} single-file K1 launches (want 1 and 0)")
+        want = HLL.read(os.path.join(GOLDEN, "golden.hll"))
+        regs = [HLL.read(f"{name}.w.21.spacing.12.hll") for name in names]
+        if regs[0].p != want.p or not np.array_equal(regs[0].regs,
+                                                     want.regs):
+            fail("golden genomes: g0's card registers differ from "
+                 "golden.hll")
+        params = pipeline.SketchParams(k=21)
+        for name, got in zip(names, regs):
+            plain = pipeline.sketch_file_hll(name, params, 12, "cpu")
+            if not np.array_equal(got.regs, plain):
+                fail(f"golden genomes: {name}'s card registers differ from "
+                     "its plain fold on the CPU")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[banks] golden genomes: one banked K1 launch; g0's registers equal "
+        "golden.hll (the JAX CLI's), all three their plain fold on the CPU")
+
+
+def phase_banks(dev, records):
+    """Banked K1 at BANK_K1_SHAPES and with its rows in no order, banked
+    K2 at BANK_K2: each bitwise against its plain version on the card and
+    the single-bank entry bank by bank, timed alone and as launched; then
+    the golden genomes.  Bounds as K1's and K2's, plus the bank vector
+    read once and one bank load a row; banked K1's merges and ordering
+    are logged beside its bound, not in it."""
+    import torch
+    from dashing_tpu_torch.ops import encode_hash as eh
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 4)
+    for shape in BANK_K1_SHAPES:
+        _banks_k1(dev, records, rng, shape)
+    _banks_k1(dev, records, rng, BANK_K1, shuffled=True)
 
     G, W, k, p = BANK_K2
     tile = _random_chunk(rng, G, W)
@@ -935,6 +1077,8 @@ def phase_banks(dev, records):
     record(records, f"ascii_hash_banks k={k} p={p} ({G}x{W})", K1_SRC,
            K2_REPLACES, "ascii_hash_banks", 0.0, ms, plain_ms, nbytes, ops,
            INT32_OPS)
+    _banks_golden(dev)
+    log(f"[banks] phase {time.perf_counter() - t0:.1f}s")
 
 
 def _k3_bank(dev, p: int, n: int):

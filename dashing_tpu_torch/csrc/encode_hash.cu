@@ -17,8 +17,11 @@
 // folds many small files (or sequence records) at once.  That replaces
 // the JAX package's keys form plus a scatter-max with bank offsets
 // (dashing_tpu/pipeline.py `_banks_from_idx_rank`, the `vmap` of
-// `_records_to_registers`).  It costs one load a row; a row whose bank
-// lies outside [0, B) folds nothing (the JAX scatter's mode="drop").
+// `_records_to_registers`).  A row whose bank lies outside [0, B) folds
+// nothing (the JAX scatter's mode="drop").  Banked K1 keeps each bank's
+// registers on chip up to p = ONCHIP_MAX_P (below); banked K2, whose
+// callers give each record a bank of its own, is the single form with
+// one bank load a row.
 // The TPU kernels built k-mers by log-doubling over whole rows and wrote a
 // key per window to HBM.  Here the REGS form folds each rank straight into
 // the registers, so no key reaches device memory.
@@ -60,9 +63,19 @@
 //     still).  A thread hashes GROUP windows before it reads their
 //     registers, so that those reads are in flight together.  The max is
 //     order-independent, so the result is bitwise deterministic.
-//     Registers stay in global memory at every p: a block sees ~2,000
-//     windows, far fewer than the 2^14 or 2^16 registers a shared-memory
-//     bank would have to merge back.
+//     The single forms keep their registers in global memory at every p:
+//     a block sees ~2,000 windows, far fewer than the 2^14 or 2^16
+//     registers a shared-memory copy would have to merge back.
+//   - Banked K1 is the other way round.  A file's rows are contiguous in
+//     the bank vector, so a block can stay on one bank for many segments
+//     (64 files of 25 rows at p = 14: ~34,000 windows a block against
+//     2^14 registers), while 64 fresh banks are 4 MB of int32 whose
+//     scattered reads miss L1 and wait on L2, and whose zeros let most
+//     atomics through the read filter.  So a block folds a run of (row,
+//     segment) units into a copy of its bank in shared memory and merges
+//     the copy once a bank (`banks_onchip_kernel`), the next unit staged by
+//     cp.async while it hashes this one.  Above ONCHIP_MAX_P the banked
+//     form is the single form with one bank load a row.
 // CUDA C++ rather than Triton: funnel shifts, __brevll, bit-level
 // staging and the register atomics are native here and not Triton's.
 //
@@ -74,11 +87,14 @@
 // row-offset view included): the staged bytes start at the 16-byte
 // boundary at or below the segment's first byte, and the aligned loads
 // never leave the 16-byte blocks that hold the segment's bytes.  The banked
-// forms take BANK (R,) int32 and REGS (nbanks, 2^p) int32, row-major.  KEYS is
+// forms take BANK (R,) int32 and REGS (nbanks, 2^p) int32, row-major, and
+// banked K1 an ORDER (R,) int32 permutation of the rows or null.  KEYS is
 // (R, C-k+1) int32 `bucket << 6 | rank`, rank 0 on invalid windows (the
 // bucket is still that of the hash of the window's codes), p <= 25 so the
 // key fits int32.
+#include <atomic>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -272,6 +288,151 @@ encode_hash_kernel(const uint8_t* __restrict__ a,
     }
 }
 
+// The banked REGS form with each bank's registers on chip.  The rows are
+// walked in runs of one bank (`order`, when given, is the row order that
+// groups them; otherwise the rows' own order).  A launch cuts the run of
+// (row, segment) units into `nblocks` contiguous ranges of nearly equal
+// length, one a block; a block folds its units' windows into a copy of the
+// bank's 2^p int32 registers in shared memory (the native shared
+// atomicMax, after a read), and merges the copy into the global
+// (nbanks, 2^p) bank when the bank changes and at its end: each nonzero
+// entry by one atomicMax, whose result nobody waits for, a warp's 32 on
+// one 128-byte line.  The max is order-independent, so the banks are
+// bitwise those of the global form, whatever the order and the split.
+__device__ __forceinline__ void merge_bank(int* sreg, int32_t* g, int p) {
+    for (int j = threadIdx.x; j < (1 << p); j += THREADS) {
+        const int s = sreg[j];
+        if (s) {
+            atomicMax(g + j, s);
+            sreg[j] = 0;
+        }
+    }
+}
+
+// stage_bits with cp.async: the same 16-byte chunks, copied to shared
+// memory without passing through registers (completed by
+// __pipeline_wait_prior and a __syncthreads)
+template <int BITS>
+__device__ __forceinline__ int stage_bits_async(const uint8_t* base,
+                                                size_t g0, int nb,
+                                                uint32_t* dst) {
+    constexpr int PER_BYTE = 8 / BITS;
+    const uintptr_t first = (uintptr_t)(base + g0 / PER_BYTE);
+    const uintptr_t last = (uintptr_t)(base + (g0 + nb - 1) / PER_BYTE);
+    const uintptr_t a0 = first & ~(uintptr_t)15;
+    const int chunks = (int)((last - a0) >> 4) + 1;
+    const uint4* src = reinterpret_cast<const uint4*>(a0);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < chunks; i += THREADS)
+        __pipeline_memcpy_async(d + i, src + i, 16);
+    return (int)((first - a0) * PER_BYTE + g0 % PER_BYTE);
+}
+
+// the first unit at or after u whose bank lies in [0, nbanks), or u1; its
+// row and bank
+__device__ __forceinline__ long long next_unit(
+        long long u, long long u1, int nseg, const int32_t* bank,
+        const int32_t* order, int nbanks, int& row, int& b) {
+    for (; u < u1; ++u) {
+        const long long i = u / nseg;            // the row's place in order
+        row = order ? __ldg(order + i) : (int)i;
+        b = __ldg(bank + row);
+        if (b >= 0 && b < nbanks) break;
+    }
+    return u;
+}
+
+// The next unit's rows are staged by cp.async into the second buffer
+// while the block hashes this one's.
+__global__ void __launch_bounds__(THREADS)
+banks_onchip_kernel(const uint8_t* __restrict__ a,
+                    const uint8_t* __restrict__ v,
+                    const int32_t* __restrict__ bank,
+                    const int32_t* __restrict__ order, int nbanks,
+                    int32_t* __restrict__ out, int R, int C, int k, int p,
+                    int canon, int seg, int nseg, int nblocks) {
+    extern __shared__ __align__(16) int sreg[];
+    // buffers of whole 16-byte chunks, so that the second one is aligned
+    __shared__ __align__(16) uint32_t scode[2][(CODE_WORDS + 3) & ~3];
+    __shared__ __align__(16) uint32_t svalid[2][(VALID_WORDS + 3) & ~3];
+    const int W = C - k + 1;
+    const long long U = (long long)R * nseg;
+    const long long u1 = U * (blockIdx.x + 1) / nblocks;
+    const uint64_t mask = k == 32 ? ~0ull : ((1ull << (2 * k)) - 1);
+    const uint32_t kmask = k == 32 ? ~0u : ((1u << k) - 1);
+    const int fshift = 64 - 2 * k;
+    for (int j = threadIdx.x; j < (1 << p); j += THREADS) sreg[j] = 0;
+    int row = 0, b = 0, held = -1;               // held: the bank on chip
+    long long u = next_unit(U * blockIdx.x / nblocks, u1, nseg, bank, order,
+                            nbanks, row, b);
+    // stage unit un of row r into buffer buf; its staged positions into
+    // (pc, pv)
+    auto stage = [&](long long un, int r, int buf, int& pc, int& pv) {
+        const int w0 = (int)(un % nseg) * seg;
+        const int nb = min(seg, W - w0) + k - 1;
+        const size_t g0 = (size_t)r * C + w0;
+        pc = stage_bits_async<2>(a, g0, nb, scode[buf]);
+        pv = stage_bits_async<1>(v, g0, nb, svalid[buf]);
+        __pipeline_commit();
+    };
+    int s0c = 0, s0v = 0, n0c = 0, n0v = 0;   // this unit's, the next's
+    if (u < u1) stage(u, row, 0, s0c, s0v);
+    for (int cur = 0; u < u1; cur ^= 1) {
+        // the last unit ended with __syncthreads, so its updates are in;
+        // the __syncthreads after the staging orders the zeroed copy
+        // before this unit's updates
+        if (b != held) {
+            if (held >= 0) merge_bank(sreg, out + ((size_t)held << p), p);
+            held = b;
+        }
+        const int len = min(seg, W - (int)(u % nseg) * seg);
+        int nrow = 0, nbank = 0;
+        const long long un = next_unit(u + 1, u1, nseg, bank, order, nbanks,
+                                       nrow, nbank);
+        if (un < u1) {
+            stage(un, nrow, cur ^ 1, n0c, n0v);
+            __pipeline_wait_prior(1);
+        } else {
+            __pipeline_wait_prior(0);
+        }
+        __syncthreads();
+        const uint32_t* sc = scode[cur];
+        const uint32_t* sv = svalid[cur];
+        // GROUP windows a thread at once, so that their shared reads are
+        // in flight together
+        for (int o0 = threadIdx.x; o0 < len; o0 += GROUP * THREADS) {
+            uint32_t bucket[GROUP];
+            int rank[GROUP];                     // 0: no window to fold
+#pragma unroll
+            for (int g = 0; g < GROUP; ++g) {
+                const int o = o0 + g * THREADS;
+                rank[g] = 0;
+                bucket[g] = 0;
+                if (o >= len || !window_valid(sv, s0v + o, kmask)) continue;
+                const uint64_t h = window_hash(sc, s0c + o, mask, fshift,
+                                               canon);
+                bucket[g] = (uint32_t)(h >> (64 - p));
+                rank[g] = __clzll((long long)((h << p) | (1ull << (p - 1))))
+                          + 1;
+            }
+            int now[GROUP];
+#pragma unroll
+            for (int g = 0; g < GROUP; ++g)
+                now[g] = rank[g] ? sreg[bucket[g]] : 0;
+#pragma unroll
+            for (int g = 0; g < GROUP; ++g)
+                if (rank[g] > now[g]) atomicMax(sreg + bucket[g], rank[g]);
+        }
+        __syncthreads();                    // before the next staging
+        u = un;
+        row = nrow;
+        b = nbank;
+        s0c = n0c;
+        s0v = n0v;
+    }
+    if (held >= 0) merge_bank(sreg, out + ((size_t)held << p), p);
+}
+
 struct Geometry {
     int seg, grid_x, grid_y;
 };
@@ -296,6 +457,69 @@ int launch(const void* a, const void* v, const void* bank, int nbanks,
     return (int)cudaGetLastError();
 }
 
+// The on-chip route of banked K1, p up to ONCHIP_MAX_P: 2^p int32
+// registers, 64 KB a block at p = 14, three blocks an SM.  Above it the
+// global form (encode_hash_kernel<PACKED, REGS, true>): at p = 15 the
+// 128 KB copy leaves room for one block an SM, and one block an SM was
+// slower than the global form at p = 14; bytes with a 32-bit CAS max,
+// which fit to p = 16, were slower than the global form at p = 14 and 16.
+// ops/encode_hash.py ONCHIP_MAX_P repeats it (it orders rows only here).
+constexpr int ONCHIP_MAX_P = 14;
+constexpr int MAX_DEVICES = 16;
+
+// SMs of the current device and resident blocks an SM of the on-chip
+// kernel at p, cached a device (the first call also lifts the kernel's
+// dynamic shared memory limit above 48 KB where p needs it)
+cudaError_t onchip_fit(int p, int& sms, int& occ) {
+    static std::atomic<int> cache[MAX_DEVICES][ONCHIP_MAX_P + 1];
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < MAX_DEVICES) {
+        const int c = cache[dev][p].load(std::memory_order_relaxed);
+        if (c) {
+            sms = c >> 8;
+            occ = c & 255;
+            return cudaSuccess;
+        }
+    }
+    const int smem = 4 << p;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem > 48 * 1024)
+        e = cudaFuncSetAttribute(banks_onchip_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, banks_onchip_kernel, THREADS, smem);
+    if (e != cudaSuccess) return e;
+    if (occ < 1) return cudaErrorInvalidConfiguration;
+    if (dev < MAX_DEVICES)
+        cache[dev][p].store(sms << 8 | occ, std::memory_order_relaxed);
+    return cudaSuccess;
+}
+
+struct BankGeometry {
+    int onchip, seg, nseg, blocks, smem, per_sm;
+};
+
+// The launch of banked K1: on chip (one wave, as many blocks an SM as
+// fit, or fewer when there are fewer units) or the global form.
+cudaError_t bank_geometry(int R, int C, int k, int p, BankGeometry& b) {
+    const Geometry g = geometry(R, C, k);
+    b = {0, g.seg, g.grid_x, g.grid_x * g.grid_y, 0, 0};
+    if (p > ONCHIP_MAX_P) return cudaSuccess;
+    int sms;
+    const cudaError_t e = onchip_fit(p, sms, b.per_sm);
+    if (e != cudaSuccess) return e;
+    b.onchip = 1;
+    b.smem = 4 << p;
+    const long long units = (long long)R * g.grid_x;
+    const long long wave = (long long)sms * b.per_sm;
+    b.blocks = (int)(units < wave ? units : wave);
+    return cudaSuccess;
+}
+
 }  // namespace
 
 // K1: packed codes + validity bits -> registers
@@ -306,14 +530,25 @@ extern "C" int dtt_encode_hash_regs(const void* packed, const void* vbits,
                                          C, k, p, canon, stream);
 }
 
-// K1 banked: packed rows -> the (nbanks, 2^p) registers of bank[row]
+// K1 banked: packed rows -> the (nbanks, 2^p) registers of bank[row],
+// the rows taken in `order` (null: their own order) on chip
 extern "C" int dtt_encode_hash_banks(const void* packed, const void* vbits,
-                                     const void* bank, int nbanks,
-                                     void* regs, int R, int C, int k, int p,
-                                     int canon, void* stream) {
-    return launch<In::PACKED, Out::REGS, true>(packed, vbits, bank, nbanks,
-                                               regs, R, C, k, p, canon,
-                                               stream);
+                                     const void* bank, const void* order,
+                                     int nbanks, void* regs, int R, int C,
+                                     int k, int p, int canon, void* stream) {
+    if (R <= 0 || C - k + 1 <= 0) return (int)cudaGetLastError();
+    BankGeometry b;
+    const cudaError_t e = bank_geometry(R, C, k, p, b);
+    if (e != cudaSuccess) return (int)e;
+    if (!b.onchip)
+        return launch<In::PACKED, Out::REGS, true>(packed, vbits, bank,
+                                                   nbanks, regs, R, C, k, p,
+                                                   canon, stream);
+    banks_onchip_kernel<<<b.blocks, THREADS, b.smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)packed, (const uint8_t*)vbits, (const int32_t*)bank,
+        (const int32_t*)order, nbanks, (int32_t*)regs, R, C, k, p, canon,
+        b.seg, b.nseg, b.blocks);
+    return (int)cudaGetLastError();
 }
 
 // K2 fused: ASCII -> registers
@@ -350,6 +585,21 @@ extern "C" int dtt_encode_hash_geometry(int R, int C, int k, int* out) {
     out[1] = g.grid_x;
     out[2] = g.grid_y;
     out[3] = THREADS;
+    return 0;
+}
+
+// Banked K1's launch for (R, C, k, p) on the current device: on chip (1)
+// or global (0), windows a block, segments a row, blocks, threads a block,
+// dynamic shared bytes and blocks an SM, into out[0..6].  Returns 0, 1
+// when there is no window, or a CUDA error.
+extern "C" int dtt_banks_geometry(int R, int C, int k, int p, int* out) {
+    if (R <= 0 || C - k + 1 <= 0) return 1;
+    BankGeometry b;
+    const cudaError_t e = bank_geometry(R, C, k, p, b);
+    if (e != cudaSuccess) return (int)e;
+    const int v[7] = {b.onchip, b.seg, b.nseg, b.blocks, THREADS, b.smem,
+                      b.per_sm};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
     return 0;
 }
 

@@ -16,7 +16,12 @@ Both register forms also come banked, `packed_to_banks` and
 `ascii_to_banks`: a per-row int32 bank index sends row r into row bank[r]
 of a (B, 2^p) register bank, so one launch folds many small files or
 sequence records (the JAX package's keys plus a scatter-max at bucket +
-bank * 2^p, `_banks_from_idx_rank`).
+bank * 2^p, `_banks_from_idx_rank`).  Up to p = 14 banked K1 folds each
+bank's rows into a copy of its registers in shared memory and walks the
+rows in runs of one bank: a caller whose bank vector is non-decreasing
+says so (`bank_sorted=True`); otherwise the wrapper orders the rows on
+the device first (`row_order`).  Above that p, and in banked K2 (a record
+a bank), the registers stay in global memory.
 
 For a CUDA tensor each entry launches the hand-written kernel and counts
 the launch; for a CPU tensor it runs its plain PyTorch version beside it.
@@ -232,12 +237,32 @@ def packed_to_banks_plain(packed: torch.Tensor, vbits: torch.Tensor,
     return update_banks(regs, h, wvalid, bank, p)
 
 
+# the largest p whose banks banked K1 keeps on chip (csrc/encode_hash.cu
+# ONCHIP_MAX_P; the card tests hold the two to each other)
+ONCHIP_MAX_P = 14
+
+
+def row_order(bank: torch.Tensor, bank_sorted: bool, p: int):
+    """The order in which banked K1 walks the rows at p: None (the rows'
+    own) when the bank vector is non-decreasing or p is above
+    ONCHIP_MAX_P (the global form takes the rows as they come), else the
+    stable argsort of `bank` as int32, on its device, so that each bank's
+    rows form one run (the on-chip route merges a bank's copy at every
+    change of bank)."""
+    if bank_sorted or p > ONCHIP_MAX_P or bank.numel() < 2:
+        return None
+    return torch.argsort(bank, stable=True).to(torch.int32)
+
+
 def packed_to_banks(packed: torch.Tensor, vbits: torch.Tensor,
                     bank: torch.Tensor, regs: torch.Tensor, *, k: int, p: int,
-                    canon: bool = True) -> torch.Tensor:
+                    canon: bool = True, bank_sorted: bool = False
+                    ) -> torch.Tensor:
     """Fold packed rows (R rows of C = 4 * packed.shape[1] bases) into a
     (B, 2^p) int32 register bank IN PLACE, row r into regs[bank[r]], and
     return it.  A row whose bank lies outside [0, B) folds nothing.
+    `bank_sorted`: the caller's bank vector is non-decreasing, so the
+    kernel takes the rows as they are (any vector gives the same banks).
     2 <= p <= 31, 1 <= k <= 32."""
     _check_kp(k, p)
     if packed.dtype != torch.uint8 or vbits.dtype != torch.uint8:
@@ -255,10 +280,11 @@ def packed_to_banks(packed: torch.Tensor, vbits: torch.Tensor,
     if regs.device.type != "cuda":
         raise ValueError(f"unsupported device {regs.device}")
     packed, vbits, bank = (t.contiguous() for t in (packed, vbits, bank))
+    order = row_order(bank, bank_sorted, p)
     _build.launch(_lib(), "dtt_encode_hash_banks", regs.device,
                   packed.data_ptr(), vbits.data_ptr(), bank.data_ptr(),
-                  regs.shape[0], regs.data_ptr(), R, C4 * 4, k, p,
-                  int(bool(canon)))
+                  None if order is None else order.data_ptr(), regs.shape[0],
+                  regs.data_ptr(), R, C4 * 4, k, p, int(bool(canon)))
     global banks_launches
     banks_launches += 1
     return regs
@@ -306,17 +332,33 @@ def launch_geometry(R: int, C: int, k: int) -> dict:
     return dict(segment=out[0], grid=(out[1], out[2]), threads=out[3])
 
 
+def banks_geometry(R: int, C: int, k: int, p: int, device=None) -> dict:
+    """Banked K1's launch for R packed rows of C bases at k and p on a CUDA
+    `device`, as the source computes it: whether the banks stay on chip,
+    windows a block (`segment`), segments a row, blocks, threads a block,
+    dynamic shared bytes and blocks an SM; builds the library."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = _lib().dtt_banks_geometry(R, C, k, p, out)
+    if err == 1:
+        raise ValueError(f"no window in a {R} x {C} chunk at k={k}")
+    _build.check(err, "dtt_banks_geometry", _lib())
+    return dict(onchip=bool(out[0]), segment=out[1], segments=out[2],
+                blocks=out[3], threads=out[4], shared=out[5], per_sm=out[6])
+
+
 def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     return _build.load("encode_hash", {
         "dtt_encode_hash_regs": ([vp, vp, vp, ci, ci, ci, ci, ci, vp], ci),
         "dtt_ascii_hash_regs": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
         "dtt_ascii_hash_keys": ([vp, vp, ci, ci, ci, ci, ci, vp], ci),
-        "dtt_encode_hash_banks": ([vp, vp, vp, ci, vp, ci, ci, ci, ci, ci,
-                                   vp], ci),
+        "dtt_encode_hash_banks": ([vp, vp, vp, vp, ci, vp, ci, ci, ci, ci,
+                                   ci, vp], ci),
         "dtt_ascii_hash_banks": ([vp, vp, ci, vp, ci, ci, ci, ci, ci, vp],
                                  ci),
-        "dtt_encode_hash_geometry": ([ci, ci, ci, ctypes.POINTER(ci)], ci)})
+        "dtt_encode_hash_geometry": ([ci, ci, ci, ctypes.POINTER(ci)], ci),
+        "dtt_banks_geometry": ([ci, ci, ci, ci, ctypes.POINTER(ci)], ci)})
 
 
 # ---------------------------------------------------------------------------

@@ -470,7 +470,7 @@ def sketch_small_batch_async(chunks: Sequence[np.ndarray],
         with metrics.accum("sketch.dispatch", items=flat.nbytes):
             pk, vb, bk = _upload(packed, vbits, bank, device=device)
             packed_to_banks(pk, vb, bk, regs, k=sp.k, p=p,
-                            canon=params.canon)
+                            canon=params.canon, bank_sorted=True)
     else:
         with metrics.accum("sketch.dispatch", items=flat.nbytes):
             tile, bk = _upload(flat, bank, device=device)

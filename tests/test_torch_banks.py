@@ -106,6 +106,52 @@ def test_banked_wrappers_check_their_arguments():
                           p=32)
 
 
+@pytest.mark.parametrize("kind", ["permuted", "interleaved", "outside"])
+def test_row_order_groups_each_bank(rng, kind):
+    """`row_order` on a bank vector in no order: a permutation of the rows
+    under which the banks are non-decreasing (each bank one run, rows
+    outside [0, B) at the ends) and a bank's rows keep their order; the
+    banks folded in that order are the same."""
+    B, R, p = 6, 40, 10
+    bank = (np.arange(R) % B).astype(np.int32)
+    if kind == "permuted":
+        bank = rng.permutation(bank)
+    elif kind == "outside":
+        bank = rng.permutation(bank)
+        bank[[3, 17, 30]] = [-1, B, -7]
+    b = torch.from_numpy(bank)
+    order = eh.row_order(b, bank_sorted=False, p=p)
+    assert order.dtype == torch.int32 and order.shape == (R,)
+    o = order.numpy()
+    assert sorted(o.tolist()) == list(range(R))
+    assert (np.diff(bank[o]) >= 0).all()
+    for j in np.unique(bank):
+        assert (np.diff(o[bank[o] == j]) > 0).all(), j
+    tile = _ascii(rng, (R, 120))
+    t = torch.from_numpy(tile)
+    want = eh.ascii_to_banks(t, b, torch.zeros((B, 1 << p), dtype=torch.int32),
+                             k=11, p=p)
+    got = eh.ascii_to_banks(t[order.long()], b[order.long()],
+                            torch.zeros((B, 1 << p), dtype=torch.int32),
+                            k=11, p=p)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bank,sorted_,p", [
+    ([0, 0, 1, 1, 2], True, eh.ONCHIP_MAX_P),   # said to be sorted
+    ([2, 0, 1], True, eh.ONCHIP_MAX_P),         # said so, wrongly
+    ([3], False, eh.ONCHIP_MAX_P),              # one row
+    ([], False, eh.ONCHIP_MAX_P),               # no row
+    ([2, 0, 1], False, eh.ONCHIP_MAX_P + 1),    # the global form's p
+])
+def test_row_order_none(bank, sorted_, p):
+    """No ordering where the rows are taken as they come: a vector the
+    caller says is sorted (the kernel gives the same banks if it is not),
+    fewer than two rows, a p above ONCHIP_MAX_P."""
+    b = torch.tensor(bank, dtype=torch.int32)
+    assert eh.row_order(b, bank_sorted=sorted_, p=p) is None
+
+
 @pytest.mark.parametrize("name", list(PARAMS))
 @pytest.mark.parametrize("p", [10, 14, 21])
 def test_small_batch_matches_jax(rng, name, p):

@@ -10,9 +10,11 @@ registers at 0 and at q+1, windows reaching
 q+1, empty histograms and sketches, the widest joint window, both forms
 of K4 bitwise at p = 4 to 18 and 1 to 1000 rows; K3 and K5 bitwise at
 every window width, on ragged blocks, single pairs and row-offset
-views; both banked forms at one and 64 banks, bank indices in no order
-or out of range, rows across segment edges, p = 10, 14 and 21, and more
-rows than one grid dimension); and the set sketches' PyTorch ops on the
+views; both banked forms at one and 64 banks, bank indices in no order,
+sorted or out of range, a bank with no row, registers that start nonzero,
+rows across segment edges, p = 10 to 16 and 21 (both sides of the
+on-chip cut), 256 rows in one bank, and more rows than one grid
+dimension); and the set sketches' PyTorch ops on the
 card against the CPU (the int64 scatter-min at p = 15 and 26, the
 bottom-k merge); the wide HLL's K1 registers through K4, K3 and K5 as
 the HLL's, and a wide `-J` pair against its CPU run; raw k-mers at k =
@@ -251,6 +253,22 @@ def test_ascii_regs_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     torch.cuda.empty_cache()
 
 
+# bank vectors of the banked test: (order of the rows, what the caller
+# says of it to banked K1, incoming registers).  "permuted": in no order,
+# so the wrapper orders the rows first (up to ONCHIP_MAX_P); "sorted":
+# non-decreasing and said so (the small-file engine's case); "unclaimed":
+# non-decreasing, not said so (the ordering on a sorted vector);
+# "misclaimed": in no order but said to be sorted (the kernel merges at
+# every change of bank, so the banks are the same)
+BANK_LAYOUTS = {
+    "permuted": (True, False, False),
+    "sorted": (False, True, True),
+    "unclaimed": (False, False, False),
+    "misclaimed": (True, True, True),
+}
+
+
+@pytest.mark.parametrize("layout", list(BANK_LAYOUTS))
 @pytest.mark.parametrize("form", ["packed", "ascii"])
 @pytest.mark.parametrize("B,p,rows,C,k", [
     (1, 14, 25, 8224, 21),         # one bank: a 200 kbp genome's chunk
@@ -258,23 +276,38 @@ def test_ascii_regs_kernel_matches_plain(rng, cuda, k, p, canon, rows, C):
     (7, 10, 30, 16400, 31),        # each row across a segment edge
     (8, 21, 16, 4104, 17),         # p = 21, the last p that batches
     (5, 10, 70000, 40, 12),        # more rows than one grid dimension
+    (64, 15, 1600, 8224, 21),      # the smallest p of the global route
+    (64, 16, 1600, 8224, 21),      # p = 16, the global route
+    (1, 12, 256, 8224, 21),        # one bank of 256 rows, split over blocks
+    (6, 14, 120, 3000, 15),        # bank 2 gets no row
 ])
-def test_banked_kernels_match_plain(rng, cuda, form, B, p, rows, C, k):
-    """Both banked forms bitwise equal to their plain versions, with bank
-    indices in no order and two rows outside [0, B) that fold nothing, and
-    each bank equal to its rows folded alone by the single-bank entry."""
-    bank = rng.permutation(np.arange(rows) % B).astype(np.int32)
-    if rows > 2:
-        bank[[1, rows - 2]] = [-3, B]
+def test_banked_kernels_match_plain(rng, cuda, form, layout, B, p, rows, C,
+                                    k):
+    """Both banked forms bitwise equal to their plain versions, on both
+    sides of banked K1's on-chip cut (p = 14), for bank vectors in no
+    order or non-decreasing (BANK_LAYOUTS), with two rows outside [0, B)
+    that fold nothing, a bank with no row where B > 2, and registers that
+    start at zero or hold values already; and each bank equal to its rows
+    folded alone by the single-bank entry into the same start."""
+    shuffled, claimed, incoming = BANK_LAYOUTS[layout]
+    bank = (np.arange(rows) % B).astype(np.int32)
+    if B > 2:
+        bank[bank == 2] = 3
+    bank = rng.permutation(bank) if shuffled else np.sort(bank)
+    if rows > 2:                   # at the ends, so a sorted vector stays so
+        bank[[1, rows - 2] if shuffled else [0, rows - 1]] = [-3, B]
     bk = torch.from_numpy(bank).to(cuda)
-    got = torch.zeros((B, 1 << p), dtype=torch.int32, device=cuda)
-    want = torch.zeros_like(got)
+    start = torch.zeros((B, 1 << p), dtype=torch.int32, device=cuda)
+    if incoming:
+        start = torch.from_numpy(rng.integers(0, 12, (B, 1 << p),
+                                              dtype=np.int32)).to(cuda)
+    got, want = start.clone(), start.clone()
     t = _ascii(rng, rows, C, cuda)
     if form == "packed":
         pk, vb = (torch.from_numpy(a).to(cuda)
                   for a in pipeline._pack_tile_host(t.cpu().numpy()))
         before = eh.banks_launches
-        eh.packed_to_banks(pk, vb, bk, got, k=k, p=p)
+        eh.packed_to_banks(pk, vb, bk, got, k=k, p=p, bank_sorted=claimed)
         assert eh.banks_launches == before + 1
         eh.packed_to_banks_plain(pk, vb, bk, want, k=k, p=p, canon=True)
     else:
@@ -283,17 +316,28 @@ def test_banked_kernels_match_plain(rng, cuda, form, B, p, rows, C, k):
         assert eh.ascii_banks_launches == before + 1
         eh.ascii_to_banks_plain(t, bk, want, k=k, p=p, canon=True)
     torch.cuda.synchronize()
-    assert int((want > 0).sum(dim=1).min()) > 0
+    filled = [j for j in range(B) if (bank == j).any()]
+    assert len(filled) == (B - 1 if B > 2 else B)
+    assert int((want[filled] > start[filled]).sum(dim=1).min()) > 0
     assert torch.equal(got, want)
     one = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
     for j in range(B):
         rows_j = torch.from_numpy(np.flatnonzero(bank == j)).to(cuda)
-        one.zero_()
-        eh.ascii_to_registers(t[rows_j], one, k=k, p=p)
+        one.copy_(start[j])
+        if len(rows_j):
+            eh.ascii_to_registers(t[rows_j], one, k=k, p=p)
         torch.cuda.synchronize()
         assert torch.equal(got[j], one), j
-    del got, want, one
+    del got, want, one, start
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("p", [eh.ONCHIP_MAX_P, eh.ONCHIP_MAX_P + 1])
+def test_banks_geometry_cut(cuda, p):
+    """The source's on-chip cut is the wrapper's ONCHIP_MAX_P, which
+    decides whether the rows are ordered before the launch."""
+    geo = eh.banks_geometry(1600, 8224, 21, p, cuda)
+    assert geo["onchip"] == (p <= eh.ONCHIP_MAX_P)
 
 
 def test_banked_kernels_reject_mixed_devices(cuda):

@@ -179,9 +179,10 @@ def test_rank_device(monkeypatch):
     assert tdist.rank_device(torch.device("cuda")) == torch.device("cuda")
 
 
-# C entry points that launch nothing (sizes, geometry, messages)
+# C entry points that launch nothing (sizes, geometry, messages); the
+# banked geometry reads the current device, which its caller sets
 _HOST_ENTRIES = {"dtt_joint_plane_words", "dtt_encode_hash_geometry",
-                 "dtt_error_string"}
+                 "dtt_banks_geometry", "dtt_error_string"}
 
 
 def test_every_kernel_launch_goes_through_build_launch():
