@@ -19,10 +19,9 @@ torch.profiler (not with --no-trace):
   fastq      BASELINE.json config 3: `sketch -k 31 -S 16` over the FASTQ
              read set of chip_smoke.py's e2e (f) (--fastq-reads reads of
              100 bases, default 1 M), plain and count-min filtered (-b -n 2
-             -q 28), with the buckets of each run: host.parse (and
-             host.parse.cm_count / .cm_admit, the parse within each
-             filter pass), sketch.cm_count and sketch.cm_admit (the host
-             wall of each pass); then the count-min's PyTorch ops on one
+             -q 28), with the buckets of each run: host.parse,
+             sketch.cm_count and sketch.cm_admit (the host wall of each
+             pass); then the count-min's PyTorch ops on one
              of the file's 256-row tiles, timed alone with CUDA events;
   rect       chip_smoke.py's e2e (g) shapes: first both K4 forms on its
              1000 x 500 reference x query tile and on the transpose, kernel
@@ -246,7 +245,7 @@ def fastq(dev, reps: int, reads: int, trace: bool) -> None:
                 run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                share = metrics.total("host.parse") / wall
+                share = metrics._totals.get("host.parse", 0.0) / wall
                 log(f"[fastq {label}] rep {r} wall {wall:.4f}s, "
                     f"{reads / wall:,.0f} reads/s, host.parse share "
                     f"{share:.3f}; buckets: {buckets()}")

@@ -68,11 +68,7 @@ Phases, each printing its own lines with seconds:
   and the Newton step of K3 (MLE) and K5 at K = 32 per level-step, and of
   the row-estimate kernel's main-path instantiations, with their ptxas
   registers and spills.
-  6. bench    the port's k-mers/s benchmark (dashing_tpu_torch.bench) in
-              process at its full geometry, its JSON line printed; K2 must
-              launch 30 times per run and the registers equal the plain
-              fold of the same chunks on the card
-  7. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
+  6. e2e      the port's CLI entry (dashing_tpu_torch.cli.main.main):
               (a) 4 genomes, dist -k 21 -S 14 -M -T
               (b) 100 synthetic 5 Mbp genomes (20 ancestors x 5 copies at
                   planted substitution rates), dist -k 31 -S 16 -M -b -O -o
@@ -83,7 +79,9 @@ Phases, each printing its own lines with seconds:
                   run without -J; K4's joint form and K5 must launch in the
                   first, K4's X-only form and K3 in the second
               In (b) and (c) every kernel of the path must have launched
-              (counts set to 0 just before the run, read just after), the
+              (counts set to 0 just before the run, read just after), in
+              (b) K2's unbanked form must not (its count, 0, is the one
+              the `kernels` line gives for ascii_hash_regs), the
               matrix must be finite and of length n(n-1)/2, and every
               planted pair's Mash distance within 0.25 d + 0.001 of d; two
               genomes' registers must equal the plain version's on the card.
@@ -1593,89 +1591,6 @@ def phase_rect(dev, bank, records):
     return other
 
 
-def phase_bench(dev, counts):
-    """The port's benchmark in process at its full geometry: K2 over 30
-    device-resident 256 x 8222 chunks, one warm-up and three timed runs.
-    Prints its JSON line; the registers must equal the plain fold."""
-    import torch
-    from dashing_tpu_torch import bench
-    from dashing_tpu_torch.ops import encode_hash as eh
-    torch.cuda.synchronize()
-    eh.ascii_launches = 0
-    t0 = time.perf_counter()
-    rec, regs = bench.run(dev)
-    torch.cuda.synchronize()
-    counts["ascii_hash_regs"] = eh.ascii_launches
-    log(f"[bench] {json.dumps(rec)}")
-    runs = 4                                   # warm-up + best of 3
-    if eh.ascii_launches != bench.ITERS * runs:
-        fail(f"bench: K2 launched {eh.ascii_launches} times, expected "
-             f"{bench.ITERS} per run x {runs} runs")
-    chunks = torch.from_numpy(bench.make_chunks()).to(dev)
-    plain = torch.zeros_like(regs)
-    for i in range(chunks.shape[0]):
-        eh.ascii_to_registers_plain(chunks[i], plain, k=bench.K, p=bench.P,
-                                    canon=True)
-    torch.cuda.synchronize()
-    if not torch.equal(regs, plain):
-        fail("bench: registers differ from the plain fold of its chunks")
-    log(f"[bench] K2 launches {eh.ascii_launches} ({bench.ITERS} per run), "
-        f"registers bitwise equal to the plain fold; "
-        f"{rec['value'] / 1e9:.3f} G k-mers/s "
-        f"({time.perf_counter() - t0:.1f}s with the host baseline)")
-    _bench_device_time(dev, chunks)
-
-
-def _bench_device_time(dev, chunks):
-    """Is the benchmark's k-mers/s the kernel's or the host's launch rate?
-    One run as the benchmark times it (host wall, CUDA events around the
-    30 launches), then the same 30 launches queued behind a spin kernel,
-    so the card runs them back to back: the events then span kernel time
-    alone.  (After the launch count was read; these launches do not
-    count.)"""
-    import torch
-    from dashing_tpu_torch import bench
-    from dashing_tpu_torch.ops import encode_hash as eh
-    regs = torch.zeros(1 << bench.P, dtype=torch.int32, device=dev)
-
-    def run():
-        for i in range(chunks.shape[0]):
-            eh.ascii_to_registers(chunks[i], regs, k=bench.K, p=bench.P)
-
-    ev =[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    for _ in range(2):                            # the second is reported
-        regs.zero_()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        run()
-        ev[1].record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        regs.zero_()
-        torch.cuda.synchronize()
-        ev[2].record()
-        torch.cuda._sleep(50_000_000)             # ~25 ms at 2 GHz
-        t1 = time.perf_counter()
-        ev[3].record()
-        run()
-        enqueue = (time.perf_counter() - t1) * 1e3
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        torch.cuda.synchronize()
-    sleep_ms = ev[2].elapsed_time(ev[3])
-    paced, queued = ev[0].elapsed_time(ev[1]), ev[3].elapsed_time(end)
-    if enqueue >= sleep_ms:
-        fail(f"bench: the spin ({sleep_ms:.3f} ms) ended before the 30 "
-             f"launches were queued ({enqueue:.3f} ms)")
-    n = chunks.shape[0]
-    log(f"[bench] one run of {n} K2 launches: host wall {wall:.4f} ms, "
-        f"events as launched {paced:.4f} ms; queued behind a spin "
-        f"{queued:.4f} ms ({queued / n:.4f} ms per launch; host enqueue "
-        f"{enqueue:.4f} ms) -> "
-        f"{'dispatch' if paced > 1.2 * queued else 'kernel'}-bound")
-
-
 def _write_genomes(root: str, n_anc: int, length: int, rng,
                    ancestors=None):
     """n_anc ancestors x len(RATES) mutated copies, each a multi-record
@@ -1765,7 +1680,7 @@ def phase_e2e(dev, bank, other, counts, records):
 
         # (b) config 2: 100 genomes, k31 S16 Mash, binary
         out_b = os.path.join(tmp, "b.bin")
-        eh.launches = 0
+        eh.launches = eh.ascii_launches = 0
         um.launches = 0
         um.estimate_launches = 0
         js.cum_union_launches = 0
@@ -1777,15 +1692,19 @@ def phase_e2e(dev, bank, other, counts, records):
             fail("e2e (b) returned nonzero")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts["encode_hash"] = eh.launches
-        counts["union_triples"] = um.launches
-        counts["estimate_rows"] = um.estimate_launches
-        counts["cum_union_counts"] = js.cum_union_launches
+        main_path = {"encode_hash": eh.launches, "union_triples": um.launches,
+                     "estimate_rows": um.estimate_launches,
+                     "cum_union_counts": js.cum_union_launches}
         log(f"[e2e b] launches: K1 {eh.launches}, K4 X-only "
             f"{js.cum_union_launches}, K3 {um.launches}, row estimates "
-            f"{um.estimate_launches}")
-        if min(counts.values()) == 0:
-            fail(f"a kernel of the main path was not launched: {counts}")
+            f"{um.estimate_launches}, K2 unbanked {eh.ascii_launches}")
+        if min(main_path.values()) == 0:
+            fail(f"a kernel of the main path was not launched: {main_path}")
+        if eh.ascii_launches:
+            fail(f"the main path launched K2 unbanked {eh.ascii_launches} "
+                 f"times; it reads 2-bit tiles, not ASCII")
+        counts.update(main_path)
+        counts["ascii_hash_regs"] = eh.ascii_launches
         _check_planted(out_b, genomes, "(b)", wall, total_bases)
 
         # (c) config 2 with the joint MLE: K1, the row estimates, K4, K5
@@ -4463,7 +4382,6 @@ def main() -> int:
     other = phase_rect(dev, bank, records)
     genome = fq_genome()
     phase_sparse(dev, records, genome)
-    phase_bench(dev, counts)
     phase_e2e(dev, bank, other, counts, records)
     phase_e2e_fastq(dev)
     phase_e2e_readfilt(dev, counts, genome)

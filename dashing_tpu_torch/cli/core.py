@@ -281,7 +281,10 @@ def _prefetched_tiles(indexed_paths, sp, lookahead: int = 2):
                 if j not in futs and not pipeline.should_stream(nxt):
                     futs[j] = ex.submit(pipeline._read_joined, nxt, sp.halo)
             fut = futs.pop(i, None)
-            joined = None if fut is None else fut.result()
+            joined = None
+            if fut is not None:
+                with metrics.span("sketch.parse_wait"):
+                    joined = fut.result()
 
             def tiles(path=path, joined=joined):
                 # a filtered file's second pass re-tiles a prefetched join

@@ -216,10 +216,12 @@ def dist_main(argv: List[str], device) -> int:
     if not distributed.is_main() and not shard:
         return 0
     if distributed.is_main():
-        fp_sizes, close_sizes = core.open_output(out_sizes)
-        core.emit_cardinalities(fp_sizes, names, sketches, device)
-        if close_sizes:
-            fp_sizes.close()
+        # the row-estimate kernel runs inside: a bucket, no profiler range
+        with metrics.accum("cli.sizes"):
+            fp_sizes, close_sizes = core.open_output(out_sizes)
+            core.emit_cardinalities(fp_sizes, names, sketches, device)
+            if close_sizes:
+                fp_sizes.close()
 
     if o.number_neighbors > 0:
         return _nn_emit(sketches, names, o, result_type, emit_fmt, out_dists,
@@ -250,32 +252,34 @@ def dist_main(argv: List[str], device) -> int:
             cond = distributed.combine_condensed(cond, n, shard)
         if not distributed.is_main():
             return 0
-    if emit_fmt == BINARY:
-        if mm is not None:
-            mm.flush()
-            distmat.finalize_binary_mmap(out_dists)
-        else:
-            fp, close = core.open_output(out_dists, binary=True)
-            distmat.write_binary(fp, cond, n)
+    with metrics.span("cli.emit"):
+        if emit_fmt == BINARY:
+            if mm is not None:
+                mm.flush()
+                distmat.finalize_binary_mmap(out_dists)
+            else:
+                fp, close = core.open_output(out_dists, binary=True)
+                distmat.write_binary(fp, cond, n)
+                if close:
+                    fp.close()
+            _write_labels(out_dists, names)
+        elif emit_fmt == PHYLIP:
+            fp, close = core.open_output(out_dists)
+            distmat.emit_phylip(fp, names, cond, use_scientific)
             if close:
                 fp.close()
-        _write_labels(out_dists, names)
-    elif emit_fmt == PHYLIP:
-        fp, close = core.open_output(out_dists)
-        distmat.emit_phylip(fp, names, cond, use_scientific)
-        if close:
-            fp.close()
-    elif emit_fmt == FULL_TSV:
-        fp, close = core.open_output(out_dists)
-        distmat.emit_full_tsv(fp, names, distmat.condensed_to_square(cond, n),
-                              use_scientific)
-        if close:
-            fp.close()
-    else:
-        fp, close = core.open_output(out_dists)
-        distmat.emit_ut_tsv(fp, names, cond, use_scientific)
-        if close:
-            fp.close()
+        elif emit_fmt == FULL_TSV:
+            fp, close = core.open_output(out_dists)
+            distmat.emit_full_tsv(fp, names,
+                                  distmat.condensed_to_square(cond, n),
+                                  use_scientific)
+            if close:
+                fp.close()
+        else:
+            fp, close = core.open_output(out_dists)
+            distmat.emit_ut_tsv(fp, names, cond, use_scientific)
+            if close:
+                fp.close()
     return 0
 
 

@@ -5,7 +5,7 @@ uint32 pairs for the TPU.  Here a uint64 value lives in an int64 tensor
 with the same bit pattern: additions and left shifts wrap identically in
 two's complement, and right shifts are made logical with a mask (torch has
 no CPU `>>` for uint64).  `wang_hash_np` is the host version on uint64
-arrays (the rolling hashes' tables, the benchmark's host baseline and the
+arrays (the rolling hashes' tables and the
 host HLL inserts, with `clz64_np`); `seeded_wang_hash_np` and
 `poisson_min_cardinality` serve the host set sketches
 (sketch/setsketches.py).  `gf64_mul` and `clhash` (with their numpy

@@ -1,8 +1,11 @@
 """Lightweight phase metrics (the port's copy of dashing_tpu/metrics.py).
 
 Set DASHING_TPU_METRICS=1 and every CLI run prints per-phase wall time and
-throughput to stderr, plus a summary of the accumulated buckets.  Device
-traces come from torch.profiler (chip_profile.py), not from here.
+throughput to stderr, plus a summary of the accumulated buckets.  Buckets
+are sums over the process, with no timestamps.  A `span` also opens a
+torch.profiler range of its bucket's name, so that a profiler running on
+the same thread puts the span on one clock with the device trace; the
+device trace itself comes from torch.profiler, not from here.
 """
 from __future__ import annotations
 
@@ -39,20 +42,6 @@ def phase(name: str, items: float = 0.0, unit: str = "items"):
         print(f"[metrics] {name}: {dt:.3f}s{rate}", file=sys.stderr)
 
 
-def add_time(name: str, dt: float, items: float = 0.0):
-    """Accumulate a measured duration into a bucket (no printing)."""
-    if not _ENABLED:
-        return
-    _totals[name] = _totals.get(name, 0.0) + dt
-    if items:
-        _counts[name] = _counts.get(name, 0.0) + items
-
-
-def total(name: str) -> float:
-    """Seconds accumulated in a bucket so far (0 when disabled)."""
-    return _totals.get(name, 0.0)
-
-
 @contextlib.contextmanager
 def accum(name: str, items: float = 0.0):
     """Accumulate wall time into a named bucket WITHOUT printing per call
@@ -70,6 +59,26 @@ def accum(name: str, items: float = 0.0):
         _totals[name] = _totals.get(name, 0.0) + (time.perf_counter() - t0)
         if items:
             _counts[name] = _counts.get(name, 0.0) + items
+
+
+@contextlib.contextmanager
+def span(name: str, items: float = 0.0):
+    """`accum` that also opens `torch.profiler.record_function(name)`.
+
+    Use it only around work that launches nothing on the card and copies
+    nothing to or from it: a profiler range that encloses device work has
+    a shadow of the same name on the device timeline, which a reader of
+    the trace would count as device time.  Regions that enclose device
+    work keep `accum`.  A range opened on a thread the profiler does not
+    follow is not recorded; the bucket is.  The range opens before the
+    bucket's clock starts and closes after it stops, so the bucket holds
+    the work and not the range's own cost."""
+    if not _ENABLED:
+        yield
+        return
+    from torch.profiler import record_function
+    with record_function(name), accum(name, items):
+        yield
 
 
 def summary():

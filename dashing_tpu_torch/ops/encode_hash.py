@@ -8,7 +8,7 @@ register update after it (dashing_tpu/pipeline.py `_packed_to_registers`):
 
 K2 is the counterpart of `encode_hash_keys`, the same tail on raw ASCII
 tiles, in two forms of one kernel: `ascii_to_registers` (fused with the
-register max; the benchmark calls it) and
+register max; chip_smoke.py times it) and
 `encode_hash_keys` (the TPU kernel's own int32 keys, to hold the kernel
 bitwise).
 

@@ -173,7 +173,7 @@ def _pack_tile_host(tile: np.ndarray):
     """ASCII (R, C) -> (2-bit codes packed 4/byte, validity bits packed
     8/byte, little bit order); C % 8 == 0.  Native C++ packer, numpy when
     the native library is unavailable (byte-identical)."""
-    with metrics.accum("host.pack2bit", items=tile.nbytes):
+    with metrics.span("host.pack2bit", items=tile.nbytes):
         got = native.pack2bit(tile)
         if got is not None:
             return got
@@ -198,7 +198,7 @@ def _pack_tile_host_inner(tile: np.ndarray):
 def _read_joined_uncached(path: str, sep_len: int) -> np.ndarray:
     """Logical path (sub-paths joined by the repo's separator) -> one
     separator-joined uint8 array; native C++ loader first."""
-    with metrics.accum("host.parse"):
+    with metrics.span("host.parse"):
         parts: List[np.ndarray] = []
         for sub in split_subpaths(path):
             nat = native.read_joined(sub, sep_len)
@@ -296,7 +296,9 @@ def _pad8(tiles: np.ndarray) -> np.ndarray:
 
 
 def _joined_tiles(joined: np.ndarray, halo: int) -> Iterable[np.ndarray]:
-    yield from _row_chunks(_pad8(tile_sequence(joined, CONTENT, halo)))
+    with metrics.span("host.tile"):
+        tiles = _pad8(tile_sequence(joined, CONTENT, halo))
+    yield from _row_chunks(tiles)
 
 
 def should_stream(path: str) -> bool:
@@ -322,7 +324,7 @@ def _stream_joined_parts(path: str, sep_len: int) -> Iterable[np.ndarray]:
         if gen is None:
             gen = fasta.stream_joined(sub, sep_len)
         while True:
-            with metrics.accum("host.parse"):
+            with metrics.span("host.parse"):
                 arr = next(gen, None)
             if arr is None:
                 break
@@ -334,7 +336,8 @@ def _stream_tiles(parts: Iterable[np.ndarray], halo: int
     """Cut a joined byte stream into windows joined[s*W : s*W + W + halo]
     (W = MAX_ROWS * CONTENT) of exactly MAX_ROWS rows each, then tile the
     tail; every k-mer window lands in exactly one row, as in whole-file
-    tiling."""
+    tiling.  It runs on the read-ahead thread (`_file_tiles`), so its
+    `host.tile` time is that thread's, beside the consumer's."""
     W = MAX_ROWS * CONTENT
     buf: List[np.ndarray] = []
     buflen = 0
@@ -344,11 +347,16 @@ def _stream_tiles(parts: Iterable[np.ndarray], halo: int
         buf.append(arr)
         buflen += arr.size
         while buflen >= W + halo:
-            seg = np.concatenate(buf) if len(buf) > 1 else buf[0]
-            yield _pad8(tile_sequence(seg[:W + halo], CONTENT, halo)[:MAX_ROWS])
+            with metrics.span("host.tile"):
+                seg = np.concatenate(buf) if len(buf) > 1 else buf[0]
+                tiles = _pad8(tile_sequence(seg[:W + halo], CONTENT,
+                                            halo)[:MAX_ROWS])
+            yield tiles
             buf, buflen = [seg[W:]], seg.size - W
     if buflen:
-        yield from _joined_tiles(np.concatenate(buf), halo)
+        with metrics.span("host.tile"):
+            tail = np.concatenate(buf)
+        yield from _joined_tiles(tail, halo)
 
 
 def _readahead(gen: Iterable, depth: int = 2) -> Iterator:
@@ -386,7 +394,8 @@ def _readahead(gen: Iterable, depth: int = 2) -> Iterator:
     threading.Thread(target=work, daemon=True, name="dtt-readahead").start()
     try:
         while True:
-            item = q.get()
+            with metrics.span("sketch.parse_wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, BaseException):
@@ -643,7 +652,6 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
               for d in devs]
     cached = {}
     budget = _CM_HASH_CACHE_BYTES
-    mark = metrics.total("host.parse")       # the parse seconds of each pass
     with metrics.accum("sketch.cm_count"):
         for i, tile in enumerate(tiles()):
             d = i % len(devs)
@@ -656,15 +664,11 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
         for c in counts[1:]:
             counts[0] += c.to(counts[0].device)
         counts = [counts[0]] + [counts[0].to(d, copy=True) for d in devs[1:]]
-    metrics.add_time("host.parse.cm_count", metrics.total("host.parse") - mark)
-    mark = metrics.total("host.parse")
     stream = enumerate(tiles())
     while True:
         with metrics.accum("sketch.cm_admit"):
             nxt = next(stream, None)
             if nxt is None:
-                metrics.add_time("host.parse.cm_admit",
-                                 metrics.total("host.parse") - mark)
                 return
             i, tile = nxt
             d = i % len(devs)
@@ -697,7 +701,6 @@ def _hk_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
 
     cached = {}
     budget = _CM_HASH_CACHE_BYTES
-    mark = metrics.total("host.parse")
     with metrics.accum("sketch.hk_add"):
         for i, tile in enumerate(tiles()):
             _, hv, vm = pulled(tile)
@@ -706,15 +709,11 @@ def _hk_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
             if budget >= cost:
                 cached[i] = (hv, vm)
                 budget -= cost
-    metrics.add_time("host.parse.hk_add", metrics.total("host.parse") - mark)
-    mark = metrics.total("host.parse")
     stream = enumerate(tiles())
     while True:
         with metrics.accum("sketch.hk_query"):
             nxt = next(stream, None)
             if nxt is None:
-                metrics.add_time("host.parse.hk_query",
-                                 metrics.total("host.parse") - mark)
                 return
             i, tile = nxt
             if i in cached:

@@ -385,7 +385,6 @@ ref = glob.glob(os.path.join(sk, os.path.basename(sys.argv[3]) + "*.hll"))[0]
 rc |= main(["readfilt", "-k", "15", "-s", ref, "-f", "0.0", "-o",
             sys.argv[2] + ".rf", sys.argv[3]])
 import chip_smoke, chip_profile  # noqa: F401  (import-time only)
-import dashing_tpu_torch.bench  # noqa: F401
 import dashing_tpu_torch.sketch.sparse  # noqa: F401
 import dashing_tpu_torch.sketch.weighted  # noqa: F401
 import dashing_tpu_torch.sketch.batch_compare  # noqa: F401
