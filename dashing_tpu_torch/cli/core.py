@@ -15,6 +15,7 @@ import itertools
 import math
 import os
 import sys
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
@@ -268,18 +269,50 @@ def atomic_write_sketch(sk, fname: str) -> None:
     os.replace(tmp, fname)
 
 
-def _prefetched_tiles(indexed_paths, sp, lookahead: int = 2):
-    """Yield (index, tiles) per file, tiles() giving its row chunks, while
-    a worker thread parses and joins the next `lookahead` files (files
-    large enough to stream are parsed ahead by their own producer
-    thread, pipeline._readahead)."""
-    ex = ThreadPoolExecutor(max_workers=1)
+# parses the prefetch pool began while another of its parses was running
+parse_overlaps = 0
+_parse_lock = threading.Lock()
+_parsing = 0
+
+
+def parse_workers() -> int:
+    """The prefetch pool's workers: two where the process may use three
+    CPUs or more (the dispatching thread keeps one), else one."""
+    return max(1, min(2, len(os.sched_getaffinity(0)) - 1))
+
+
+def _parse(path: str, halo: int) -> np.ndarray:
+    """pipeline._read_joined on a pool worker, counting in
+    `parse_overlaps` each parse that begins while another is running (the
+    native parser releases the GIL, so two run side by side)."""
+    global parse_overlaps, _parsing
+    with _parse_lock:
+        parse_overlaps += _parsing > 0
+        _parsing += 1
+    try:
+        return pipeline._read_joined(path, halo)
+    finally:
+        with _parse_lock:
+            _parsing -= 1
+
+
+def _prefetched_tiles(indexed_paths, sp):
+    """Yield (index, tiles, joined) per file in index order, tiles() giving
+    its row chunks and `joined` its joined bytes (None for a file large
+    enough to stream, which is parsed ahead by its own producer thread,
+    pipeline._readahead), while parse_workers() threads parse and join the
+    next files, one more file ahead than there are workers.  A parse error
+    is raised at its own file; stopping early cancels the parses not yet
+    begun."""
+    workers = parse_workers()
+    ex = ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="dtt-parse")
     try:
         futs = {}
         for pos, (i, path) in enumerate(indexed_paths):
-            for j, nxt in indexed_paths[pos:pos + 1 + lookahead]:
+            for j, nxt in indexed_paths[pos:pos + 2 + workers]:
                 if j not in futs and not pipeline.should_stream(nxt):
-                    futs[j] = ex.submit(pipeline._read_joined, nxt, sp.halo)
+                    futs[j] = ex.submit(_parse, nxt, sp.halo)
             fut = futs.pop(i, None)
             joined = None
             if fut is not None:
@@ -292,14 +325,17 @@ def _prefetched_tiles(indexed_paths, sp, lookahead: int = 2):
                     return pipeline._file_tiles(path, sp)
                 return pipeline._joined_tiles(joined, sp.halo)
 
-            yield i, tiles
+            yield i, tiles, joined
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
 
 
 def sketch_jobs(files, params, p: int, device: torch.device, filt=None):
-    """The HLL sketch jobs over (index, tiles) pairs: yields (indices,
-    device registers or None), not synchronised.  Consecutive single-chunk
+    """The HLL sketch jobs over (index, tiles, joined) triples (joined: the
+    file's joined bytes, or None): yields (indices, device registers or
+    None), not synchronised.  A multi-chunk join on the packed route is
+    packed straight from its bytes (pipeline.sketch_joined_async), no tile
+    made.  Consecutive single-chunk
     files go into one launch that folds them into a (B, 2^p) bank
     (pipeline.sketch_small_batch_async), up to small_batch_size(p) files;
     a multi-chunk file, or every file once batching is off (p >= 22),
@@ -325,11 +361,16 @@ def sketch_jobs(files, params, p: int, device: torch.device, filt=None):
         chunks.clear()
         return [job]
 
-    for i, tiles in files:
+    for i, tiles, joined in files:
         fparams = filt(i) if filt is not None else None
         if fparams is not None:
             yield from flush()
             yield (i,), pipeline.sketch_hll_async(tiles, fparams, p, device)
+            continue
+        if joined is not None and pipeline.packs_joined(joined, params, p):
+            yield from flush()
+            yield (i,), pipeline.sketch_joined_async(joined, params, p,
+                                                     device)
             continue
         it = iter(tiles())
         first = next(it, None)
@@ -476,7 +517,8 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
         todo.append((i, path, fname))
     paths_of = {i: (path, fname) for i, path, fname in todo}
     sp = pipeline.check_supported(base)
-    for i, tiles in _prefetched_tiles([(i, pa) for i, pa, _ in todo], sp):
+    for i, tiles, _ in _prefetched_tiles([(i, pa) for i, pa, _ in todo],
+                                         sp):
         path, fname = paths_of[i]
         params = dataclasses.replace(
             base, use_counting_filter=i in filter_idx,

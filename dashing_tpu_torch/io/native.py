@@ -136,6 +136,10 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8),
             ctypes.POINTER(ctypes.c_uint8)]
         lib.dtpu_pack2bit.restype = ctypes.c_int
+        lib.dtt_pack_joined.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), *[ctypes.c_int64] * 6,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8)]
+        lib.dtt_pack_joined.restype = ctypes.c_int
         lib.dtpu_hk_create.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.c_uint64, ctypes.c_double]
         lib.dtpu_hk_create.restype = ctypes.c_void_p
@@ -276,6 +280,31 @@ def pack2bit(tile: np.ndarray):
                            vbits.ctypes.data_as(u8p))
     if rc != 0:
         return None
+    return packed, vbits
+
+
+def pack_joined(joined: np.ndarray, content: int, halo: int, width: int,
+                row0: int, rows: int):
+    """Rows [row0, row0 + rows) of the tiling of a joined uint8 sequence
+    (row r covers joined[r*content : r*content + content + halo], bytes
+    past the end and columns past content + halo read as N, `width`
+    columns a row) packed straight from the joined bytes: byte-identical
+    to pack2bit of those rows of the tile, which is never made.  None
+    when unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    joined = np.ascontiguousarray(joined, np.uint8)
+    packed = np.empty((rows, width // 4), np.uint8)
+    vbits = np.empty((rows, width // 8), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.dtt_pack_joined(joined.ctypes.data_as(u8p), joined.size,
+                             content, halo, width, row0, rows,
+                             packed.ctypes.data_as(u8p),
+                             vbits.ctypes.data_as(u8p))
+    if rc != 0:
+        raise ValueError(f"dtt_pack_joined refused content={content} "
+                         f"halo={halo} width={width} rows={row0}+{rows}")
     return packed, vbits
 
 

@@ -8,7 +8,9 @@ routes, as the JAX package chooses them:
   packed  the default exact encoding (contiguous canonical-or-not k-mers,
           WangHash, no minimizer window): the host packs 2 bits per base
           plus a validity bit (io/native.pack2bit), and kernel K1
-          (ops/encode_hash.packed_to_registers) folds the upload;
+          (ops/encode_hash.packed_to_registers) folds the upload; a whole
+          file's join of more than one chunk is packed straight from its
+          bytes, chunk by chunk, and never tiled (sketch_joined_async);
   ASCII   everything else: spaced seeds (-s), minimizer windows (-w > k),
           entropy minimizers (-g), the rolling hashes (ntHash, cyclic;
           any k).  The raw tile is uploaded and `tile_to_registers`
@@ -71,6 +73,9 @@ ENCODINGS = ("bonsai", "nthash", "cyclic")
 # the last reset; chip_smoke.py reads it to show one upload serving
 # several k (sketch_file_hll_multik)
 chunk_uploads = 0
+# chunks packed straight from a file's joined bytes (sketch_joined_async),
+# no ASCII tile made, since the last reset
+joined_packs = 0
 
 
 def _upload(*arrays: np.ndarray, device: torch.device):
@@ -178,6 +183,26 @@ def _pack_tile_host(tile: np.ndarray):
         if got is not None:
             return got
         return _pack_tile_host_inner(tile)
+
+
+def joined_rows(n: int) -> int:
+    """The rows `tile_sequence` cuts n joined bytes into."""
+    return -(-n // CONTENT)
+
+
+def _pack_joined_host(joined: np.ndarray, halo: int, row0: int, rows: int):
+    """Rows [row0, row0 + rows) of _pad8(tile_sequence(joined, CONTENT,
+    halo)) packed as _pack_tile_host packs them, read straight from the
+    joined bytes by the native packer (io/native.pack_joined); without
+    the native library those rows alone are tiled and packed by numpy."""
+    width = CONTENT + halo + (-(CONTENT + halo)) % 8      # as _pad8 pads
+    with metrics.span("host.pack2bit", items=rows * width):
+        got = native.pack_joined(joined, CONTENT, halo, width, row0, rows)
+        if got is not None:
+            return got
+        seg = joined[row0 * CONTENT:(row0 + rows) * CONTENT + halo]
+        return _pack_tile_host_inner(
+            _pad8(tile_sequence(seg, CONTENT, halo))[:rows])
 
 
 def _pack_tile_host_inner(tile: np.ndarray):
@@ -426,22 +451,61 @@ def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
     go round-robin over its cards, each into its own registers, merged on
     the first card at the end of the stream."""
     sp = check_supported(params)
+    if packed_ok(params, sp, p):
+        return _fold_packed((_pack_tile_host(t) for t in chunks), params,
+                            sp, p, device)
     devs = mesh.cards(device)
     regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
-    packed_route = packed_ok(params, sp, p)
     kw = _encode_kw(params, sp)
     for i, tile in enumerate(chunks):
         d = i % len(devs)
-        if packed_route:
-            packed, vbits = _pack_tile_host(tile)
-            with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                packed_to_registers(*_upload(packed, vbits, device=devs[d]),
-                                    regs[d], k=sp.k, p=p, canon=params.canon)
-        else:
-            with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                tile_to_registers(_upload(tile, device=devs[d])[0], regs[d],
-                                  **kw, p=p)
+        with metrics.accum("sketch.dispatch", items=tile.nbytes):
+            tile_to_registers(_upload(tile, device=devs[d])[0], regs[d],
+                              **kw, p=p)
     return mesh.max_merge(regs)
+
+
+def _fold_packed(chunks: Iterable[Tuple[np.ndarray, np.ndarray]],
+                 params: SketchParams, sp: Spacer, p: int,
+                 device: torch.device) -> torch.Tensor:
+    """The packed route of sketch_chunk_stream: each (packed, vbits) chunk
+    uploaded to K1, round-robin over the mesh's cards."""
+    devs = mesh.cards(device)
+    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
+    for i, (packed, vbits) in enumerate(chunks):
+        d = i % len(devs)
+        with metrics.accum("sketch.dispatch", items=packed.size * 4):
+            packed_to_registers(*_upload(packed, vbits, device=devs[d]),
+                                regs[d], k=sp.k, p=p, canon=params.canon)
+    return mesh.max_merge(regs)
+
+
+def packs_joined(joined: np.ndarray, params: SketchParams, p: int) -> bool:
+    """Whether a whole file's join takes sketch_joined_async: the packed
+    route, and more rows than one chunk holds (a single-chunk file goes
+    to the small-file batch)."""
+    return (packed_ok(params, check_supported(params), p)
+            and joined_rows(joined.size) > MAX_ROWS)
+
+
+def sketch_joined_async(joined: np.ndarray, params: SketchParams, p: int,
+                        device: torch.device) -> torch.Tensor:
+    """sketch_chunk_stream of _joined_tiles(joined, halo) on the packed
+    route, each chunk of MAX_ROWS rows packed straight from the joined
+    bytes (_pack_joined_host), so no ASCII tile is made: the same chunks,
+    uploads and launches in the same order, and the same registers.
+    Counted in `joined_packs`, a chunk at a time."""
+    sp = check_supported(params)
+    rows = joined_rows(joined.size)
+
+    def chunks():
+        global joined_packs
+        for row0 in range(0, rows, MAX_ROWS):
+            joined_packs += 1
+            yield _pack_joined_host(joined, sp.halo, row0,
+                                    min(MAX_ROWS, rows - row0))
+
+    return _fold_packed(chunks(), params, sp, p, device)
 
 
 # ---------------------------------------------------------------------------

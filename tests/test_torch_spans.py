@@ -166,5 +166,7 @@ def test_no_device_event_named_after_a_span(fresh, tmp_path):
     assert device, "the profiler saw no device work"
     assert not {e.name for e in device} & (set(SPANS) | set(ACCUMS))
     host = {e.name for e in events if e.device_type == DeviceType.CPU}
-    assert {"sketch.parse_wait", "host.tile", "host.pack2bit",
-            "cli.emit"} <= host
+    # files of 269 rows: each chunk is packed from the joined bytes, so no
+    # tile is cut
+    assert {"sketch.parse_wait", "host.pack2bit", "cli.emit"} <= host
+    assert "host.tile" not in host
