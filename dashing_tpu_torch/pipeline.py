@@ -76,6 +76,11 @@ chunk_uploads = 0
 # chunks packed straight from a file's joined bytes (sketch_joined_async),
 # no ASCII tile made, since the last reset
 joined_packs = 0
+# count-min filtered tiles through the first pass, and those of the second
+# pass that were not kept on the device between the passes, so hashed
+# again (a streamed file is also parsed again), since the last reset
+cm_tiles = 0
+cm_rehashed_tiles = 0
 
 
 def _upload(*arrays: np.ndarray, device: torch.device):
@@ -704,7 +709,10 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
     (_hk_filtered_tiles).  With `devs`, several cards of one host, tile i
     goes to devs[i % len(devs)] in both passes: each card counts its
     tiles, the counts are summed (exact integers) onto every card between
-    the passes, and tile i's pair is yielded on its card."""
+    the passes, and tile i's pair is yielded on its card.  Counted in
+    `cm_tiles` (first pass) and `cm_rehashed_tiles` (second-pass tiles
+    not in the cache)."""
+    global cm_tiles, cm_rehashed_tiles
     if _use_hk():
         yield from _hk_filtered_tiles(tiles, params, sp, device)
         return
@@ -721,6 +729,7 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
             d = i % len(devs)
             h, valid = _hashed_tile(tile, kw, devs[d])
             _cm_add(counts[d], h, valid, nh, size, seed)
+            cm_tiles += 1
             cost = tile.size * 9
             if budget >= cost:
                 cached[i] = (h, valid)
@@ -736,8 +745,11 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
                 return
             i, tile = nxt
             d = i % len(devs)
-            h, valid = (cached.pop(i, None)
-                        or _hashed_tile(tile, kw, devs[d]))
+            hit = cached.pop(i, None)
+            if hit is None:
+                cm_rehashed_tiles += 1
+                hit = _hashed_tile(tile, kw, devs[d])
+            h, valid = hit
             admitted = valid & (_cm_query(counts[d], h, nh, size, seed)
                                 >= params.min_count)
         yield h, admitted
