@@ -26,6 +26,12 @@ Phases, each printing its own lines with seconds:
               form timed.  K1 and K2 are timed alone (launches queued
               behind a spin kernel, each into fresh registers) and as
               launched (the host's dispatch pace)
+     minimizer  minimizer windows on raw ASCII into registers
+              (csrc/minimizer_hash.cu) vs its plain version, bitwise, from
+              zero registers and from another chunk's fold: dist -w 50's
+              chunk (256 x 8248, k31 w50 p16) and k21 w40 p14; timed
+              alone, into filled registers and as launched, beside the
+              plain version and the bound
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE: bit for bit (max
               abs err 0, non-finite entries alike) and inside the old bar
@@ -80,8 +86,9 @@ Phases, each printing its own lines with seconds:
                   first, K4's X-only form and K3 in the second
               In (b) and (c) every kernel of the path must have launched
               (counts set to 0 just before the run, read just after), in
-              (b) K2's unbanked form must not (its count, 0, is the one
-              the `kernels` line gives for ascii_hash_regs), the
+              (b) K2's unbanked form and the minimizer kernel must not
+              (K2's count, 0, is the one the `kernels` line gives for
+              ascii_hash_regs), the
               matrix must be finite and of length n(n-1)/2, and every
               planted pair's Mash distance within 0.25 d + 0.001 of d; two
               genomes' registers must equal the plain version's on the card.
@@ -93,7 +100,9 @@ Phases, each printing its own lines with seconds:
               (e) the ASCII-tile route: the same genomes through `dist -k 31
                   -S 16 -M -b` with -s 1x4, with -w 50, with -g -w 50, and
                   with --use-nthash -k 41: each matrix finite and
-                  n(n-1)/2 long, -s and ntHash planted pairs within
+                  n(n-1)/2 long, the minimizer kernel launched once a
+                  chunk under -w 50 (the `kernels` line's count) and never
+                  under the others, -s and ntHash planted pairs within
                   0.25 d + 0.001, and two genomes' registers on the card
                   bitwise equal to a CPU run of the same port code
               (f) BASELINE.json config 3 at 1 M reads of 100 bases (213 MB
@@ -243,6 +252,9 @@ K3_RTOL, K3_ATOL = 2e-4, 5e-2
 JI_ATOL = 2e-6             # Jaccard of the K5 triples vs plain
 K1_SRC = "dashing_tpu_torch/csrc/encode_hash.cu"
 K2_REPLACES = "dashing_tpu/ops/pallas_encode.py:54"
+MIN_SRC = "dashing_tpu_torch/csrc/minimizer_hash.cu"
+MIN_REPLACES = ("none: XLA code (dashing_tpu/pipeline.py _tile_to_registers "
+                "under -w)")
 K3_SRC = "dashing_tpu_torch/csrc/union_mle.cu"
 K3_REPLACES = "dashing_tpu/ops/pallas_mle.py:77"
 ROWS_SRC = "dashing_tpu_torch/csrc/estimate_rows.cu"
@@ -367,10 +379,12 @@ def phase_build():
     then print ptxas's report for each kernel."""
     from concurrent.futures import ThreadPoolExecutor
     from dashing_tpu_torch.ops import (_build, encode_hash, joint_mle,
-                                       joint_stats, union_mle)
+                                       joint_stats, minimizer_hash,
+                                       union_mle)
     t0 = time.perf_counter()
     builds = [m._lib for m in (encode_hash, union_mle, joint_stats,
-                               joint_mle)] + [union_mle._rows_lib, _b1_lib]
+                               joint_mle, minimizer_hash)] + [
+                                   union_mle._rows_lib, _b1_lib]
     with ThreadPoolExecutor(len(builds)) as ex:
         for f in [ex.submit(b) for b in builds]:
             f.result()
@@ -385,6 +399,7 @@ def phase_build():
                 log(f"[ptxas {name}] {line.replace('ptxas info    : ', '')}")
     nvcc = _build.nvcc()
     _sass_report(encode_hash._lib()._name, nvcc)
+    _sass_report(minimizer_hash._lib()._name, nvcc)
     _sass_newton_report({"union_mle": union_mle._lib()._name,
                          "joint_mle": joint_mle._lib()._name,
                          "estimate_rows": union_mle._rows_lib()._name},
@@ -431,7 +446,8 @@ def _sass_functions(so: str, nvcc: str):
 def _sass_report(so: str, nvcc: str) -> None:
     """SASS instructions of each encode/hash kernel: the whole kernel, and
     its window loop per window (the smallest backward branch span that
-    holds a BREV, over its BREVs / 2: one __brevll is two)."""
+    holds a BREV, over its BREVs / 2: one __brevll is two); of the
+    minimizer kernel, its k-mer loop per k-mer."""
     import re
     funcs = _sass_functions(so, nvcc)
     if funcs is None:
@@ -442,7 +458,10 @@ def _sass_report(so: str, nvcc: str) -> None:
              ("0", "0", "1"): "K1 packed->banks (global form)",
              ("1", "0", "1"): "K2 ascii->banks"}
     for name, (ins, loops) in funcs.items():
-        if "banks_onchip_kernel" in name:
+        unit = "window"
+        if "minimizer_regs_kernel" in name:
+            form, unit = "minimizer ascii->regs", "k-mer"
+        elif "banks_onchip_kernel" in name:
             form = "K1 packed->banks on chip"
         elif "encode_hash_kernel" in name:
             m = re.search(r"InE(\d)ELNS_3OutE(\d)ELb(\d)E", name)
@@ -454,9 +473,9 @@ def _sass_report(so: str, nvcc: str) -> None:
             brevs = sum("BREV" in x for x in ins[j:i + 1])
             if brevs and (best is None or i - j < best[0]):
                 best = (i - j + 1, brevs // 2)
-        per = (f"window loop {best[0]} instructions for {best[1]} window(s)"
-               f" = {best[0] / max(best[1], 1):.1f} a window"
-               if best else "window loop not found")
+        per = (f"{unit} loop {best[0]} instructions for {best[1]} {unit}(s)"
+               f" = {best[0] / max(best[1], 1):.1f} a {unit}"
+               if best else f"{unit} loop not found")
         log(f"[sass] {form}: {len(ins)} instructions; {per}")
 
 
@@ -847,6 +866,112 @@ def phase_k2(dev, records):
             f"{pack_ms:.4f} ms + upload {up_packed:.4f} ms "
             f"({packed.nbytes + vbits.nbytes} B) + K1 {k1_ms:.4f} ms = "
             f"{pack_ms + up_packed + k1_ms:.4f} ms")
+
+
+# The minimizer kernel's chunks (k, w, p): dist -w 50's (256 rows of
+# CONTENT + 49 bases padded to 8,248, config 2's k31 p16), and k21 w40 p14
+MIN_SHAPES = ((31, 50, 16), (21, 40, 14))
+# 32-bit integer instructions the minimizer function needs, counted from
+# its own arithmetic (csrc/minimizer_hash.cu; loads and stores not
+# counted).  Every k-mer: ENC_WINDOW_OPS (staged positions, the funnel
+# shifts, the validity test, the loop), the pair reversal 11, rc 2, the
+# canonical min 5, the invalid select 2:
+MIN_KMER_OPS = ENC_WINDOW_OPS + 20
+# every window: the sliding minimum (a backward step: a 64-bit
+# compare-and-select 4, the flag 1, the loop 2; a forward step: two
+# compare-and-selects 8, two flags 2, the loop 2) 19; the emission test (a
+# 64-bit compare 2, the flags 3, a lane's share of the ballot, popc,
+# shuffle and queue slot 4) 9:
+MIN_WINDOW_OPS = 28
+# every emitted window: WangHash in 32-bit halves 38, bucket 1, rank 9,
+# register compare 3:
+MIN_EMIT_OPS = 51
+
+
+def _emitted_windows(t, k: int, w: int) -> int:
+    """Windows of an ASCII chunk that fold a minimizer (the kernel's
+    emission rule, segment starts aside): valid, and the row's first,
+    after an invalid window, or with a minimizer other than the window
+    before's."""
+    from dashing_tpu_torch.ops.encode import encode_tile
+    km, valid = encode_tile(t, k=k, w=w, positions=range(k), span=k,
+                            canon=True)
+    same = valid[:, :-1] & (km[:, 1:] == km[:, :-1])
+    return int(valid[:, 0].sum()) + int((valid[:, 1:] & ~same).sum())
+
+
+def min_ops(R: int, C: int, k: int, w: int, emitted: int) -> int:
+    """Integer operations of one minimizer call on an (R, C) chunk with
+    `emitted` windows folded."""
+    return (ENC_ASCII_OPS * R * C + MIN_KMER_OPS * R * (C - k + 1)
+            + MIN_WINDOW_OPS * R * (C - w + 1) + MIN_EMIT_OPS * emitted)
+
+
+def phase_minimizer(dev, records):
+    """The minimizer kernel (ASCII -> minimizer windows -> registers) vs
+    its plain version, bitwise, at MIN_SHAPES, from zero registers and
+    from registers holding another chunk's fold; kernel-alone (fresh and
+    filled registers) and as-launched times, the plain version's time,
+    the bound, the launch grid."""
+    import torch
+    from dashing_tpu_torch import pipeline
+    from dashing_tpu_torch.ops import minimizer_hash as mh
+    rng = np.random.default_rng(SEED + 3)
+    for k, w, p in MIN_SHAPES:
+        C = pipeline.CONTENT + w - 1
+        C += (-C) % 8
+        R = pipeline.MAX_ROWS
+        tile = _random_chunk(rng, R, C)
+        tile[rng.random(tile.shape) < 1e-4] = 0          # separators
+        tile[rng.random(tile.shape) < 1e-4] = 0xC1       # high bytes
+        t = torch.from_numpy(tile).to(dev)
+        other = torch.from_numpy(_random_chunk(rng, R, C)).to(dev)
+        filled = torch.zeros(1 << p, dtype=torch.int32, device=dev)
+        mh.ascii_minimizer_registers_plain(other, filled, k=k, w=w, p=p,
+                                           canon=True)
+        for start in (torch.zeros_like(filled), filled):
+            regs_k, regs_p = start.clone(), start.clone()
+            mh.ascii_minimizer_registers(t, regs_k, k=k, w=w, p=p)
+            mh.ascii_minimizer_registers_plain(t, regs_p, k=k, w=w, p=p,
+                                               canon=True)
+            torch.cuda.synchronize()
+            if not torch.equal(regs_k, regs_p) or not (regs_p > 0).any():
+                fail(f"minimizer k={k} w={w} p={p}: "
+                     f"{int((regs_k != regs_p).sum())} registers differ "
+                     f"from the plain version "
+                     f"({'filled' if start is filled else 'zero'} start)")
+        nz = int((regs_p > 0).sum())
+        ring = torch.zeros((RING, 1 << p), dtype=torch.int32, device=dev)
+        run = lambda i: mh.ascii_minimizer_registers(t, ring[i], k=k, w=w,
+                                                     p=p)
+        what = f"minimizer k={k} w={w} p={p}"
+        ms, paced = kernel_alone_ms(run, ring.zero_, what)
+        filled_ms, _ = kernel_alone_ms(
+            run, lambda: ring.copy_(filled.expand_as(ring)), what)
+        del ring
+        plain_ms = cuda_ms(lambda: mh.ascii_minimizer_registers_plain(
+            t, regs_p.zero_(), k=k, w=w, p=p, canon=True), 5)
+        emitted = _emitted_windows(t, k, w)
+        W = R * (C - w + 1)
+        # bytes: the ASCII chunk in, the registers read and written;
+        # operations: per base, per k-mer, per window and per emitted
+        # window (MIN_*)
+        nbytes = tile.nbytes + 2 * 4 * (1 << p)
+        ops = min_ops(R, C, k, w, emitted)
+        g = mh.launch_geometry(R, C, k, w)
+        log(f"[minimizer] k={k} w={w} p={p} chunk ({R}, {C}): registers "
+            f"bitwise equal from zero and filled starts ({nz} nonzero); "
+            f"{emitted} of {W} windows emit ({emitted / W:.4f}); grid "
+            f"{g['grid'][0]} x {g['grid'][1]} blocks of {g['threads']} "
+            f"threads, {g['segment']} windows a block; kernel alone "
+            f"{ms:.4f} ms ({W / ms / 1e6:.2f} G windows/s), into filled "
+            f"registers {filled_ms:.4f} ms, as launched {paced:.4f} ms a "
+            f"launch, plain {plain_ms:.4f} ms; bound terms: bytes "
+            f"{nbytes / HBM_BPS * 1e3:.4f} ms, {ops / W:.1f} int32 ops a "
+            f"window {ops / INT32_OPS * 1e3:.4f} ms")
+        record(records, f"minimizer_regs k={k} w={w} p={p} ({R}x{C})",
+               MIN_SRC, MIN_REPLACES, "minimizer_regs", 0.0, ms, plain_ms,
+               nbytes, ops, INT32_OPS)
 
 
 # Phase `banks`: the banked forms of K1 and K2 at the shapes the small-file
@@ -1652,6 +1777,7 @@ def phase_e2e(dev, bank, other, counts, records):
     from dashing_tpu_torch.ops import encode_hash as eh
     from dashing_tpu_torch.ops import joint_mle as jm
     from dashing_tpu_torch.ops import joint_stats as js
+    from dashing_tpu_torch.ops import minimizer_hash as mh
     from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch.hll import HLL
     rng = np.random.default_rng(SEED + 1)
@@ -1680,7 +1806,7 @@ def phase_e2e(dev, bank, other, counts, records):
 
         # (b) config 2: 100 genomes, k31 S16 Mash, binary
         out_b = os.path.join(tmp, "b.bin")
-        eh.launches = eh.ascii_launches = 0
+        eh.launches = eh.ascii_launches = mh.launches = 0
         um.launches = 0
         um.estimate_launches = 0
         js.cum_union_launches = 0
@@ -1697,12 +1823,14 @@ def phase_e2e(dev, bank, other, counts, records):
                      "cum_union_counts": js.cum_union_launches}
         log(f"[e2e b] launches: K1 {eh.launches}, K4 X-only "
             f"{js.cum_union_launches}, K3 {um.launches}, row estimates "
-            f"{um.estimate_launches}, K2 unbanked {eh.ascii_launches}")
+            f"{um.estimate_launches}, K2 unbanked {eh.ascii_launches}, "
+            f"minimizer {mh.launches}")
         if min(main_path.values()) == 0:
             fail(f"a kernel of the main path was not launched: {main_path}")
-        if eh.ascii_launches:
+        if eh.ascii_launches or mh.launches:
             fail(f"the main path launched K2 unbanked {eh.ascii_launches} "
-                 f"times; it reads 2-bit tiles, not ASCII")
+                 f"and the minimizer kernel {mh.launches} times; it reads "
+                 f"2-bit tiles, not ASCII")
         counts.update(main_path)
         counts["ascii_hash_regs"] = eh.ascii_launches
         _check_planted(out_b, genomes, "(b)", wall, total_bases)
@@ -1789,6 +1917,7 @@ def _e2e_encodings(dev, genomes, total_bases, tmp, counts):
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.cli.main import main
     from dashing_tpu_torch.ops import encode_hash as eh
+    from dashing_tpu_torch.ops import minimizer_hash as mh
     from dashing_tpu_torch.ops import union_mle as um
     from dashing_tpu_torch.sketch.hll import HLL
     paths = [g[0] for g in genomes]
@@ -1798,8 +1927,9 @@ def _e2e_encodings(dev, genomes, total_bases, tmp, counts):
         if not planted and spent > 60.0:
             use = genomes[:20]
         out = os.path.join(tmp, "e.bin")
-        eh.launches = eh.ascii_launches = 0
+        eh.launches = eh.ascii_launches = mh.launches = 0
         um.launches = um.estimate_launches = 0
+        pipeline.chunk_uploads = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if main(["dist", "-S", "16", "-M", "-b", "-O", out, "-o",
@@ -1810,10 +1940,20 @@ def _e2e_encodings(dev, genomes, total_bases, tmp, counts):
         wall = time.perf_counter() - t0
         spent += wall
         log(f"[e2e e] {tag}: launches K1 {eh.launches}, K2 "
-            f"{eh.ascii_launches}, K3 {um.launches}, row estimates "
-            f"{um.estimate_launches}")
+            f"{eh.ascii_launches}, minimizer {mh.launches} "
+            f"({pipeline.chunk_uploads} chunks uploaded), K3 "
+            f"{um.launches}, row estimates {um.estimate_launches}")
         if um.launches == 0 or um.estimate_launches == 0:
             fail(f"e2e (e) {tag}: the compare kernels were not launched")
+        # -w 50 takes the minimizer kernel once a chunk; -s, -g and ntHash
+        # keep the PyTorch ops
+        minimizer = tag == "-w 50"
+        if (mh.launches != pipeline.chunk_uploads if minimizer
+                else mh.launches) or pipeline.chunk_uploads == 0:
+            fail(f"e2e (e) {tag}: {mh.launches} minimizer launches for "
+                 f"{pipeline.chunk_uploads} chunks")
+        if minimizer:
+            counts["minimizer_regs"] = mh.launches
         n, cond = _read_condensed(out)
         if n != len(use) or cond.shape != (n * (n - 1) // 2,):
             fail(f"e2e (e) {tag}: matrix n={n} len={cond.shape}")
@@ -4376,6 +4516,7 @@ def main() -> int:
     counts: dict = {}
     phase_k1(dev, records)
     phase_k2(dev, records)
+    phase_minimizer(dev, records)
     phase_banks(dev, records)
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)

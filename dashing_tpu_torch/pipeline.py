@@ -14,9 +14,11 @@ routes, as the JAX package chooses them:
   ASCII   everything else: spaced seeds (-s), minimizer windows (-w > k),
           entropy minimizers (-g), the rolling hashes (ntHash, cyclic;
           any k).  The raw tile is uploaded and `tile_to_registers`
-          encodes it on the device (ops/encode.encode_tile or
-          ops/rolling.rolling_hash_tile), WangHashes it and scatter-maxes
-          the ranks into the registers.
+          folds it into the registers: minimizer windows of contiguous
+          k-mers in one launch of the minimizer kernel
+          (ops/minimizer_hash), the rest as PyTorch ops that encode it
+          (ops/encode.encode_tile or ops/rolling.rolling_hash_tile),
+          WangHash it and scatter-max the ranks.
 A file can also be count-min filtered (sketch -b/-f, dist -y): two passes
 over its tiles, the first counting every k-mer's hash into a count-min
 sketch on the device, the second admitting the k-mers whose estimated
@@ -52,7 +54,7 @@ from . import device as devmod, metrics
 from .hashes import shr, wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
-from .ops import minhash_update, rolling
+from .ops import minhash_update, minimizer_hash, rolling
 from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
                          tile_sequence)
 from .ops.encode_hash import ascii_to_banks, encode_hash_keys, \
@@ -165,8 +167,13 @@ def tile_hashes(tile: torch.Tensor, *, k: int, w: int, positions, span: int,
 def tile_to_registers(tile: torch.Tensor, regs: torch.Tensor, *, p: int,
                       **kw) -> torch.Tensor:
     """The ASCII route's device step (JAX `_tile_to_registers`): an
-    uploaded tile -> `tile_hashes(tile, **kw)` -> register max into `regs`
-    in place."""
+    uploaded tile -> register max into `regs` in place.  Minimizer windows
+    of exact contiguous k-mers (`minimizer_hash.takes`) fold in one launch
+    of the minimizer kernel; every other encoding runs `tile_hashes(tile,
+    **kw)` and `update_registers` as PyTorch ops."""
+    if minimizer_hash.takes(p, **kw):
+        return minimizer_hash.ascii_minimizer_registers(
+            tile, regs, k=kw["k"], w=kw["w"], p=p, canon=kw["canon"])
     h, valid = tile_hashes(tile, **kw)
     return update_registers(regs, h, valid, p)
 

@@ -32,6 +32,7 @@ from dashing_tpu_torch import pipeline
 from dashing_tpu_torch.ops import encode_hash as eh
 from dashing_tpu_torch.ops import joint_mle as jm
 from dashing_tpu_torch.ops import joint_stats as js
+from dashing_tpu_torch.ops import minimizer_hash as mh
 from dashing_tpu_torch.ops import pairwise as pw
 from dashing_tpu_torch.ops import union_mle as um
 from dashing_tpu_torch.sketch import estimators as est
@@ -352,6 +353,150 @@ def test_ascii_kernel_rejects_mixed_devices(cuda):
     t = torch.zeros((2, 40), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         eh.ascii_to_registers(t, torch.zeros(16, dtype=torch.int32), k=3, p=4)
+
+
+# The minimizer kernel (csrc/minimizer_hash.cu): the bytes of
+# tests/test_torch_encode_ascii.py's `_tile` (N, lowercase, IUPAC, 0x00
+# separators, bytes >= 0x80), the invalid ones rare enough that windows
+# of 160 bases are often all valid
+MIN_ALPHABET = np.frombuffer(b"ACGTacgtNnRY\x00\xc1\xe3\x80", np.uint8)
+MIN_PROBS = [0.2] * 4 + [0.0495] * 4 + [0.00025] * 8
+MIN_P = [4, 14, 16, 25, 31]
+MIN_CASES = [(k, w, canon, MIN_P[i % len(MIN_P)])
+             for i, (k, w, canon) in enumerate(
+                 (k, w, canon) for k in (1, 15, 21, 31, 32)
+                 for w in sorted({k + 1, k + 19, 50, 128 + k})
+                 for canon in (True, False))]
+
+
+def _minimizer_ascii(rng, rows, C):
+    """(rows, C) uint8 ASCII on the host: an N run in every row of 3 or
+    more, row 0 all N and row 1 all lowercase when there are 3 rows or
+    more."""
+    tile = rng.choice(MIN_ALPHABET, size=(rows, C), p=MIN_PROBS)
+    if rows >= 3:
+        for r in range(rows):
+            s = int(rng.integers(0, max(C - 40, 1)))
+            tile[r, s:s + int(rng.integers(1, 40))] = ord("N")
+        tile[0] = ord("N")
+        tile[1] = rng.choice(np.frombuffer(b"acgt", np.uint8), size=C)
+    return tile
+
+
+@pytest.mark.parametrize("k,w,canon,p", MIN_CASES)
+def test_minimizer_kernel_matches_plain(rng, cuda, k, w, canon, p):
+    """Registers bitwise the plain version's, from zero registers and
+    from registers that already hold ranks."""
+    t = torch.from_numpy(_minimizer_ascii(rng, 5, 3001)).to(cuda)
+    for start in ("zero", "filled"):
+        want = (torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+                if start == "zero" else
+                torch.randint(0, 8, (1 << p,), dtype=torch.int32,
+                              device=cuda))
+        got = want.clone()
+        before = mh.launches
+        mh.ascii_minimizer_registers(t, got, k=k, w=w, p=p, canon=canon)
+        assert mh.launches == before + 1
+        mh.ascii_minimizer_registers_plain(t, want, k=k, w=w, p=p,
+                                           canon=canon)
+        torch.cuda.synchronize()
+        if start == "zero":
+            assert int((want > 0).sum()) > 0
+        assert torch.equal(got, want), start
+        del got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rows,C,k,w,p", [
+    (3, 49, 31, 50, 14),           # rows shorter than w: no window
+    (3, 50, 31, 50, 14),           # one window a row
+    (1, 3001, 1, 2, 4),            # one row, two 1-mers a window
+    (256, 8248, 31, 50, 16),       # dist -w 50's chunk
+    (4, 20003, 21, 50, 16),        # eight segments a row
+    (3, 4000, 31, 31 + 1023, 16),  # the widest window the kernel takes
+    (70000, 60, 12, 40, 10),       # more rows than one grid dimension
+] + [(9, 2000 + r, 31, 50, 14) for r in range(16)])   # every C mod 16
+def test_minimizer_kernel_shapes(rng, cuda, rows, C, k, w, p):
+    t = torch.from_numpy(_minimizer_ascii(rng, rows, C)).to(cuda)
+    got = torch.zeros(1 << p, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    mh.ascii_minimizer_registers(t, got, k=k, w=w, p=p)
+    mh.ascii_minimizer_registers_plain(t, want, k=k, w=w, p=p, canon=True)
+    torch.cuda.synchronize()
+    assert (int((want > 0).sum()) > 0) == (C >= w)
+    assert torch.equal(got, want)
+
+
+def test_minimizer_kernel_on_a_row_offset_view(rng, cuda):
+    """A chunk taken as rows 5.. of a larger tensor: its data pointer is
+    not 16-byte aligned."""
+    t = torch.from_numpy(_minimizer_ascii(rng, 40, 3003)).to(cuda)[5:33]
+    assert t.data_ptr() % 16
+    for k, w in ((16, 40), (31, 50)):
+        got = torch.zeros(1 << 14, dtype=torch.int32, device=cuda)
+        want = torch.zeros_like(got)
+        mh.ascii_minimizer_registers(t, got, k=k, w=w, p=14)
+        mh.ascii_minimizer_registers_plain(t, want, k=k, w=w, p=14,
+                                           canon=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_minimizer_geometry(cuda):
+    """The source's WIN_MAX is the wrapper's, which the routing rule
+    reads; the segments cover the row."""
+    geo = mh.launch_geometry(256, 8248, 31, 50)
+    assert geo["win_max"] == mh.WIN_MAX
+    assert geo["grid"] == (-(-8199 // geo["segment"]), 256)
+    assert geo["segment"] * geo["grid"][0] >= 8199
+
+
+@pytest.mark.parametrize("k,w,p", [
+    (31, 31, 16),                  # w == k: the packed route's, or K2's
+    (31, 20, 16),
+    (31, 31 + 1024, 16),           # a window of WIN_MAX + 1 k-mers
+    (33, 50, 16),
+    (31, 50, 0),
+    (31, 50, 32),
+])
+def test_minimizer_kernel_rejects_unsupported(cuda, k, w, p):
+    """On a CUDA tile the wrapper raises outside the kernel's range; it
+    never runs the plain version instead."""
+    t = torch.full((2, 2000), ord("A"), dtype=torch.uint8, device=cuda)
+    regs = torch.zeros(1 << 16, dtype=torch.int32, device=cuda)
+    before = mh.launches
+    with pytest.raises(ValueError):
+        mh.ascii_minimizer_registers(t, regs, k=k, w=w, p=p)
+    assert mh.launches == before
+    with pytest.raises(ValueError):
+        mh.ascii_minimizer_registers(t, torch.zeros(1 << 16,
+                                                    dtype=torch.int32),
+                                     k=31, w=50, p=16)
+
+
+@pytest.mark.parametrize("params,launched", [
+    (dict(k=31, w=50), 1),
+    (dict(k=21, w=50, canon=False), 1),
+    (dict(k=31, w=50, spacing="1x4"), 0),
+    (dict(k=31, w=50, entropy=True), 0),
+    (dict(k=41, w=60, encoding="nthash"), 0),
+    (dict(k=31), 0),
+])
+def test_ascii_route_takes_the_minimizer_kernel(rng, cuda, params, launched):
+    """`pipeline.tile_to_registers` on a CUDA tile launches the minimizer
+    kernel for exact contiguous minimizers alone, and every family's
+    registers equal the CPU run's."""
+    params = pipeline.SketchParams(**params)
+    kw = pipeline._encode_kw(params, pipeline.check_supported(params))
+    tile = torch.from_numpy(_minimizer_ascii(rng, 6, 3001))
+    got = torch.zeros(1 << 14, dtype=torch.int32, device=cuda)
+    before = mh.launches
+    pipeline.tile_to_registers(tile.to(cuda), got, p=14, **kw)
+    assert mh.launches - before == launched
+    want = torch.zeros(1 << 14, dtype=torch.int32)
+    pipeline.tile_to_registers(tile, want, p=14, **kw)
+    assert int((want > 0).sum()) > 0
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,
