@@ -258,7 +258,7 @@ def fastq(dev, reps: int, reads: int, trace: bool) -> None:
             cm_size_log2=chip_smoke.FQ_CM_LOG2)
         sp = params.spacer()
         kw = pipeline._encode_kw(params, sp)
-        tiles = pipeline._file_tiles(fq, sp)
+        tiles = pipeline.InputFile(0, fq, sp).tiles()
         tile = next(tiles)
         ntiles = 1 + sum(1 for _ in tiles)
         nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed

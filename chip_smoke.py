@@ -1869,8 +1869,8 @@ def phase_e2e(dev, bank, other, counts, records):
         params = pipeline.SketchParams(k=31)
         for path, regs in zip((paths[0], paths[7]), got):
             plain = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
-            joined = pipeline._read_joined(path, 30)
-            for tile in pipeline._joined_tiles(joined, 30):
+            f = pipeline.InputFile(0, path, params.spacer())
+            for tile in f.tiles():
                 packed, vbits = pipeline._pack_tile_host(tile)
                 eh.packed_to_registers_plain(
                     torch.from_numpy(packed).to(dev),
@@ -2494,7 +2494,7 @@ def _setsketch_device_ms(dev, paths):
         out, tiles = np.zeros(3), 0
         bank = mu.empty_bank(SET_P, dev)
         run = mu.empty_values(dev)
-        for tile in pipeline._file_tiles(path, sp):
+        for tile in pipeline.InputFile(0, path, sp).tiles():
             t = torch.from_numpy(tile).to(dev)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()

@@ -15,9 +15,6 @@ import itertools
 import math
 import os
 import sys
-import threading
-from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -26,7 +23,7 @@ import torch
 from .. import metrics, pipeline
 from ..io import cache, paths
 from ..ops import pairwise as pw
-from ..parallel import distributed, mesh
+from ..parallel import distributed
 from ..sketch import batch_compare, estimators as est
 from ..sketch.extra import DensifiedMinHash, WideHLL
 from ..sketch.hll import HLL, RegisterSketch, batch_reports
@@ -269,154 +266,6 @@ def atomic_write_sketch(sk, fname: str) -> None:
     os.replace(tmp, fname)
 
 
-# parses the prefetch pool began while another of its parses was running
-parse_overlaps = 0
-_parse_lock = threading.Lock()
-_parsing = 0
-
-
-def parse_workers() -> int:
-    """The prefetch pool's workers: two where the process may use three
-    CPUs or more (the dispatching thread keeps one), else one."""
-    return max(1, min(2, len(os.sched_getaffinity(0)) - 1))
-
-
-def _parse(path: str, halo: int) -> np.ndarray:
-    """pipeline._read_joined on a pool worker, counting in
-    `parse_overlaps` each parse that begins while another is running (the
-    native parser releases the GIL, so two run side by side)."""
-    global parse_overlaps, _parsing
-    with _parse_lock:
-        parse_overlaps += _parsing > 0
-        _parsing += 1
-    try:
-        return pipeline._read_joined(path, halo)
-    finally:
-        with _parse_lock:
-            _parsing -= 1
-
-
-def _prefetched_tiles(indexed_paths, sp):
-    """Yield (index, tiles, joined) per file in index order, tiles() giving
-    its row chunks and `joined` its joined bytes (None for a file large
-    enough to stream, which is parsed ahead by its own producer thread,
-    pipeline._readahead), while parse_workers() threads parse and join the
-    next files, one more file ahead than there are workers.  A parse error
-    is raised at its own file; stopping early cancels the parses not yet
-    begun."""
-    workers = parse_workers()
-    ex = ThreadPoolExecutor(max_workers=workers,
-                            thread_name_prefix="dtt-parse")
-    try:
-        futs = {}
-        for pos, (i, path) in enumerate(indexed_paths):
-            for j, nxt in indexed_paths[pos:pos + 2 + workers]:
-                if j not in futs and not pipeline.should_stream(nxt):
-                    futs[j] = ex.submit(_parse, nxt, sp.halo)
-            fut = futs.pop(i, None)
-            joined = None
-            if fut is not None:
-                with metrics.span("sketch.parse_wait"):
-                    joined = fut.result()
-
-            def tiles(path=path, joined=joined):
-                # a filtered file's second pass re-tiles a prefetched join
-                if joined is None:
-                    return pipeline._file_tiles(path, sp)
-                return pipeline._joined_tiles(joined, sp.halo)
-
-            yield i, tiles, joined
-    finally:
-        ex.shutdown(wait=True, cancel_futures=True)
-
-
-def sketch_jobs(files, params, p: int, device: torch.device, filt=None):
-    """The HLL sketch jobs over (index, tiles, joined) triples (joined: the
-    file's joined bytes, or None): yields (indices, device registers or
-    None), not synchronised.  A multi-chunk join on the packed route is
-    packed straight from its bytes (pipeline.sketch_joined_async), no tile
-    made.  Consecutive single-chunk
-    files go into one launch that folds them into a (B, 2^p) bank
-    (pipeline.sketch_small_batch_async), up to small_batch_size(p) files;
-    a multi-chunk file, or every file once batching is off (p >= 22),
-    folds alone into (2^p,) registers; an empty file yields None (zero
-    registers).  A batch holds files of one tile width and any row counts
-    (the JAX package also flushes on a change of row count; the registers
-    are the same either way).  `filt(index)` gives a file's count-min
-    filter parameters, or None: a filtered file takes its two passes
-    alone.  On a mesh the batches go round-robin over its cards, each
-    banked on one card."""
-    batch = pipeline.small_batch_size(p)
-    ids: List[int] = []
-    chunks: List[np.ndarray] = []
-    devs = mesh.cards(device)
-    batches = itertools.count()
-
-    def flush():
-        if not ids:
-            return []
-        job = (tuple(ids), pipeline.sketch_small_batch_async(
-            chunks, params, p, devs[next(batches) % len(devs)]))
-        ids.clear()
-        chunks.clear()
-        return [job]
-
-    for i, tiles, joined in files:
-        fparams = filt(i) if filt is not None else None
-        if fparams is not None:
-            yield from flush()
-            yield (i,), pipeline.sketch_hll_async(tiles, fparams, p, device)
-            continue
-        if joined is not None and pipeline.packs_joined(joined, params, p):
-            yield from flush()
-            yield (i,), pipeline.sketch_joined_async(joined, params, p,
-                                                     device)
-            continue
-        it = iter(tiles())
-        first = next(it, None)
-        second = None if first is None else next(it, None)
-        if first is None:
-            yield (i,), None
-        elif second is None and batch:
-            if chunks and chunks[0].shape[1] != first.shape[1]:
-                yield from flush()
-            ids.append(i)
-            chunks.append(first)
-            if len(ids) >= batch:
-                yield from flush()
-        else:
-            yield from flush()
-            rest = [first] if second is None else [first, second]
-            yield (i,), pipeline.sketch_hll_async(
-                lambda: itertools.chain(rest, it), params, p, device)
-    yield from flush()
-
-
-def device_hll_jobs(indexed_paths, opts: CommonOpts, device: torch.device,
-                    filter_idx=None, filt_min_count: Optional[int] = None):
-    """sketch_jobs over (index, path) pairs with the parse prefetch.
-
-    filter_idx: the indices whose file is count-min filtered (None: all of
-    them under opts.use_counting_filter, none otherwise); filt_min_count:
-    their threshold (None: opts.mincount floored at 2, the `dist` rule).
-    A threshold of 1 or less admits every k-mer: no filter."""
-    p = hll_p_from_S(opts.sketch_size)
-    if filt_min_count is None:
-        filt_min_count = opts.mincount if opts.mincount > 1 else 2
-    base = sketch_params(opts)
-    plain = dataclasses.replace(base, use_counting_filter=False)
-    filt = dataclasses.replace(base, use_counting_filter=True,
-                               min_count=filt_min_count)
-    if filter_idx is None:
-        filter_idx = ({i for i, _ in indexed_paths}
-                      if opts.use_counting_filter else frozenset())
-    if filt_min_count <= 1:
-        filter_idx = frozenset()
-    sp = pipeline.check_supported(base)
-    yield from sketch_jobs(_prefetched_tiles(indexed_paths, sp), plain, p,
-                           device, lambda i: filt if i in filter_idx else None)
-
-
 def weighted_elements(raw: np.ndarray, opts: CommonOpts) -> np.ndarray:
     """The occurrence-labelled elements of raw k-mers under --wj-exact
     (exact counts) or --wj (count-min estimates)."""
@@ -491,18 +340,14 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
              filt_min_count: Optional[int] = None):
     """The engine of the sketches built file by file: calls put(index,
     sketch) in order, sketch = build(path, tiles, params), the next
-    files' parse prefetched behind each build; -W loads and writes the
-    cache files (a SuperMinHash run rebuilds and overwrites a cache file
-    that holds the older densified MinHash, with the JAX CLI's note).
-    filter_idx / filt_min_count as in device_hll_jobs (a count-min
-    filtered file takes the host route)."""
-    if filt_min_count is None:
-        filt_min_count = opts.mincount if opts.mincount > 1 else 2
-    base = sketch_params(opts)
-    if filter_idx is None:
-        filter_idx = ({i for i, _ in indexed_paths}
-                      if opts.use_counting_filter else frozenset())
-    todo = []
+    files' parse prefetched behind each build (pipeline.prefetch); -W
+    loads and writes the cache files (a SuperMinHash run rebuilds and
+    overwrites a cache file that holds the older densified MinHash, with
+    the JAX CLI's note).  filter_idx / filt_min_count as in
+    device_hll_run (a count-min filtered file takes the host route)."""
+    base, filter_idx = _filtering(opts, indexed_paths, filter_idx,
+                                  filt_min_count)
+    fnames = {}
     for i, path in indexed_paths:
         fname = _cache_fname(path, opts) if opts.cache_sketch else None
         if fname is not None and os.path.isfile(fname):
@@ -514,19 +359,14 @@ def host_run(indexed_paths, opts: CommonOpts, put, build, filter_idx=None,
                 continue
             eprint(f"Note: rebuilding stale DTPUSMH1 cache {fname} in the "
                    "SuperMinHash (DTPUSMH2) format")
-        todo.append((i, path, fname))
-    paths_of = {i: (path, fname) for i, path, fname in todo}
-    sp = pipeline.check_supported(base)
-    for i, tiles, _ in _prefetched_tiles([(i, pa) for i, pa, _ in todo],
-                                         sp):
-        path, fname = paths_of[i]
-        params = dataclasses.replace(
-            base, use_counting_filter=i in filter_idx,
-            min_count=filt_min_count)
-        sk = build(path, tiles, params)
-        if fname is not None:
-            atomic_write_sketch(sk, fname)
-        put(i, sk)
+        fnames[i] = fname
+    for f in pipeline.prefetch([t for t in indexed_paths if t[0] in fnames],
+                               pipeline.check_supported(base)):
+        sk = build(f.path, f.tiles, dataclasses.replace(
+            base, use_counting_filter=f.index in filter_idx))
+        if fnames[f.index] is not None:
+            atomic_write_sketch(sk, fnames[f.index])
+        put(f.index, sk)
 
 
 def hll_engine(opts: CommonOpts) -> bool:
@@ -544,21 +384,32 @@ def register_class(opts: CommonOpts):
     return WideHLL if opts.sketch_type == "wide_hll" else HLL
 
 
+def _filtering(opts: CommonOpts, indexed_paths, filter_idx=None,
+               filt_min_count: Optional[int] = None):
+    """(sketch parameters at the count-min threshold, the indices of the
+    files filtered): filter_idx None is every file under -y/-b, none
+    otherwise; filt_min_count None is opts.mincount floored at 2 (the
+    `dist` rule)."""
+    if filt_min_count is None:
+        filt_min_count = opts.mincount if opts.mincount > 1 else 2
+    if filter_idx is None:
+        filter_idx = ({i for i, _ in indexed_paths}
+                      if opts.use_counting_filter else frozenset())
+    return (dataclasses.replace(sketch_params(opts), min_count=filt_min_count),
+            filter_idx)
+
+
 def device_hll_run(indexed_paths, opts: CommonOpts, put,
                    device: torch.device, filter_idx=None,
                    filt_min_count: Optional[int] = None):
-    """The HLL sketch engine: calls put(index, (2^p,) registers) as each
-    file lands, uint8 (uint16 from a wide HLL's cache file).  -W
-    (opts.cache_sketch) loads a file's sketch from its cache file when
-    there is one and writes the others' (`.hll`, or `.whll` records under
-    --use-wide-hll).  Jobs stay queued on the device until more than
-    window_cap files are in flight, each file's registers 4 * 2^p bytes,
-    about 256 MiB in all (the JAX package's bounded dispatch window);
-    then the oldest job is pulled.
-    Strictly more: at a full batch of window_cap files `>=` would pull the
-    job just queued and serialise the host parse with the device."""
+    """The HLL sketch engine (pipeline.sketch_hll_files) behind the -W
+    cache: calls put(index, (2^p,) registers) as each file lands, uint8
+    (uint16 from a wide HLL's cache file).  -W (opts.cache_sketch) loads
+    a file's sketch from its cache file when there is one and writes the
+    others' (`.hll`, or `.whll` records under --use-wide-hll).
+    filter_idx / filt_min_count: the files count-min filtered and their
+    threshold (_filtering)."""
     p = hll_p_from_S(opts.sketch_size)
-    window_cap = max(4, min(64, (256 << 20) // (4 << p)))
     fnames = ({i: _cache_fname(path, opts) for i, path in indexed_paths}
               if opts.cache_sketch else {})
     todo = []
@@ -576,32 +427,9 @@ def device_hll_run(indexed_paths, opts: CommonOpts, put,
                                 fnames[i])
         put(i, regs)
 
-    queued: deque = deque()
-    inflight = 0
-
-    def drain():
-        nonlocal inflight
-        ids, dev = queued.popleft()
-        inflight -= len(ids)
-        if dev is None:
-            land(ids[0], np.zeros(1 << p, np.uint8))
-            return
-        with metrics.accum("sketch.pull"):
-            regs = pipeline.registers_to_numpy(dev)
-        if regs.ndim == 1:
-            land(ids[0], regs)
-        else:
-            for slot, i in enumerate(ids):
-                land(i, regs[slot])
-
-    for job in device_hll_jobs(todo, opts, device, filter_idx,
-                               filt_min_count):
-        queued.append(job)
-        inflight += len(job[0])
-        while inflight > window_cap and queued:
-            drain()
-    while queued:
-        drain()
+    params, filter_idx = _filtering(opts, todo, filter_idx, filt_min_count)
+    pipeline.sketch_hll_files(todo, params, p, device, filtered=filter_idx,
+                              land=land)
 
 
 def sketch_paths(paths_list: List[str], opts: CommonOpts,

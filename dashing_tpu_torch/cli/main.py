@@ -49,7 +49,6 @@ import shutil
 import struct
 import sys
 import tempfile
-from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -589,25 +588,12 @@ def hll_main(argv: List[str], device) -> int:
     core.validate_k(o)
     p = core.hll_p_from_S(o.sketch_size)
     regs = np.zeros(1 << p, np.uint8)
-    # every file max-folded into one register set, with at most 4 jobs'
-    # device registers (64 MiB a file at p = 24) in flight before the
-    # oldest is pulled; a batch of small files folds its bank's rows in
-    def fold(dev_regs):
-        got = pipeline.registers_to_numpy(dev_regs)
-        np.maximum(regs, got.max(axis=0) if got.ndim == 2 else got, out=regs)
-
-    # several processes: each folds its stride of the files, then one
-    # register max all-reduce merges them
-    inflight: deque = deque()
-    for _, dev_regs in core.device_hll_jobs(
-            distributed.my_shard(list(enumerate(inpaths))), o, device):
-        if dev_regs is None:                 # an empty file
-            continue
-        inflight.append(dev_regs)
-        if len(inflight) >= 4:
-            fold(inflight.popleft())
-    for dev_regs in inflight:
-        fold(dev_regs)
+    # every file max-folded into one register set as it lands; several
+    # processes: each folds its stride of the files, then one register max
+    # all-reduce merges them
+    core.device_hll_run(
+        distributed.my_shard(list(enumerate(inpaths))), o,
+        lambda i, got: np.maximum(regs, got, out=regs), device)
     regs = distributed.global_register_max(regs)
     if not distributed.is_main():
         return 0

@@ -1,16 +1,24 @@
 """The sketching engine: files -> tiles -> device registers (port of
-dashing_tpu/pipeline.py, HLL sketches, one device).
+dashing_tpu/pipeline.py, HLL sketches, one host).
+
+The HLL engine's one entry is `sketch_hll_files`: the CLI says what to
+sketch, this module how.  The next files are parsed and joined on a pool
+(`prefetch`), each handed on as an `InputFile` (its joined bytes, or None
+for a file large enough to stream through its own read-ahead thread); one
+decision a file picks its route from its parameters and row count
+(`file_route`); one loop folds a file's chunks (`sketch_chunk_stream`);
+jobs stay queued on the device up to a bounded window, then are pulled.
 
 A file's records are joined with invalid separators, cut into rows of
 CONTENT bases plus a (w-1)-base halo (width padded to a multiple of 8 once
 per file), and folded into 2^p registers on the device by one of two
-routes, as the JAX package chooses them:
+routes, chosen once for a parameter set (`packed_ok`) as the JAX package
+chooses them:
   packed  the default exact encoding (contiguous canonical-or-not k-mers,
           WangHash, no minimizer window): the host packs 2 bits per base
-          plus a validity bit (io/native.pack2bit), and kernel K1
-          (ops/encode_hash.packed_to_registers) folds the upload; a whole
-          file's join of more than one chunk is packed straight from its
-          bytes, chunk by chunk, and never tiled (sketch_joined_async);
+          plus a validity bit (io/native.pack2bit; a whole file's join of
+          more than one chunk straight from its bytes, sketch_joined_async),
+          and kernel K1 (ops/encode_hash.packed_to_registers) folds it;
   ASCII   everything else: spaced seeds (-s), minimizer windows (-w > k),
           entropy minimizers (-g), the rolling hashes (ntHash, cyclic;
           any k).  The raw tile is uploaded and `tile_to_registers`
@@ -35,15 +43,18 @@ MinHash and bottom-k sketches take the ASCII tiles too
 (`sketch_file_bbmh_mins`, `sketch_file_bottomk_values`).
 On several cards of one host (parallel/mesh.py) the chunks of a stream
 and the count-min passes go round-robin over the cards, each card into its
-own partial registers, merged at the end of the stream.
+own partial registers, merged at the end (`_fold_over_cards`); the
+small-file batches go round-robin, each banked on one card.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import queue
 import threading
-from collections import OrderedDict
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import (Callable, Iterable, Iterator, List, Optional, Sequence,
                     Tuple)
 
@@ -373,7 +384,7 @@ def _stream_tiles(parts: Iterable[np.ndarray], halo: int
     """Cut a joined byte stream into windows joined[s*W : s*W + W + halo]
     (W = MAX_ROWS * CONTENT) of exactly MAX_ROWS rows each, then tile the
     tail; every k-mer window lands in exactly one row, as in whole-file
-    tiling.  It runs on the read-ahead thread (`_file_tiles`), so its
+    tiling.  It runs on the read-ahead thread (`InputFile.tiles`), so its
     `host.tile` time is that thread's, beside the consumer's."""
     W = MAX_ROWS * CONTENT
     buf: List[np.ndarray] = []
@@ -442,69 +453,130 @@ def _readahead(gen: Iterable, depth: int = 2) -> Iterator:
         stop.set()
 
 
-def _file_tiles(path: str, sp: Spacer) -> Iterable[np.ndarray]:
-    """(rows, CONTENT + halo, padded to %8) uint8 tiles covering a path;
-    files above STREAM_THRESHOLD stream, parsed ahead in a producer
-    thread (same tiles either way)."""
-    if should_stream(path):
-        yield from _readahead(
-            _stream_tiles(_stream_joined_parts(path, sp.halo), sp.halo))
+# parses the prefetch pool began while another of its parses was running
+parse_overlaps = 0
+_parse_lock = threading.Lock()
+_parsing = 0
+
+
+def parse_workers() -> int:
+    """The prefetch pool's workers: two where the process may use three
+    CPUs or more (the dispatching thread keeps one), else one."""
+    return max(1, min(2, len(os.sched_getaffinity(0)) - 1))
+
+
+def _parse(path: str, halo: int) -> np.ndarray:
+    """_read_joined on a pool worker, counting in `parse_overlaps` each
+    parse that begins while another is running (the native parser
+    releases the GIL, so two run side by side)."""
+    global parse_overlaps, _parsing
+    with _parse_lock:
+        parse_overlaps += _parsing > 0
+        _parsing += 1
+    try:
+        return _read_joined(path, halo)
+    finally:
+        with _parse_lock:
+            _parsing -= 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class InputFile:
+    """One file of the engine: its index, its path, the k-mer shape of its
+    tiles, and its joined bytes from the parse pool, or None where the
+    tiles come from the file itself (streamed when it is large)."""
+    index: int
+    path: str
+    sp: Spacer
+    joined: Optional[np.ndarray] = None
+
+    def tiles(self) -> Iterator[np.ndarray]:
+        """Its (rows, CONTENT + halo, padded to %8) uint8 tiles, cut anew
+        at each call (a filtered file's second pass re-tiles the join); a
+        file above STREAM_THRESHOLD streams, parsed ahead in a producer
+        thread (same tiles either way)."""
+        halo = self.sp.halo
+        if self.joined is not None:
+            yield from _joined_tiles(self.joined, halo)
+        elif should_stream(self.path):
+            yield from _readahead(
+                _stream_tiles(_stream_joined_parts(self.path, halo), halo))
+        else:
+            yield from _joined_tiles(_read_joined(self.path, halo), halo)
+
+
+def prefetch(indexed_paths: Sequence[Tuple[int, str]], sp: Spacer
+             ) -> Iterator[InputFile]:
+    """Yield an InputFile per (index, path) in order while parse_workers()
+    threads parse and join the next files, one more file ahead than there
+    are workers; a file large enough to stream is not parsed ahead (its
+    joined bytes are None).  A parse error is raised at its own file;
+    stopping early cancels the parses not yet begun."""
+    workers = parse_workers()
+    ex = ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="dtt-parse")
+    try:
+        futs = {}
+        for pos, (i, path) in enumerate(indexed_paths):
+            for j, nxt in indexed_paths[pos:pos + 2 + workers]:
+                if j not in futs and not should_stream(nxt):
+                    futs[j] = ex.submit(_parse, nxt, sp.halo)
+            fut = futs.pop(i, None)
+            joined = None
+            if fut is not None:
+                with metrics.span("sketch.parse_wait"):
+                    joined = fut.result()
+            yield InputFile(i, path, sp, joined)
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def _fold_over_cards(units: Iterable, devs: Sequence[torch.device], p: int,
+                     fold: Callable) -> torch.Tensor:
+    """The mesh round-robin: unit i folds into the (2^p,) int32 registers
+    of card i % len(devs) by fold(unit, card, registers); the cards'
+    registers are merged on the first one at the end."""
+    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
+    for unit, (card, r) in zip(units, itertools.cycle(zip(devs, regs))):
+        fold(unit, card, r)
+    return mesh.max_merge(regs)
+
+
+def _launch(up: Tuple[torch.Tensor, ...], regs: torch.Tensor,
+            params: SketchParams, sp: Spacer, p: int, packed: bool):
+    """One uploaded chunk into `regs`: (codes, validity bits) to K1 on the
+    packed route, else the ASCII tile to tile_to_registers."""
+    if packed:
+        packed_to_registers(*up, regs, k=sp.k, p=p, canon=params.canon)
     else:
-        yield from _joined_tiles(_read_joined(path, sp.halo), sp.halo)
+        tile_to_registers(up[0], regs, **_encode_kw(params, sp), p=p)
 
 
-def sketch_chunk_stream(chunks: Iterable[np.ndarray], params: SketchParams,
-                        p: int, device: torch.device) -> torch.Tensor:
-    """Fold a stream of (rows, C) ASCII tiles into (2^p,) int32 registers
-    on `device` (returned without synchronising): the packed upload to K1
-    where `packed_ok`, else the ASCII tile to `tile_to_registers` (JAX
-    `_sketch_chunk_stream`, and `sketch_chunks_async` for the small-file
-    batcher's multi-chunk files).  On a mesh (parallel/mesh.py) the chunks
-    go round-robin over its cards, each into its own registers, merged on
-    the first card at the end of the stream."""
+def sketch_chunk_stream(chunks: Iterable, params: SketchParams, p: int,
+                        device: torch.device, packed: bool) -> torch.Tensor:
+    """The chunk loop: fold a stream of (rows, C) ASCII tiles into (2^p,)
+    int32 registers on `device`, not synchronised (JAX
+    `_sketch_chunk_stream`), round-robin over a mesh's cards.  `packed`
+    (packed_ok's answer): each tile is packed on the host for K1, unless
+    it comes as a (codes, validity bits) pair; else tile_to_registers."""
     sp = check_supported(params)
-    if packed_ok(params, sp, p):
-        return _fold_packed((_pack_tile_host(t) for t in chunks), params,
-                            sp, p, device)
-    devs = mesh.cards(device)
-    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
-    kw = _encode_kw(params, sp)
-    for i, tile in enumerate(chunks):
-        d = i % len(devs)
-        with metrics.accum("sketch.dispatch", items=tile.nbytes):
-            tile_to_registers(_upload(tile, device=devs[d])[0], regs[d],
-                              **kw, p=p)
-    return mesh.max_merge(regs)
 
+    def fold(chunk, card, regs):
+        if packed and not isinstance(chunk, tuple):
+            chunk = _pack_tile_host(chunk)
+        up = chunk if packed else (chunk,)
+        with metrics.accum("sketch.dispatch",
+                           items=up[0].size * (4 if packed else 1)):
+            _launch(_upload(*up, device=card), regs, params, sp, p, packed)
 
-def _fold_packed(chunks: Iterable[Tuple[np.ndarray, np.ndarray]],
-                 params: SketchParams, sp: Spacer, p: int,
-                 device: torch.device) -> torch.Tensor:
-    """The packed route of sketch_chunk_stream: each (packed, vbits) chunk
-    uploaded to K1, round-robin over the mesh's cards."""
-    devs = mesh.cards(device)
-    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
-    for i, (packed, vbits) in enumerate(chunks):
-        d = i % len(devs)
-        with metrics.accum("sketch.dispatch", items=packed.size * 4):
-            packed_to_registers(*_upload(packed, vbits, device=devs[d]),
-                                regs[d], k=sp.k, p=p, canon=params.canon)
-    return mesh.max_merge(regs)
-
-
-def packs_joined(joined: np.ndarray, params: SketchParams, p: int) -> bool:
-    """Whether a whole file's join takes sketch_joined_async: the packed
-    route, and more rows than one chunk holds (a single-chunk file goes
-    to the small-file batch)."""
-    return (packed_ok(params, check_supported(params), p)
-            and joined_rows(joined.size) > MAX_ROWS)
+    return _fold_over_cards(chunks, mesh.cards(device), p, fold)
 
 
 def sketch_joined_async(joined: np.ndarray, params: SketchParams, p: int,
                         device: torch.device) -> torch.Tensor:
-    """sketch_chunk_stream of _joined_tiles(joined, halo) on the packed
-    route, each chunk of MAX_ROWS rows packed straight from the joined
-    bytes (_pack_joined_host), so no ASCII tile is made: the same chunks,
+    """The chunk loop on the packed route over _joined_tiles(joined, halo)'s
+    chunks, each of MAX_ROWS rows packed straight from the joined bytes
+    (_pack_joined_host), so no ASCII tile is made: the same chunks,
     uploads and launches in the same order, and the same registers.
     Counted in `joined_packs`, a chunk at a time."""
     sp = check_supported(params)
@@ -517,7 +589,7 @@ def sketch_joined_async(joined: np.ndarray, params: SketchParams, p: int,
             yield _pack_joined_host(joined, sp.halo, row0,
                                     min(MAX_ROWS, rows - row0))
 
-    return _fold_packed(chunks(), params, sp, p, device)
+    return sketch_chunk_stream(chunks(), params, p, device, packed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -538,19 +610,21 @@ def small_batch_size(p: int) -> int:
 
 def sketch_small_batch_async(chunks: Sequence[np.ndarray],
                              params: SketchParams, p: int,
-                             device: torch.device) -> torch.Tensor:
+                             device: torch.device, packed: bool
+                             ) -> torch.Tensor:
     """The single-chunk tiles of B files, (R_i, C) uint8 of one width C,
     -> (B, 2^p) int32 register banks on `device`, not synchronised: one
-    upload and one launch.  Row counts may differ (the JAX package stacks
-    equal shapes and pads a partial group with all-N chunks to bound its
-    jit variants; the bank vector makes both unnecessary here)."""
+    upload and one launch (the banked K1 where `packed`).  Row counts may
+    differ (the JAX package stacks equal shapes and pads a partial group
+    with all-N chunks to bound its jit variants; the bank vector makes
+    both unnecessary here)."""
     sp = check_supported(params)
     B = len(chunks)
     flat = np.concatenate(chunks) if B > 1 else chunks[0]
     bank = np.repeat(np.arange(B, dtype=np.int32),
                      [c.shape[0] for c in chunks])
     regs = torch.zeros((B, 1 << p), dtype=torch.int32, device=device)
-    if packed_ok(params, sp, p):
+    if packed:
         packed, vbits = _pack_tile_host(flat)
         with metrics.accum("sketch.dispatch", items=flat.nbytes):
             pk, vb, bk = _upload(packed, vbits, bank, device=device)
@@ -616,21 +690,15 @@ def sketch_file_hll_multik(path: str, params_list: Sequence[SketchParams],
     regs = [torch.zeros(1 << p, dtype=torch.int32, device=device)
             for _ in params_list]
     routes = [packed_ok(pa, sp, p) for pa, sp in zip(params_list, sps)]
-    for tile in _file_tiles(path, sp_big):
-        dev_packed = dev_ascii = None
-        for r, pa, sp, packed_route in zip(regs, params_list, sps, routes):
+    for tile in InputFile(0, path, sp_big).tiles():
+        ups = {}            # the chunk's upload on each route
+        for r, pa, sp, packed in zip(regs, params_list, sps, routes):
             with metrics.accum("sketch.dispatch", items=tile.nbytes):
-                if packed_route:
-                    if dev_packed is None:
-                        dev_packed = _upload(*_pack_tile_host(tile),
-                                             device=device)
-                    packed_to_registers(*dev_packed, r, k=sp.k, p=p,
-                                        canon=pa.canon)
-                else:
-                    if dev_ascii is None:
-                        dev_ascii = _upload(tile, device=device)[0]
-                    tile_to_registers(dev_ascii, r, **_encode_kw(pa, sp),
-                                      p=p)
+                if packed not in ups:
+                    ups[packed] = _upload(
+                        *(_pack_tile_host(tile) if packed else (tile,)),
+                        device=device)
+                _launch(ups[packed], r, pa, sp, p, packed)
     host = [registers_to_numpy(r) for r in regs]
     if keep_device:
         # ranks are at most 65 - p, so the clamp changes no valid register
@@ -816,16 +884,15 @@ def sketch_hll_async(tiles: Callable[[], Iterable[np.ndarray]],
     that `tiles()` yields: one pass, or the two of the count-min filter
     when `params.filtered` (its tiles take the ASCII route); on a mesh,
     round-robin over its cards."""
-    if not params.filtered:
-        return sketch_chunk_stream(tiles(), params, p, device)
     sp = check_supported(params)
+    if not params.filtered:
+        return sketch_chunk_stream(tiles(), params, p, device,
+                                   packed_ok(params, sp, p))
     # HeavyKeeper's passes run on the host, and on one card
     devs = (device,) if _use_hk() else mesh.cards(device)
-    regs = [torch.zeros(1 << p, dtype=torch.int32, device=d) for d in devs]
-    for i, (h, admitted) in enumerate(
-            _count_filtered_tiles(tiles, params, sp, device, devs)):
-        update_registers(regs[i % len(devs)], h, admitted, p)
-    return mesh.max_merge(regs)
+    return _fold_over_cards(
+        _count_filtered_tiles(tiles, params, sp, device, devs), devs, p,
+        lambda pair, card, regs: update_registers(regs, *pair, p))
 
 
 def registers_to_numpy(regs: torch.Tensor) -> np.ndarray:
@@ -840,7 +907,7 @@ def sketch_file_hll(path: str, params: SketchParams, p: int,
     device = devmod.resolve(device)
     sp = check_supported(params)
     return registers_to_numpy(sketch_hll_async(
-        lambda: _file_tiles(path, sp), params, p, device))
+        InputFile(0, path, sp).tiles, params, p, device))
 
 
 def sketch_joined_hll(joined: np.ndarray, params: SketchParams, p: int,
@@ -853,6 +920,112 @@ def sketch_joined_hll(joined: np.ndarray, params: SketchParams, p: int,
         lambda: _joined_tiles(joined, sp.halo), params, p, device))
 
 
+# ---------------------------------------------------------------------------
+# The HLL engine's entry (JAX cli/core.py `sketch_jobs`, `device_hll_run`).
+# ---------------------------------------------------------------------------
+
+def file_route(f: InputFile, filtered: bool, packed: bool, batch: int
+               ) -> str:
+    """A file's route, from its parameters and its row count alone:
+    "filtered" (count-min: two passes over its tiles), "empty" (zero
+    registers), "batch" (one chunk: the small-file batch), "joined" (more
+    than one chunk on the packed route: packed from its bytes), "stream"
+    (any other: the chunk loop over its tiles)."""
+    if filtered:
+        return "filtered"
+    if f.joined is None:
+        return "stream"
+    rows = joined_rows(f.joined.size)
+    if rows == 0:
+        return "empty"
+    if rows <= MAX_ROWS:
+        return "batch" if batch else "stream"
+    return "joined" if packed else "stream"
+
+
+def sketch_hll_files(indexed_paths: Sequence[Tuple[int, str]],
+                     params: SketchParams, p: int, device: torch.device, *,
+                     filtered=(), land: Callable[[int, np.ndarray], None]
+                     ) -> None:
+    """The HLL sketch engine: (index, path) pairs -> land(index, (2^p,)
+    uint8 registers) as each file lands.  The files whose index is in
+    `filtered` are count-min filtered at params' threshold (none at 1 or
+    less).  Up to small_batch_size(p) consecutive single-chunk files of
+    one tile width fold in one launch, the batches round-robin over the
+    mesh's cards; an empty file lands zero registers without closing the
+    batch (the JAX package also closes one on a change of row count).
+    Jobs stay queued on the device until more than window_cap files,
+    about 256 MiB of registers, are in flight (the JAX package's bounded
+    window); then the oldest is pulled.  Strictly more: at a full batch of
+    window_cap files `>=` would pull the job just queued and serialise the
+    host parse with the device."""
+    sp = check_supported(params)
+    packed = packed_ok(params, sp, p)
+    plain = dataclasses.replace(params, use_counting_filter=False)
+    fparams = dataclasses.replace(params, use_counting_filter=True)
+    if not fparams.filtered:
+        filtered = ()
+    batch = small_batch_size(p)
+    cards = itertools.cycle(mesh.cards(device))
+    window_cap = max(4, min(64, (256 << 20) // (4 << p)))
+    queued: deque = deque()
+    inflight = 0
+    ids, chunks = [], []        # the open batch: indices, tiles
+
+    def drain():
+        nonlocal inflight
+        job_ids, dev = queued.popleft()
+        inflight -= len(job_ids)
+        if dev is None:
+            regs = np.zeros(1 << p, np.uint8)
+        else:
+            with metrics.accum("sketch.pull"):
+                regs = registers_to_numpy(dev)
+        for i, r in zip(job_ids, regs.reshape(len(job_ids), -1)):
+            land(i, r)
+
+    def push(job_ids, dev):
+        nonlocal inflight
+        queued.append((job_ids, dev))
+        inflight += len(job_ids)
+        while inflight > window_cap and queued:
+            drain()
+
+    def flush():
+        if ids:
+            job = tuple(ids), sketch_small_batch_async(
+                chunks, plain, p, next(cards), packed)
+            ids.clear()
+            chunks.clear()
+            push(*job)
+
+    for f in prefetch(indexed_paths, sp):
+        route = file_route(f, f.index in filtered, packed, batch)
+        if route == "empty":
+            push((f.index,), None)
+        elif route == "batch":
+            tile, = f.tiles()
+            if chunks and chunks[0].shape[1] != tile.shape[1]:
+                flush()
+            ids.append(f.index)
+            chunks.append(tile)
+            if len(ids) >= batch:
+                flush()
+        else:
+            flush()
+            if route == "filtered":
+                dev = sketch_hll_async(f.tiles, fparams, p, device)
+            elif route == "joined":
+                dev = sketch_joined_async(f.joined, plain, p, device)
+            else:
+                dev = sketch_chunk_stream(f.tiles(), plain, p, device,
+                                          packed)
+            push((f.index,), dev)
+    flush()
+    while queued:
+        drain()
+
+
 def file_kmer_hashes(path: str, params: SketchParams,
                      device: torch.device, tiles=None) -> np.ndarray:
     """Every valid window's hash of a path (the raw k-mer when not
@@ -861,8 +1034,7 @@ def file_kmer_hashes(path: str, params: SketchParams,
     yields the path's tiles (a prefetched parse)."""
     device = devmod.resolve(device)
     sp = check_supported(params)
-    if tiles is None:
-        tiles = lambda: _file_tiles(path, sp)  # noqa: E731
+    tiles = tiles or InputFile(0, path, sp).tiles
     if params.filtered:
         pairs = _count_filtered_tiles(tiles, params, sp, device)
     else:
@@ -889,8 +1061,7 @@ def file_raw_kmers(path: str, params: SketchParams,
 def _hashed_tiles(path: str, params: SketchParams, device: torch.device,
                   tiles):
     sp = check_supported(params)
-    if tiles is None:
-        tiles = lambda: _file_tiles(path, sp)  # noqa: E731
+    tiles = tiles or InputFile(0, path, sp).tiles
     kw = _encode_kw(dataclasses.replace(params, rehash=True), sp)
     for tile in tiles():
         with metrics.accum("sketch.dispatch", items=tile.nbytes):
@@ -980,7 +1151,7 @@ def sketch_file_wj_hll(path: str, params: SketchParams, p: int,
     sp = check_supported(params)
     if params.filtered:
         return None
-    chunks = list(tiles() if tiles is not None else _file_tiles(path, sp))
+    chunks = list((tiles or InputFile(0, path, sp).tiles)())
     windows = sum(t.size for t in chunks)
     if not wj_device_fits(windows, device):
         return None
@@ -1104,11 +1275,10 @@ def seq_kmer_hashes(seq: bytes, params: SketchParams,
 
 def sketch_file_seq(seq: bytes, params: SketchParams, p: int,
                     device: torch.device) -> np.ndarray:
-    """One long sequence -> 2^p uint8 registers, tile by tile."""
-    device = devmod.resolve(device)
-    sp = check_supported(params)
-    tiles = _joined_tiles(np.frombuffer(seq, np.uint8), sp.halo)
-    return registers_to_numpy(sketch_chunk_stream(tiles, params, p, device))
+    """One long sequence -> 2^p uint8 registers, tile by tile, unfiltered."""
+    return sketch_joined_hll(
+        np.frombuffer(seq, np.uint8),
+        dataclasses.replace(params, use_counting_filter=False), p, device)
 
 
 # ---------------------------------------------------------------------------

@@ -164,7 +164,8 @@ def test_small_batch_matches_jax(rng, name, p):
               for _ in range(B)]
     width = max(c.shape[1] for c in chunks)
     assert all(c.shape[1] == width for c in chunks)
-    got = pipeline.sketch_small_batch_async(chunks, params, p, CPU)
+    packed = pipeline.packed_ok(params, params.spacer(), p)
+    got = pipeline.sketch_small_batch_async(chunks, params, p, CPU, packed)
     want = np.asarray(jpipe.sketch_small_batch_async(
         np.stack(chunks), jparams, p))
     assert got.shape == (B, 1 << p)
@@ -184,7 +185,9 @@ def test_small_batch_mixed_rows_and_empty(rng, name):
               np.full_like(_chunk(rng, 1, params, tail=100), ord("N")),
               _chunk(rng, 2, params, tail=pipeline.CONTENT + 5)]
     assert [c.shape[0] for c in chunks] == [1, 3, 1, 2]
-    got = pipeline.sketch_small_batch_async(chunks, params, p, CPU).numpy()
+    packed = pipeline.packed_ok(params, params.spacer(), p)
+    got = pipeline.sketch_small_batch_async(chunks, params, p, CPU,
+                                            packed).numpy()
     for j, c in enumerate(chunks):
         want = np.asarray(jpipe._sketch_chunk_stream([c], jparams, p))
         np.testing.assert_array_equal(got[j], want)

@@ -1,7 +1,7 @@
 """The sketch cache and the sketch engine around it on the CPU: `dist -W`
 cache files named and filled as the JAX CLI's, `sketch -c` skipping cached
 files, the joined-bytes cache, the device rows mkdist parks, and the
-bounded window of jobs in flight (cli/core.device_hll_run)."""
+bounded window of jobs in flight (pipeline.sketch_hll_files)."""
 import gzip
 import os
 
@@ -83,14 +83,14 @@ def test_cache_files_match_jax_cli(files, tmp_path, cpu_env):
     # the second run: every sketch from the cache, no sketching at all
     again = str(tmp_path / "again.bin")
     calls = []
-    orig = core.device_hll_jobs
-    core.device_hll_jobs = lambda todo, *a, **kw: (calls.append(len(todo))
-                                                   or orig(todo, *a, **kw))
+    orig = pipeline.sketch_hll_files
+    pipeline.sketch_hll_files = lambda todo, *a, **kw: (
+        calls.append(len(todo)) or orig(todo, *a, **kw))
     try:
         assert tmain.main(args + ["-P", str(tmp_path / "port"), "-O", again]
                           + files) == 0
     finally:
-        core.device_hll_jobs = orig
+        pipeline.sketch_hll_files = orig
     assert calls == [0]
     assert open(again, "rb").read() == open(mats["port"], "rb").read()
 

@@ -57,10 +57,11 @@ def test_launches_run_on_their_card(cuda, monkeypatch):
     rng = np.random.default_rng(1)
     tile = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(8, 4096))
     params = pipeline.SketchParams(k=21)
-    regs = pipeline.sketch_chunk_stream([tile], params, 12, cuda)
+    regs = pipeline.sketch_chunk_stream([tile], params, 12, cuda, True)
     pipeline.sketch_chunk_stream([tile], pipeline.SketchParams(k=21, w=25),
-                                 12, cuda)
-    pipeline.sketch_small_batch_async([tile[:4], tile[4:]], params, 12, cuda)
+                                 12, cuda, False)
+    pipeline.sketch_small_batch_async([tile[:4], tile[4:]], params, 12, cuda,
+                                      True)
     hlls = [HLL(12, regs=pipeline.registers_to_numpy(regs))] * 3
     for jestim in (est.ERTL_MLE, est.ERTL_JOINT_MLE):
         pw.all_pairs_condensed(hlls, pw.JI, 21, est.ERTL_MLE, jestim, cuda)

@@ -146,7 +146,8 @@ def test_streamed_file_matches_whole_file(rng, tmp_path, monkeypatch):
                                      torch.device("cpu"))
     monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
     assert pipeline.should_stream(str(path))
-    streamed = list(pipeline._file_tiles(str(path), params.spacer()))
+    streamed = list(pipeline.InputFile(
+        0, str(path), params.spacer()).tiles())
     assert len(streamed) > 3 and all(t.shape[0] <= 4 for t in streamed)
     got = pipeline.sketch_file_hll(str(path), params, 12, torch.device("cpu"))
     assert whole.any()

@@ -265,8 +265,8 @@ def test_entropy_without_window_equals_packed_route(rng):
     tiles = [_tile(rng), _tile(rng)]
     dev = torch.device("cpu")
     got = pipeline.sketch_chunk_stream(
-        tiles, pipeline.SketchParams(k=21, entropy=True), 10, dev)
+        tiles, pipeline.SketchParams(k=21, entropy=True), 10, dev, False)
     want = pipeline.sketch_chunk_stream(
-        tiles, pipeline.SketchParams(k=21), 10, dev)
+        tiles, pipeline.SketchParams(k=21), 10, dev, True)
     assert int((want > 0).sum()) > 0
     assert torch.equal(got, want)

@@ -150,7 +150,7 @@ def test_hk_registers_equal_jax(files, monkeypatch, fmt, streamed, budget):
         monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
         monkeypatch.setattr(pipeline, "MAX_ROWS", 2)
     sp = pipeline.SketchParams(**kw).spacer()
-    tiles = list(pipeline._file_tiles(path, sp))
+    tiles = list(pipeline.InputFile(0, path, sp).tiles())
     assert len(tiles) >= (3 if streamed else 1)
     cost = {"none": 0, "some": 2 * tiles[0].size * 9, "all": 1 << 62}
     monkeypatch.setattr(pipeline, "_CM_HASH_CACHE_BYTES", cost[budget])

@@ -1,25 +1,18 @@
-"""dashing_tpu_torch.parallel.mesh: its functions on (cpu,) * 8 against the
-JAX package's on the 8-device virtual mesh of tests/conftest.py
-(sharded_sketch_step and sharded_union bitwise, sharded_pair_tile's
-measures at rtol 1e-4, the cross-package bar), and every production hook
-with the mesh pinned to (cpu,) * 4 bitwise equal to the mesh off, with
-the work seen to spread over the four: the chunk stream (packed and
-ASCII routes), the count-min filtered passes, the small-file batches, the
-condensed / rect / triples / k-NN / full-square compares (tiles of 2
-rows), as tests/test_mesh_production.py holds the JAX package's; and
-`union`, which folds on the host and leaves the mesh alone."""
+"""dashing_tpu_torch.parallel.mesh: the local mesh's rules, and every
+production hook with the mesh pinned to (cpu,) * 4 bitwise equal to the
+mesh off, with the work seen to spread over the four: the chunk stream
+(packed and ASCII routes), the count-min filtered passes, the small-file
+batches, the condensed / rect / triples / k-NN / full-square compares
+(tiles of 2 rows), as tests/test_mesh_production.py holds the JAX
+package's; and `union`, which folds on the host and asks the mesh for no
+card."""
 import contextlib
 import gzip
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dashing_tpu.ops import pairwise as jpw
-from dashing_tpu.ops.encode import tile_sequence
-from dashing_tpu.parallel import mesh as jmesh
 from dashing_tpu_torch import pipeline
 from dashing_tpu_torch.cli import core
 from dashing_tpu_torch.cli import main as tmain
@@ -29,7 +22,6 @@ from dashing_tpu_torch.sketch import estimators as est
 from dashing_tpu_torch.sketch.hll import HLL
 
 CPU = torch.device("cpu")
-CPU8 = (CPU,) * 8
 CPU4 = (CPU,) * 4
 
 
@@ -67,68 +59,6 @@ def test_local_mesh_rules(monkeypatch):
     with pinned(CPU4):
         assert tmesh.local_mesh() == CPU4 and tmesh.cards(CPU) == CPU4
     assert tmesh.cards(CPU) == (CPU,)
-
-
-def test_make_mesh_grid():
-    assert tmesh.make_mesh(8, devices=CPU8) == CPU8
-    grid = tmesh.make_mesh(8, ("i", "j"), devices=CPU8)
-    jgrid = jmesh.make_mesh(8, ("i", "j"))
-    assert (len(grid), len(grid[0])) == jgrid.devices.shape == (2, 4)
-    assert len(tmesh.make_mesh(6, ("i", "j"), devices=CPU8)) == 2
-    with pytest.raises(ValueError):
-        tmesh.make_mesh(9, devices=CPU8)
-
-
-def test_sharded_sketch_step_matches_jax(rng):
-    k, p = 15, 11
-    seq = rng.choice(list(b"ACGT"), size=40000).astype(np.uint8)
-    tiles = tile_sequence(seq, 1024, k - 1)
-    tiles = tiles[:(tiles.shape[0] // 8) * 8]
-    m8 = jmesh.make_mesh(8, ("d",))
-    want = np.asarray(jmesh.sharded_sketch_step(m8, k=k, p=p)(
-        jmesh.shard_rows(m8, jnp.asarray(tiles)),
-        jnp.zeros(1 << p, jnp.int32)))
-    step = tmesh.sharded_sketch_step(CPU8, k=k, p=p)
-    got = step(tmesh.shard_rows(CPU8, tiles),
-               torch.zeros(1 << p, dtype=torch.int32))
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert (want > 0).all()
-
-
-def test_sharded_union_matches_jax(rng):
-    regs = rng.integers(0, 40, size=(13, 1 << 10)).astype(np.int32)
-    m8 = jmesh.make_mesh(8, ("d",))
-    pad = np.concatenate([regs, np.zeros((3, regs.shape[1]), np.int32)])
-    want = np.asarray(jmesh.sharded_union(m8)(
-        jmesh.shard_rows(m8, jnp.asarray(pad))))
-    got = tmesh.sharded_union(CPU8)(tmesh.shard_rows(CPU8, regs))
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(want, regs.max(axis=0))
-
-
-@pytest.mark.parametrize("jestim", [est.ERTL_MLE, est.ERTL_JOINT_MLE])
-def test_sharded_pair_tile_matches_jax(rng, jestim):
-    p = 10
-    regs = np.stack([h.regs for h in _hlls(rng, 8, p)]).astype(np.int32)
-    kmax = int(regs.max()) + 1
-    grid = jmesh.make_mesh(8, ("i", "j"))
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    a = jax.device_put(jnp.asarray(regs), NamedSharding(grid, P("i", None)))
-    b = jax.device_put(jnp.asarray(regs), NamedSharding(grid, P("j", None)))
-    want = np.asarray(jmesh.sharded_pair_tile(
-        grid, p=p, kmax=kmax, result_type=jpw.JI, ksinv=1 / 21,
-        estim=est.ERTL_MLE, jestim=jestim)(a, b))
-    step = tmesh.sharded_pair_tile(
-        tmesh.make_mesh(8, ("i", "j"), devices=CPU8), p=p, kmax=kmax,
-        result_type=pw.JI, ksinv=1 / 21, estim=est.ERTL_MLE, jestim=jestim)
-    t = torch.from_numpy(regs)
-    got = step(t, t).numpy()
-    assert got.shape == (8, 8)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
-    # each grid cell's block is the one-tile compare's
-    one = pw.compare_tile(t.to(torch.int8), t.to(torch.int8), p, pw.JI,
-                          1 / 21, est.ERTL_MLE, jestim, kmax, 0).numpy()
-    np.testing.assert_array_equal(got, one)
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +137,9 @@ def test_small_batches_on_mesh(tmp_path, rng, monkeypatch):
     devs = []
     orig = pipeline.sketch_small_batch_async
 
-    def spy(chunks, params, p, device):
+    def spy(chunks, params, p, device, packed):
         devs.append(device)
-        return orig(chunks, params, p, device)
+        return orig(chunks, params, p, device, packed)
     monkeypatch.setattr(pipeline, "sketch_small_batch_async", spy)
     with pinned(CPU4):
         on = [h.regs for h in core.sketch_paths(paths, opts, CPU)]
@@ -275,12 +205,12 @@ def test_union_on_mesh(tmp_path, rng, monkeypatch, capsys):
         paths.append(str(tmp_path / f"u{i}.hll"))
         h.write(paths[-1])
     calls = []
-    orig = tmesh.sharded_union
+    orig = tmesh.cards
 
-    def spy(mesh):
-        calls.append(mesh)
-        return orig(mesh)
-    monkeypatch.setattr(tmesh, "sharded_union", spy)
+    def spy(device):
+        calls.append(device)
+        return orig(device)
+    monkeypatch.setattr(tmesh, "cards", spy)
     assert tmain.main(["union", "-o", str(tmp_path / "off.hll")]
                       + paths) == 0
     with pinned(CPU4):

@@ -175,6 +175,7 @@ def test_stream_folds_chunks_in_place(rng):
     for t in tiles:
         h, valid = pipeline.tile_hashes(torch.from_numpy(t), **kw)
         pipeline.update_registers(want, h, valid, 12)
-    got = pipeline.sketch_chunk_stream(tiles, params, 12, torch.device("cpu"))
+    got = pipeline.sketch_chunk_stream(tiles, params, 12, torch.device("cpu"),
+                                       False)
     assert int((want > 0).sum()) > 0
     assert torch.equal(got, want)

@@ -15,7 +15,6 @@ import jax  # noqa: F401  (tests/conftest.py keeps JAX on the CPU)
 
 from dashing_tpu.cli import main as jmain
 from dashing_tpu_torch import pipeline
-from dashing_tpu_torch.cli import core
 from dashing_tpu_torch.cli import main as tmain
 from dashing_tpu_torch.io import distmat
 
@@ -87,10 +86,10 @@ def test_mkdist_per_k_equals_dist(genomes, cpu_env, monkeypatch):
     monkeypatch.setattr(pipeline, "sketch_file_hll_multik",
                         lambda path, pl, *a, **kw: multik.append(len(pl))
                         or real_mk(path, pl, *a, **kw))
-    real_jobs = core.device_hll_jobs
-    monkeypatch.setattr(core, "device_hll_jobs",
+    real_files = pipeline.sketch_hll_files
+    monkeypatch.setattr(pipeline, "sketch_hll_files",
                         lambda todo, *a, **kw: per_k.append(len(todo))
-                        or real_jobs(todo, *a, **kw))
+                        or real_files(todo, *a, **kw))
     made = []
     real_tmp = tmain.tempfile.mkdtemp
     monkeypatch.setattr(tmain.tempfile, "mkdtemp",

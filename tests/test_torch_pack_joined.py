@@ -153,14 +153,15 @@ def test_sketch_joined_uploads_what_tiles_upload(monkeypatch, rng):
         uploads.append([a.copy() for a in arrays])
         return orig(*arrays, device=device)
     monkeypatch.setattr(pipeline, "_upload", spy)
-    assert pipeline.packs_joined(joined, params, 12)
+    f = pipeline.InputFile(0, "joined", params.spacer(), joined)
+    assert pipeline.file_route(f, False, True, 64) == "joined"
     before = pipeline.joined_packs
     got = pipeline.registers_to_numpy(
         pipeline.sketch_joined_async(joined, params, 12, CPU))
     assert pipeline.joined_packs - before == 3
     fused, uploads[:] = list(uploads), []
     want = pipeline.registers_to_numpy(pipeline.sketch_chunk_stream(
-        pipeline._joined_tiles(joined, halo), params, 12, CPU))
+        f.tiles(), params, 12, CPU, True))
     np.testing.assert_array_equal(got, want)
     assert got.any()
     assert len(fused) == len(uploads) == 3
@@ -217,7 +218,12 @@ def _write_genomes(root, rng, length, n=3):
 def _ascii_tiles_only(monkeypatch):
     """From here on, every file is tiled and then packed, as before the
     route read the joined bytes."""
-    monkeypatch.setattr(pipeline, "packs_joined", lambda *a: False)
+    route = pipeline.file_route
+
+    def tiled(*a):
+        r = route(*a)
+        return "stream" if r == "joined" else r
+    monkeypatch.setattr(pipeline, "file_route", tiled)
 
 
 def _dist(argv, out):

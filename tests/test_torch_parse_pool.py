@@ -1,4 +1,4 @@
-"""The parse prefetch of the CLI (`cli/core._prefetched_tiles`) on the CPU:
+"""The sketch engine's parse prefetch (`pipeline.prefetch`) on the CPU:
 its workers come from the CPUs the process may use (two at most, one kept
 for the dispatching thread), files come back in index order whatever order
 their parses end in, a parse error is raised at its own file, stopping
@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 
 from dashing_tpu_torch import pipeline
-from dashing_tpu_torch.cli import core
 
 SP = pipeline.SketchParams(k=21).spacer()
 
@@ -21,7 +20,7 @@ SP = pipeline.SketchParams(k=21).spacer()
 def cpus(monkeypatch):
     """Set the CPUs the process may use."""
     def set_count(n):
-        monkeypatch.setattr(core.os, "sched_getaffinity",
+        monkeypatch.setattr(pipeline.os, "sched_getaffinity",
                             lambda pid: set(range(n)))
     return set_count
 
@@ -30,7 +29,7 @@ def cpus(monkeypatch):
                                        (64, 2)])
 def test_workers_from_affinity(cpus, n, workers):
     cpus(n)
-    assert core.parse_workers() == workers
+    assert pipeline.parse_workers() == workers
 
 
 class FakeParse:
@@ -70,14 +69,15 @@ def test_index_order_with_two_workers(monkeypatch, cpus):
     delays = [0.12, 0.01, 0.08, 0.01, 0.05, 0.0, 0.02, 0.0]
     parse = FakeParse(delays)
     _pool(monkeypatch, parse)
-    before = core.parse_overlaps
+    before = pipeline.parse_overlaps
     got = []
-    for i, tiles, joined in core._prefetched_tiles(_files(len(delays)), SP):
-        np.testing.assert_array_equal(joined, np.full(i + 1, i, np.uint8))
-        got.append(i)
+    for f in pipeline.prefetch(_files(len(delays)), SP):
+        np.testing.assert_array_equal(f.joined,
+                                      np.full(f.index + 1, f.index, np.uint8))
+        got.append(f.index)
     assert got == list(range(len(delays)))
     assert sorted(parse.begun) == got
-    assert core.parse_overlaps - before > 0
+    assert pipeline.parse_overlaps - before > 0
 
 
 def test_error_at_its_own_file(monkeypatch, cpus):
@@ -86,8 +86,8 @@ def test_error_at_its_own_file(monkeypatch, cpus):
     cpus(4)
     parse = FakeParse([0.1, 0.05, 0.0, 0.0, 0.0], fail={2})
     _pool(monkeypatch, parse)
-    gen = core._prefetched_tiles(_files(5), SP)
-    assert [next(gen)[0], next(gen)[0]] == [0, 1]
+    gen = pipeline.prefetch(_files(5), SP)
+    assert [next(gen).index, next(gen).index] == [0, 1]
     with pytest.raises(ValueError, match="2: malformed"):
         next(gen)
 
@@ -98,8 +98,8 @@ def test_early_stop_cancels_outstanding(monkeypatch, cpus):
     cpus(4)
     parse = FakeParse([0.05] + [1.0] * 11)
     _pool(monkeypatch, parse)
-    gen = core._prefetched_tiles(_files(12), SP)
-    assert next(gen)[0] == 0
+    gen = pipeline.prefetch(_files(12), SP)
+    assert next(gen).index == 0
     # files 0-3 were submitted; 1 is running, 2 may have begun, 3 waits
     # for a worker until file 1 ends, and is cancelled; the pool's threads
     # have ended when close() returns
@@ -109,13 +109,13 @@ def test_early_stop_cancels_outstanding(monkeypatch, cpus):
 
 def test_one_cpu_one_worker_no_overlap(monkeypatch, cpus):
     cpus(1)
-    assert core.parse_workers() == 1
+    assert pipeline.parse_workers() == 1
     parse = FakeParse([0.02] * 6)
     _pool(monkeypatch, parse)
-    before = core.parse_overlaps
-    got = [i for i, _, _ in core._prefetched_tiles(_files(6), SP)]
+    before = pipeline.parse_overlaps
+    got = [f.index for f in pipeline.prefetch(_files(6), SP)]
     assert got == list(range(6)) and parse.begun == got
-    assert core.parse_overlaps == before
+    assert pipeline.parse_overlaps == before
 
 
 def test_streamed_file_has_no_join(monkeypatch, cpus, tmp_path):
@@ -125,11 +125,11 @@ def test_streamed_file_has_no_join(monkeypatch, cpus, tmp_path):
     path = tmp_path / "a.fa"
     path.write_bytes(b">a\n" + b"ACGT" * 3000 + b"\n")
     monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
-    (i, tiles, joined), = core._prefetched_tiles([(0, str(path))], SP)
-    assert i == 0 and joined is None
+    f, = pipeline.prefetch([(0, str(path))], SP)
+    assert f.index == 0 and f.joined is None
     want = list(pipeline._joined_tiles(
         pipeline._read_joined(str(path), SP.halo), SP.halo))
-    got = list(tiles())
+    got = list(f.tiles())
     assert len(got) == len(want) == 1
     np.testing.assert_array_equal(got[0], want[0])
 
@@ -144,13 +144,13 @@ def test_overlap_count_under_switches(monkeypatch):
         return np.zeros(1, np.uint8)
 
     monkeypatch.setattr(pipeline, "_read_joined", parse)
-    before = core.parse_overlaps
+    before = pipeline.parse_overlaps
     start = threading.Barrier(16)
 
     def work():
         start.wait(timeout=10)
         for _ in range(200):
-            core._parse("x", SP.halo)
+            pipeline._parse("x", SP.halo)
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -163,5 +163,5 @@ def test_overlap_count_under_switches(monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
-    assert core._parsing == 0
-    assert 0 < core.parse_overlaps - before < 16 * 200
+    assert pipeline._parsing == 0
+    assert 0 < pipeline.parse_overlaps - before < 16 * 200

@@ -148,7 +148,7 @@ def test_filter_tile_counters(tmp_path, monkeypatch, budget):
     monkeypatch.setattr(pipeline, "MAX_ROWS", 2)
     params = pipeline.SketchParams(k=K, use_counting_filter=True,
                                    min_count=2, cm_size_log2=SIZE)
-    tiles = list(pipeline._file_tiles(path, params.spacer()))
+    tiles = list(pipeline.InputFile(0, path, params.spacer()).tiles())
     assert len(tiles) >= 5
     cost = tiles[0].size * 9
     cap = {"none": 0, "two tiles": 2 * cost, "all": 1 << 62}[budget]
