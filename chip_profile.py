@@ -21,8 +21,9 @@ torch.profiler (not with --no-trace):
              100 bases, default 1 M), plain and count-min filtered (-b -n 2
              -q 28), with the buckets of each run: host.parse,
              sketch.cm_count and sketch.cm_admit (the host wall of each
-             pass); then the count-min's PyTorch ops on one
-             of the file's 256-row tiles, timed alone with CUDA events;
+             pass); then the count-min kernels (csrc/countmin.cu) on one
+             of the file's 256-row tiles, into the table a pass over the
+             file leaves, and its upload, timed with CUDA events;
   rect       chip_smoke.py's e2e (g) shapes: first both K4 forms on its
              1000 x 500 reference x query tile and on the transpose, kernel
              alone; then its 1000 p=14 reference .hll files and 500 queries, `dist -k 31 -H -Q q.txt -M -b` and
@@ -222,7 +223,7 @@ def fastq(dev, reps: int, reads: int, trace: bool) -> None:
     import chip_smoke
     from dashing_tpu_torch import metrics, pipeline
     from dashing_tpu_torch.cli.main import main
-    from dashing_tpu_torch.ops.hll_update import update_registers
+    from dashing_tpu_torch.ops import countmin
     rng = np.random.default_rng(chip_smoke.SEED + 3)
     tmp = tempfile.mkdtemp(prefix="dtt_profile_fq_")
     try:
@@ -252,49 +253,42 @@ def fastq(dev, reps: int, reads: int, trace: bool) -> None:
             if trace:
                 traced(f"fastq {label}", run)
                 buckets()
-        # the count-min's PyTorch ops alone, on one full tile of the file
+        # the count-min kernels alone, on one full tile of the file, into
+        # the table the filtered sketch's first pass would leave
         params = pipeline.SketchParams(
             k=31, use_counting_filter=True, min_count=2,
             cm_size_log2=chip_smoke.FQ_CM_LOG2)
         sp = params.spacer()
-        kw = pipeline._encode_kw(params, sp)
         tiles = pipeline.InputFile(0, fq, sp).tiles()
         tile = next(tiles)
-        ntiles = 1 + sum(1 for _ in tiles)
-        nh, size, seed = params.cm_nhashes, params.cm_size_log2, params.cm_seed
-        up = torch.from_numpy(tile).to(dev)
-        h, valid = pipeline.tile_hashes(up, **kw)
-        counts = torch.zeros((nh, 1 << size), dtype=torch.int32, device=dev)
+        ups = [torch.from_numpy(tile).to(dev)]
+        ups += [torch.from_numpy(t).to(dev) for t in tiles]
+        kw = dict(k=31, canon=True, nh=params.cm_nhashes,
+                  size_log2=params.cm_size_log2, seed=params.cm_seed)
+        counts = torch.zeros((kw["nh"], 1 << kw["size_log2"]),
+                             dtype=torch.int32, device=dev)
+        for up in ups:
+            countmin.ascii_cm_add(up, counts, **kw)
         regs = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+        up = ups[0]
         times = {
             "upload": chip_smoke.cuda_ms(
                 lambda: torch.from_numpy(tile).to(dev), 20),
-            "tile_hashes": chip_smoke.cuda_ms(
-                lambda: pipeline.tile_hashes(up, **kw), 20),
-            "_cm_add": chip_smoke.cuda_ms(
-                lambda: pipeline._cm_add(counts, h, valid, nh, size, seed), 20),
-            "_cm_query": chip_smoke.cuda_ms(
-                lambda: pipeline._cm_query(counts, h, nh, size, seed), 20),
-            "update_registers": chip_smoke.cuda_ms(
-                lambda: update_registers(regs, h, valid, 16), 20),
+            "cm_add_kernel": chip_smoke.cuda_ms(
+                lambda: countmin.ascii_cm_add(up, counts, **kw), 20),
+            "cm_admit_kernel": chip_smoke.cuda_ms(
+                lambda: countmin.ascii_cm_admit(up, counts, regs,
+                                                min_count=2, p=16, **kw),
+                20),
         }
-        # the counting op alone, one row, against scatter_add_ on the same
-        # indices (both exact int32 atomics)
-        row = pipeline._cm_indices(h, 1, size, seed)[0].reshape(-1)
-        ones = valid.reshape(-1).to(torch.int32)
-        times["index_add_ row"] = chip_smoke.cuda_ms(
-            lambda: counts[0].index_add_(0, row, ones), 20)
-        times["scatter_add_ row"] = chip_smoke.cuda_ms(
-            lambda: counts[0].scatter_add_(0, row, ones), 20)
-        per_pass = (times["upload"] + times["tile_hashes"] + times["_cm_add"],
-                    times["upload"] + times["tile_hashes"] + times["_cm_query"]
-                    + times["update_registers"])
-        log(f"[fastq cm ops] one {tile.shape[0]}x{tile.shape[1]} tile of "
-            f"{ntiles}, ms: " + ", ".join(f"{k} {v:.4f}"
-                                         for k, v in times.items())
-            + f"; so about {per_pass[0] * ntiles / 1e3:.3f}s of device work "
-            f"in the counting pass and {per_pass[1] * ntiles / 1e3:.3f}s in "
-            "the admitting pass, every tile hashed anew")
+        per_pass = (times["upload"] + times["cm_add_kernel"],
+                    times["upload"] + times["cm_admit_kernel"])
+        log(f"[fastq cm kernels] one {tile.shape[0]}x{tile.shape[1]} tile of "
+            f"{len(ups)}, ms: " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in times.items())
+            + f"; so about {per_pass[0] * len(ups) / 1e3:.3f}s of device "
+            f"work with the uploads in the counting pass and "
+            f"{per_pass[1] * len(ups) / 1e3:.3f}s in the admitting pass")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

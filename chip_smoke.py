@@ -32,6 +32,14 @@ Phases, each printing its own lines with seconds:
               chunk (256 x 8248, k31 w50 p16) and k21 w40 p14; timed
               alone, into filled registers and as launched, beside the
               plain version and the bound
+     countmin the count-min filter's two kernels (csrc/countmin.cu) at the
+              read-set cell's tile (256 rows of CONTENT + 30 bases of
+              100-base reads, k31, 4 x 2^28 counters, p16, min count 2):
+              table and registers bitwise the plain chain's; then each
+              timed alone and as launched against a table already filled
+              by a pass over ~65x coverage of reads, beside the plain
+              chain and the bound (sector traffic of the valid windows'
+              row-updates, or their operations)
   4. K3       union-MLE kernel vs its plain version on the card, 1024 x 1024
               pairs at p=14, ORIGINAL / IMPROVED / MLE: bit for bit (max
               abs err 0, non-finite entries alike) and inside the old bar
@@ -116,7 +124,8 @@ Phases, each printing its own lines with seconds:
                   four quarters, every distance below the unfiltered one;
                   the filtered registers of 20,000 reads on the card
                   bitwise equal to the CPU run.  K1, the row-estimate
-                  kernel, K4's X-only form and K3 must launch in their steps
+                  kernel, K4's X-only form and K3 must launch in their steps,
+                  and the filtered sketch each count-min kernel once a tile
               (g) query/reference dist over (d)'s files and 500 queries
                   (ten byte copies of references): -Q -M, --containment-
                   index (each copy's containment in its reference 1),
@@ -255,6 +264,9 @@ K2_REPLACES = "dashing_tpu/ops/pallas_encode.py:54"
 MIN_SRC = "dashing_tpu_torch/csrc/minimizer_hash.cu"
 MIN_REPLACES = ("none: XLA code (dashing_tpu/pipeline.py _tile_to_registers "
                 "under -w)")
+CM_SRC = "dashing_tpu_torch/csrc/countmin.cu"
+CM_REPLACES = ("none: XLA scatter and gather (dashing_tpu/pipeline.py "
+               "_cm_add, _cm_query)")
 K3_SRC = "dashing_tpu_torch/csrc/union_mle.cu"
 K3_REPLACES = "dashing_tpu/ops/pallas_mle.py:77"
 ROWS_SRC = "dashing_tpu_torch/csrc/estimate_rows.cu"
@@ -378,12 +390,12 @@ def phase_build():
     """Build every kernel library at once (one nvcc each, in parallel),
     then print ptxas's report for each kernel."""
     from concurrent.futures import ThreadPoolExecutor
-    from dashing_tpu_torch.ops import (_build, encode_hash, joint_mle,
-                                       joint_stats, minimizer_hash,
-                                       union_mle)
+    from dashing_tpu_torch.ops import (_build, countmin, encode_hash,
+                                       joint_mle, joint_stats,
+                                       minimizer_hash, union_mle)
     t0 = time.perf_counter()
     builds = [m._lib for m in (encode_hash, union_mle, joint_stats,
-                               joint_mle, minimizer_hash)] + [
+                               joint_mle, minimizer_hash, countmin)] + [
                                    union_mle._rows_lib, _b1_lib]
     with ThreadPoolExecutor(len(builds)) as ex:
         for f in [ex.submit(b) for b in builds]:
@@ -400,6 +412,7 @@ def phase_build():
     nvcc = _build.nvcc()
     _sass_report(encode_hash._lib()._name, nvcc)
     _sass_report(minimizer_hash._lib()._name, nvcc)
+    _sass_report(countmin._lib()._name, nvcc)
     _sass_newton_report({"union_mle": union_mle._lib()._name,
                          "joint_mle": joint_mle._lib()._name,
                          "estimate_rows": union_mle._rows_lib()._name},
@@ -447,7 +460,8 @@ def _sass_report(so: str, nvcc: str) -> None:
     """SASS instructions of each encode/hash kernel: the whole kernel, and
     its window loop per window (the smallest backward branch span that
     holds a BREV, over its BREVs / 2: one __brevll is two); of the
-    minimizer kernel, its k-mer loop per k-mer."""
+    minimizer kernel, its k-mer loop per k-mer; of the count-min
+    kernels, the window loop (its row loop inside) per window."""
     import re
     funcs = _sass_functions(so, nvcc)
     if funcs is None:
@@ -461,6 +475,10 @@ def _sass_report(so: str, nvcc: str) -> None:
         unit = "window"
         if "minimizer_regs_kernel" in name:
             form, unit = "minimizer ascii->regs", "k-mer"
+        elif "cm_add_kernel" in name:
+            form = "count-min pass 1 ascii->counts"
+        elif "cm_admit_kernel" in name:
+            form = "count-min pass 2 ascii->regs"
         elif "banks_onchip_kernel" in name:
             form = "K1 packed->banks on chip"
         elif "encode_hash_kernel" in name:
@@ -972,6 +990,140 @@ def phase_minimizer(dev, records):
         record(records, f"minimizer_regs k={k} w={w} p={p} ({R}x{C})",
                MIN_SRC, MIN_REPLACES, "minimizer_regs", 0.0, ms, plain_ms,
                nbytes, ops, INT32_OPS)
+
+
+# Phase `countmin`: the read-set cell's filter (`sketch -b -n 2 -q 28 -H 4
+# -R 1337`, k31 p16) on one of its tiles: 100-base reads joined by 30
+# zero bytes, cut into 256 rows of CONTENT + 30 bases.  The reads come
+# from a CM_GENOME-base genome at 0.25 % substitutions, CM_FILL_READS of
+# them (~65x coverage, the cell's table has ~140x) counted before the
+# timing, so that the table holds what pass 1 leaves and most windows
+# pass pass 2's test.
+CM_K, CM_NH, CM_LOG2, CM_SEED, CM_P, CM_MIN = 31, 4, 28, 1337, 16, 2
+CM_GENOME = 1_000_000
+CM_FILL_READS = 650_000
+CM_CELL_TILES = 620          # tiles a pass of the cell's 10 M reads
+# 32-bit integer instructions a row-update of a valid window: c_r 2, h ^
+# c_r 2, WangHash in 32-bit halves 38, the shift 3, the 64-bit offset 3,
+# the atomic or load 1
+CM_ROW_OPS = 49
+# table bytes a row-update: pass 1 reads a 32-byte sector and writes it
+# back, pass 2 reads it
+CM_ADD_BYTES, CM_READ_BYTES = 64, 32
+
+
+def _cm_tiles(rng):
+    """The cell's tiles of CM_FILL_READS reads (host uint8, as
+    `pipeline._joined_tiles` cuts the join of a FASTQ file)."""
+    from dashing_tpu_torch import pipeline
+    genome = rng.integers(0, 4, CM_GENOME).astype(np.uint8)
+    starts = rng.integers(0, CM_GENOME - 100, CM_FILL_READS)
+    c = genome[starts[:, None] + np.arange(100)]
+    flip = rng.random(CM_FILL_READS) < 0.5
+    c[flip] = 3 - c[flip, ::-1]
+    hit = rng.random(c.shape) < 0.0025
+    c[hit] = (c[hit] + rng.integers(1, 4, int(hit.sum()))) & 3
+    rec = np.zeros((CM_FILL_READS, 100 + CM_K - 1), np.uint8)
+    rec[:, :100] = np.frombuffer(b"ACGT", np.uint8)[c]
+    joined = rec.reshape(-1)[:-(CM_K - 1)]
+    return list(pipeline._joined_tiles(joined, CM_K - 1))
+
+
+def _cm_rows_read(t, counts):
+    """(valid windows, admitted windows, counter reads pass 2 needs): a
+    valid window reads its rows up to the first below CM_MIN."""
+    import torch
+    from dashing_tpu_torch.ops import countmin as cm
+    from dashing_tpu_torch.ops.encode import encode_tile
+    from dashing_tpu_torch.hashes import wang_hash
+    km, valid = encode_tile(t, k=CM_K, w=CM_K, positions=range(CM_K),
+                            span=CM_K, canon=True)
+    h = wang_hash(km)[valid]
+    idx = cm.indices(h, CM_NH, CM_LOG2, CM_SEED)
+    ok = torch.stack([counts[r][idx[r]] >= CM_MIN for r in range(CM_NH)])
+    alive = torch.cumprod(ok.to(torch.int32), 0)
+    reads = h.numel() + int(alive[:-1].sum())
+    return h.numel(), int(alive[-1].sum()), reads
+
+
+def phase_countmin(dev, records):
+    """The count-min kernels vs the plain chain, bitwise, on two of the
+    cell's tiles into a fresh 4 x 2^28 table and zero registers; then,
+    with the table filled by a pass over CM_FILL_READS reads, each kernel
+    alone and as launched on the cell's tile, the plain chain's time, and
+    the bound: the larger of the table's sector traffic over HBM_BPS and
+    the operations over INT32_OPS."""
+    import torch
+    from dashing_tpu_torch.ops import countmin as cm
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 4)
+    tiles = _cm_tiles(rng)
+    R, C = tiles[0].shape
+    kw = dict(k=CM_K, canon=True, nh=CM_NH, size_log2=CM_LOG2, seed=CM_SEED)
+    shape = (CM_NH, 1 << CM_LOG2)
+    counts = torch.zeros(shape, dtype=torch.int32, device=dev)
+    plain = torch.zeros_like(counts)
+    regs = torch.zeros(1 << CM_P, dtype=torch.int32, device=dev)
+    regs_p = torch.zeros_like(regs)
+    two = [torch.from_numpy(x).to(dev) for x in tiles[:2]]
+    for x in two:
+        cm.ascii_cm_add(x, counts, **kw)
+        cm.ascii_cm_add_plain(x, plain, **kw)
+    for x in two:
+        cm.ascii_cm_admit(x, counts, regs, min_count=CM_MIN, p=CM_P, **kw)
+        cm.ascii_cm_admit_plain(x, plain, regs_p, min_count=CM_MIN, p=CM_P,
+                                **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(counts, plain):
+        fail(f"countmin: {int((counts != plain).sum())} counters differ from "
+             "the plain chain's")
+    if not torch.equal(regs, regs_p) or not (regs_p > 0).any():
+        fail(f"countmin: {int((regs != regs_p).sum())} registers differ from "
+             "the plain chain's")
+    del plain
+    torch.cuda.empty_cache()
+    for x in tiles[2:]:
+        cm.ascii_cm_add(torch.from_numpy(x).to(dev), counts, **kw)
+    t = two[0]
+    valid, admitted, reads = _cm_rows_read(t, counts)
+    W = R * (C - CM_K + 1)
+    enc = ENC_ASCII_OPS * R * C + ENC_WINDOW_OPS * W + ENC_HASH_OPS * valid
+    ring = torch.zeros((RING, 1 << CM_P), dtype=torch.int32, device=dev)
+    work = {
+        "cm_add": (lambda i: cm.ascii_cm_add(t, counts, **kw), lambda: None,
+                   lambda: cm.ascii_cm_add_plain(t, counts, **kw),
+                   t.numel() + valid * CM_NH * CM_ADD_BYTES,
+                   enc + CM_ROW_OPS * valid * CM_NH),
+        "cm_admit": (lambda i: cm.ascii_cm_admit(t, counts, ring[i],
+                                                 min_count=CM_MIN, p=CM_P,
+                                                 **kw),
+                     ring.zero_,
+                     lambda: cm.ascii_cm_admit_plain(
+                         t, counts, regs_p, min_count=CM_MIN, p=CM_P, **kw),
+                     t.numel() + reads * CM_READ_BYTES + 2 * 4 * (1 << CM_P),
+                     enc + CM_ROW_OPS * reads),
+    }
+    for name, (run, reset, plain_run, nbytes, ops) in work.items():
+        what = f"{name} k={CM_K} {CM_NH}x2^{CM_LOG2}"
+        ms, paced = kernel_alone_ms(run, reset, what)
+        plain_ms = cuda_ms(plain_run, 3)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = ops / INT32_OPS * 1e3
+        log(f"[countmin] {name} tile ({R}, {C}): {valid} of {W} windows "
+            f"valid ({valid / W:.4f}), {admitted} admitted, {reads} counter "
+            f"reads in pass 2; kernel alone {ms:.4f} ms "
+            f"({valid * CM_NH / ms / 1e6:.3f} G row-updates/s), as launched "
+            f"{paced:.4f} ms, plain chain {plain_ms:.4f} ms; bound terms: "
+            f"bytes {t_bytes:.4f} ms ({nbytes / 1e6:.1f} MB), operations "
+            f"{t_ops:.4f} ms ({ops / max(valid, 1):.1f} a valid window), "
+            f"share {max(t_bytes, t_ops) / ms:.1%}; at {CM_CELL_TILES} "
+            f"tiles a pass: {ms * CM_CELL_TILES / 1e3:.3f} s alone")
+        record(records, f"{name} k={CM_K} {CM_NH}x2^{CM_LOG2} p={CM_P} "
+               f"({R}x{C})", CM_SRC, CM_REPLACES, name, 0.0, ms, plain_ms,
+               nbytes, ops, INT32_OPS)
+    del ring, counts
+    torch.cuda.empty_cache()
+    log(f"[countmin] phase {time.perf_counter() - t0:.1f}s")
 
 
 # Phase `banks`: the banked forms of K1 and K2 at the shapes the small-file
@@ -3135,17 +3287,19 @@ def _step(tag: str, wall: float, reads: int) -> None:
     log(f"[e2e f] {tag}: wall {wall:.3f}s, {reads / wall:,.0f} reads/s")
 
 
-def phase_e2e_fastq(dev):
+def phase_e2e_fastq(dev, counts):
     """(f) BASELINE.json config 3 at 1 M reads through the CLI entry, k=31:
     plain and count-min filtered `sketch` (-b -n 2 -q 28: 2^28 x 4 int32
-    counters, 4 GiB) checked against the exact k-mer counts, `card` and
-    `union` of the two, `hll` at p=24, `dist -y` over the read set's four
+    counters, 4 GiB; each count-min kernel once a tile, its launches into
+    `counts`) checked against the exact k-mer counts, `card` and `union`
+    of the two, `hll` at p=24, `dist -y` over the read set's four
     quarters, and the filtered registers on the card against the CPU."""
     import contextlib
     import io
     import torch
     from dashing_tpu_torch import pipeline
     from dashing_tpu_torch.cli.main import main
+    from dashing_tpu_torch.ops import countmin as cm
     from dashing_tpu_torch.ops import encode_hash as eh
     from dashing_tpu_torch.ops import joint_stats as js
     from dashing_tpu_torch.ops import union_mle as um
@@ -3186,12 +3340,26 @@ def phase_e2e_fastq(dev):
         for tag, extra in (("plain", []),
                            ("filt", ["-b", "-n", "2", "-q", str(FQ_CM_LOG2)])):
             os.makedirs(dirs[tag])
-            eh.launches = 0
+            eh.launches = cm.add_launches = cm.admit_launches = 0
+            tiles0 = pipeline.cm_tiles
             wall, _ = run(["sketch", "-k", "31", "-S", "16", "-P", dirs[tag]]
                           + extra + [fq], f"sketch {tag}")
-            _step(" ".join(["sketch -S 16"] + extra), wall, FQ_READS)
+            tiles = pipeline.cm_tiles - tiles0
+            _step(" ".join(["sketch -S 16"] + extra)
+                  + (f" (cm_add {cm.add_launches} and cm_admit "
+                     f"{cm.admit_launches} launches, {tiles} tiles)"
+                     if tag == "filt" else ""),
+                  wall, FQ_READS)
             if tag == "plain" and eh.launches == 0:
                 fail("e2e (f): the plain sketch did not launch K1")
+            if tag == "filt":
+                if tiles == 0 or not (cm.add_launches == cm.admit_launches
+                                      == tiles):
+                    fail(f"e2e (f): {cm.add_launches} cm_add and "
+                         f"{cm.admit_launches} cm_admit launches for "
+                         f"{tiles} tiles, not one a tile a pass")
+                counts["cm_add"] = cm.add_launches
+                counts["cm_admit"] = cm.admit_launches
         hlls = [os.path.join(dirs[t], "reads.fq.w.31.spacing.16.hll")
                 for t in ("plain", "filt")]
         plain, filt = map(_cli_regs, hlls)
@@ -4517,6 +4685,7 @@ def main() -> int:
     phase_k1(dev, records)
     phase_k2(dev, records)
     phase_minimizer(dev, records)
+    phase_countmin(dev, records)
     phase_banks(dev, records)
     phase_k3(dev, records)
     bank = phase_k4_k5(dev, records)
@@ -4524,7 +4693,7 @@ def main() -> int:
     genome = fq_genome()
     phase_sparse(dev, records, genome)
     phase_e2e(dev, bank, other, counts, records)
-    phase_e2e_fastq(dev)
+    phase_e2e_fastq(dev, counts)
     phase_e2e_readfilt(dev, counts, genome)
     phase_e2e_small(dev, counts)
     for r in records:

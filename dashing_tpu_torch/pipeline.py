@@ -30,10 +30,12 @@ chooses them:
 A file can also be count-min filtered (sketch -b/-f, dist -y): two passes
 over its tiles, the first counting every k-mer's hash into a count-min
 sketch on the device, the second admitting the k-mers whose estimated
-count reaches the threshold (`_count_filtered_tiles`); under
-DASHING_TPU_USE_HK=1 a HeavyKeeper on the host counts instead
-(`_hk_filtered_tiles`).  Filtered tiles take the ASCII route, since the
-filters need the 64-bit hashes.
+count reaches the threshold.  Filtered tiles take the ASCII route: on a
+card, exact contiguous k-mers run both passes on the count-min kernels
+(ops/countmin.py, one launch a tile a pass, `_count_filtered_kernels`);
+every other encoding yields each tile's 64-bit hashes and admission mask
+(`_count_filtered_tiles`), and under DASHING_TPU_USE_HK=1 a HeavyKeeper
+on the host counts instead (`_hk_filtered_tiles`).
 Many small files fold in one launch into a (B, 2^p) register bank
 (`sketch_small_batch_async`: the banked K1, or the PyTorch encoders and a
 banked scatter-max), and so do a batch of sequence records
@@ -62,10 +64,13 @@ import numpy as np
 import torch
 
 from . import device as devmod, metrics
-from .hashes import shr, wang_hash
+from .hashes import wang_hash
 from .io import fasta, native
 from .io.paths import split_subpaths
-from .ops import minhash_update, minimizer_hash, rolling
+from .ops import countmin, minhash_update, minimizer_hash, rolling
+from .ops.countmin import add_hashes as _cm_add
+from .ops.countmin import check_size as _check_cm_size
+from .ops.countmin import query_hashes as _cm_query
 from .ops.encode import (Spacer, encode_tile, join_records, parse_spacing,
                          tile_sequence)
 from .ops.encode_hash import ascii_to_banks, encode_hash_keys, \
@@ -721,57 +726,20 @@ def sketch_file_hll_multik(path: str, params_list: Sequence[SketchParams],
 _CM_HASH_CACHE_BYTES = 256 << 20
 
 
-def _check_cm_size(size_log2: int) -> None:
-    # the JAX index is the top size_log2 bits of a 32-bit word: undefined
-    # outside 1..32
-    if not 1 <= size_log2 <= 32:
-        raise ValueError(f"count-min size_log2 must be in [1, 32], "
-                         f"got {size_log2}")
-
-
-def _cm_row_constant(seed: int, row: int) -> int:
-    """(seed + row * 0x9E3779B9) | 1 taken to 64 bits, as the int64 of the
-    same bit pattern (JAX u64.const masks the Python int to 64 bits)."""
-    c = ((seed + row * 0x9E3779B9) | 1) & 0xFFFFFFFFFFFFFFFF
-    return c - (1 << 64) if c >> 63 else c
-
-
-def _cm_indices(h: torch.Tensor, nh: int, size_log2: int,
-                seed: int) -> torch.Tensor:
-    """(nh, *h.shape) int64 counter indices: the top size_log2 bits of
-    wang_hash(h ^ c_row), a logical shift of the 64-bit pattern."""
-    _check_cm_size(size_log2)
-    return torch.stack([shr(wang_hash(h ^ _cm_row_constant(seed, row)),
-                            64 - size_log2) for row in range(nh)])
-
-
-def _cm_add(counts: torch.Tensor, h: torch.Tensor, valid: torch.Tensor,
-            nh: int, size_log2: int, seed: int) -> torch.Tensor:
-    """Count the valid windows' hashes into `counts` (nh, 2^size_log2)
-    int32, in place; invalid windows add 0."""
-    idx = _cm_indices(h, nh, size_log2, seed).reshape(nh, -1)
-    ones = valid.reshape(-1).to(counts.dtype)
-    for row in range(nh):
-        counts[row].index_add_(0, idx[row], ones)
-    return counts
-
-
-def _cm_query(counts: torch.Tensor, h: torch.Tensor, nh: int,
-              size_log2: int, seed: int) -> torch.Tensor:
-    """Estimated count of each hash: the minimum over the rows."""
-    idx = _cm_indices(h, nh, size_log2, seed)
-    est = counts[0][idx[0]]
-    for row in range(1, nh):
-        est = torch.minimum(est, counts[row][idx[row]])
-    return est
-
-
 def _hashed_tile(tile: np.ndarray, kw: dict, device: torch.device):
     return tile_hashes(torch.from_numpy(tile).to(device), **kw)
 
 
 def _use_hk() -> bool:
     return os.environ.get("DASHING_TPU_USE_HK", "") not in ("", "0")
+
+
+def _summed_counts(counts: List[torch.Tensor], devs) -> List[torch.Tensor]:
+    """The cards' count tables summed (exact integers) on the first card,
+    and a copy of the sum on each other card."""
+    for c in counts[1:]:
+        counts[0] += c.to(counts[0].device)
+    return [counts[0]] + [counts[0].to(d, copy=True) for d in devs[1:]]
 
 
 def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
@@ -809,9 +777,7 @@ def _count_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
             if budget >= cost:
                 cached[i] = (h, valid)
                 budget -= cost
-        for c in counts[1:]:
-            counts[0] += c.to(counts[0].device)
-        counts = [counts[0]] + [counts[0].to(d, copy=True) for d in devs[1:]]
+        counts = _summed_counts(counts, devs)
     stream = enumerate(tiles())
     while True:
         with metrics.accum("sketch.cm_admit"):
@@ -877,19 +843,66 @@ def _hk_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
         yield h, torch.from_numpy(admitted).to(device)
 
 
+def _count_filtered_kernels(tiles: Callable[[], Iterable[np.ndarray]],
+                            params: SketchParams, sp: Spacer, p: int,
+                            devs: Sequence[torch.device]) -> torch.Tensor:
+    """The two passes of the count-min filter on the hand-written kernels
+    (ops/countmin.py), for the tiles `tiles()` yields on CUDA cards:
+    pass 1 uploads each tile (`_upload`) and counts it with one
+    `cm_add_kernel` launch; pass 2 uploads it again and admits its windows
+    straight into its card's registers with one `cm_admit_kernel` launch.
+    No hash is kept between the passes, so every pass-2 tile counts in
+    `cm_rehashed_tiles`.  The mesh round-robin and the counts summed
+    between the passes are _count_filtered_tiles'."""
+    global cm_tiles
+    nh, size = params.cm_nhashes, params.cm_size_log2
+    _check_cm_size(size)
+    cm = dict(k=sp.k, canon=params.canon, nh=nh, size_log2=size,
+              seed=params.cm_seed)
+    counts = [torch.zeros((nh, 1 << size), dtype=torch.int32, device=d)
+              for d in devs]
+    with metrics.accum("sketch.cm_count"):
+        for i, tile in enumerate(tiles()):
+            d = i % len(devs)
+            up, = _upload(tile, device=devs[d])
+            countmin.ascii_cm_add(up, counts[d], **cm)
+            cm_tiles += 1
+        counts = _summed_counts(counts, devs)
+
+    def admit(unit, card, regs):
+        global cm_rehashed_tiles
+        tile, card_counts = unit
+        up, = _upload(tile, device=card)
+        countmin.ascii_cm_admit(up, card_counts, regs,
+                                min_count=params.min_count, p=p, **cm)
+        cm_rehashed_tiles += 1
+
+    with metrics.accum("sketch.cm_admit"):
+        return _fold_over_cards(zip(tiles(), itertools.cycle(counts)), devs,
+                                p, admit)
+
+
 def sketch_hll_async(tiles: Callable[[], Iterable[np.ndarray]],
                      params: SketchParams, p: int,
                      device: torch.device) -> torch.Tensor:
     """(2^p,) int32 registers on `device`, not synchronised, of the tiles
     that `tiles()` yields: one pass, or the two of the count-min filter
     when `params.filtered` (its tiles take the ASCII route); on a mesh,
-    round-robin over its cards."""
+    round-robin over its cards.  On CUDA cards a filter of exact
+    contiguous k-mers (`countmin.takes`) runs on the count-min kernels;
+    every other filter yields (hashes, admitted) pairs to the register
+    fold (_count_filtered_tiles)."""
     sp = check_supported(params)
     if not params.filtered:
         return sketch_chunk_stream(tiles(), params, p, device,
                                    packed_ok(params, sp, p))
-    # HeavyKeeper's passes run on the host, and on one card
-    devs = (device,) if _use_hk() else mesh.cards(device)
+    if _use_hk():
+        devs = (device,)        # HeavyKeeper's passes run on the host
+    else:
+        devs = mesh.cards(device)
+        if (torch.device(device).type == "cuda"
+                and countmin.takes(p, **_encode_kw(params, sp))):
+            return _count_filtered_kernels(tiles, params, sp, p, devs)
     return _fold_over_cards(
         _count_filtered_tiles(tiles, params, sp, device, devs), devs, p,
         lambda pair, card, regs: update_registers(regs, *pair, p))

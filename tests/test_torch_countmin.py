@@ -1,12 +1,18 @@
 """Count-min filtered sketching in the port against the JAX package on the
-CPU: the count-min arithmetic (`_cm_indices`, `_cm_add`, `_cm_query`)
-exactly equal, the admitted k-mer set equal, and filtered registers
-bitwise equal to JAX `sketch_file_hll` for FASTA and FASTQ, whole and
+CPU: the count-min arithmetic (ops/countmin.py `indices`, and
+`pipeline._cm_add`, `_cm_query`) exactly equal, the admitted k-mer set
+equal, and filtered registers bitwise equal to JAX `sketch_file_hll` for FASTA and FASTQ, whole and
 streamed, with every tile's hashes cached between the passes, none, or
-some.  Also the streamed files' read-ahead thread and no CPU fallback
+some.  The count-min kernels' side on the CPU: their routing rule
+(`countmin.takes`), their plain versions over whole tiles against the
+JAX chain, their range checks, and their route's glue
+(`_count_filtered_kernels`) on CPU tensors, one card or three.  Also the
+streamed files' read-ahead thread and no CPU fallback
 (test_torch_heavykeeper.py holds the HeavyKeeper swap).  The card-only
 checks (the filtered path on `cuda` against `cpu`, tables of 2^28
-counters) carry the `cuda` marker and skip without a card."""
+counters) carry the `cuda` marker and skip without a card;
+tests/test_torch_cuda_kernels.py holds the kernels to their plain
+versions on the card."""
 import gzip
 import threading
 import time
@@ -15,9 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from dashing_tpu import pipeline as jpipe
 from dashing_tpu import u64
 from dashing_tpu_torch import pipeline
+from dashing_tpu_torch.ops import countmin
 from dashing_tpu_torch.cli import main as tmain
 
 torch.set_num_threads(1)
@@ -44,7 +53,7 @@ def test_cm_indices_equal_jax(size_log2):
         if size_log2 == 32:
             want &= 0xFFFFFFFF
         for nh in range(1, 9):
-            got = pipeline._cm_indices(th, nh, size_log2, seed).numpy()
+            got = countmin.indices(th, nh, size_log2, seed).numpy()
             assert got.shape == (nh, h.size)
             np.testing.assert_array_equal(got, want[:nh], err_msg=str(
                 (nh, seed)))
@@ -81,7 +90,7 @@ def test_cm_add_query_equal_jax(nh, size_log2, seed):
 def test_cm_size_out_of_range(size_log2):
     h = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="size_log2"):
-        pipeline._cm_indices(h, 2, size_log2, 1337)
+        countmin.indices(h, 2, size_log2, 1337)
     params = pipeline.SketchParams(k=5, use_counting_filter=True,
                                    min_count=2, cm_size_log2=size_log2)
     tile = np.frombuffer(b"ACGTACGTACGTACGT", np.uint8)[None]
@@ -196,6 +205,31 @@ def test_filtered_registers_equal_jax(filtered_files, monkeypatch, fmt,
     assert (got <= plain).all() and got.sum() < plain.sum()
 
 
+@pytest.mark.parametrize("fmt", sorted(FILTERED))
+@pytest.mark.parametrize("cards", [1, 3])
+def test_kernel_route_equal_jax(filtered_files, monkeypatch, fmt, cards):
+    """The count-min kernels' route (`_count_filtered_kernels`) on CPU
+    tensors, where each pass runs the wrappers' plain versions, gives JAX
+    `sketch_file_hll`'s registers, streamed in 4-row tiles, on one card
+    or round-robin over three; each tile is uploaded once a pass and
+    counted as hashed again in pass 2."""
+    path, want, _ = filtered_files[fmt]
+    kw, p = FILTERED[fmt]
+    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
+    monkeypatch.setattr(pipeline, "MAX_ROWS", 4)
+    params = pipeline.SketchParams(**kw)
+    sp = pipeline.check_supported(params)
+    assert countmin.takes(p, **pipeline._encode_kw(params, sp))
+    t0, r0 = pipeline.cm_tiles, pipeline.cm_rehashed_tiles
+    u0 = pipeline.chunk_uploads
+    regs = pipeline._count_filtered_kernels(
+        pipeline.InputFile(0, path, sp).tiles, params, sp, p, (CPU,) * cards)
+    np.testing.assert_array_equal(pipeline.registers_to_numpy(regs), want)
+    tiles = pipeline.cm_tiles - t0
+    assert tiles >= 3 and pipeline.cm_rehashed_tiles - r0 == tiles
+    assert pipeline.chunk_uploads - u0 == 2 * tiles
+
+
 def test_filter_threshold_one_is_plain(filtered_files):
     """A threshold of 1 admits every k-mer: the plain registers."""
     path, _, plain = filtered_files["fastq"]
@@ -279,6 +313,143 @@ def test_no_cpu_fallback(filtered_files, tmp_path, monkeypatch):
     assert tmain.main(["view", "--header", str(tmp_path / "f.hll")]) == 0
 
 
+# encoder arguments, and whether the count-min kernels take them at p = 16
+TAKES = [
+    (dict(k=31), True),                      # the read-set cell's
+    (dict(k=21, canon=False), True),
+    (dict(k=1), True),
+    (dict(k=32), True),
+    (dict(k=31, spacing="1x4"), False),      # -s
+    (dict(k=31, w=50, entropy=True), False), # -g
+    (dict(k=31, w=50), False),               # -w > k
+    (dict(k=31, encoding="nthash"), False),
+    (dict(k=31, encoding="cyclic"), False),
+    (dict(k=31, rehash=False), False),
+]
+
+
+@pytest.mark.parametrize("kw,taken", TAKES)
+def test_countmin_takes(kw, taken):
+    """The routing rule takes exact contiguous k-mers with WangHash and no
+    window, whatever the filter's geometry, and nothing else."""
+    params = pipeline.SketchParams(use_counting_filter=True, min_count=2,
+                                   cm_size_log2=28, **kw)
+    ekw = pipeline._encode_kw(params, pipeline.check_supported(params))
+    assert countmin.takes(16, **ekw) is taken
+    for p in (1, 31):
+        assert countmin.takes(p, **ekw) is taken
+    for p in (0, 32):
+        assert not countmin.takes(p, **ekw)
+
+
+def _reads_tiles(rng, n, rows, C, k):
+    """n (rows, C) uint8 tiles cut from one stream of 100-base reads of a
+    3,000-base genome (so k-mers repeat), half lowercase, joined by k - 1
+    zero bytes, with N runs and bytes >= 0x80."""
+    genome = rng.integers(0, 4, 3000)
+    out = []
+    for _ in range(n):
+        reads = []
+        while sum(map(len, reads)) < rows * C:
+            s = int(rng.integers(0, 2900))
+            r = LUT[genome[s:s + 100]].tobytes()
+            reads.append(r.lower() if rng.random() < 0.5 else r)
+        flat = np.frombuffer((b"\x00" * (k - 1)).join(reads), np.uint8)
+        tile = flat[:rows * C].copy().reshape(rows, C)
+        tile[rng.random(tile.shape) < 2e-3] = ord("N")
+        tile[rng.random(tile.shape) < 1e-3] = 0xC1
+        out.append(tile)
+    return out
+
+
+@pytest.mark.parametrize("k,canon,nh,size_log2,seed,min_count,p", [
+    (31, True, 4, 12, 1337, 2, 12),
+    (21, False, 3, 10, -1, 3, 10),
+    (1, True, 1, 1, 0, 2, 4),
+    (32, True, 5, 14, 1337, 2, 16),
+])
+def test_plain_passes_equal_jax(rng, k, canon, nh, size_log2, seed,
+                                min_count, p):
+    """The plain versions of both passes over three tiles: the table after
+    pass 1 equals the JAX package's `_tile_to_hashes` and `_cm_add`, and
+    the registers after pass 2 its `_cm_query` >= min_count and register
+    fold."""
+    from dashing_tpu.ops.hll_update import update_registers as j_update
+    tiles = _reads_tiles(rng, 3, 6, 700, k)
+    params = jpipe.SketchParams(k=k, canon=canon)
+    jkw = jpipe._encode_kw(params, params.spacer())
+    hashed = [jpipe._tile_to_hashes(jnp.asarray(t), **jkw) for t in tiles]
+    counts_j = jnp.zeros((nh, 1 << size_log2), jnp.int32)
+    for h, valid in hashed:
+        counts_j = jpipe._cm_add(counts_j, h, valid, nh, size_log2, seed)
+    regs_j = jnp.zeros(1 << p, jnp.int32)
+    for h, valid in hashed:
+        est = jpipe._cm_query(counts_j, h, nh, size_log2, seed)
+        regs_j = j_update(regs_j, h, valid & (est >= min_count), p)
+    cm = dict(k=k, canon=canon, nh=nh, size_log2=size_log2, seed=seed)
+    counts = torch.zeros((nh, 1 << size_log2), dtype=torch.int32)
+    for t in tiles:
+        countmin.ascii_cm_add(torch.from_numpy(t), counts, **cm)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(counts_j))
+    regs = torch.zeros(1 << p, dtype=torch.int32)
+    for t in tiles:
+        countmin.ascii_cm_admit(torch.from_numpy(t), counts, regs,
+                                min_count=min_count, p=p, **cm)
+    np.testing.assert_array_equal(regs.numpy(), np.asarray(regs_j))
+    assert int(np.asarray(regs_j).astype(bool).sum()) > 0
+
+
+def test_plain_passes_narrow_tile():
+    """A tile narrower than k has no window: both passes leave their
+    outputs as they are."""
+    tile = torch.full((3, 20), ord("A"), dtype=torch.uint8)
+    counts = torch.zeros((2, 1 << 8), dtype=torch.int32)
+    regs = torch.zeros(1 << 10, dtype=torch.int32)
+    cm = dict(k=21, nh=2, size_log2=8, seed=1337)
+    countmin.ascii_cm_add(tile, counts, **cm)
+    countmin.ascii_cm_admit(tile, counts, regs, min_count=1, p=10, **cm)
+    assert not counts.any() and not regs.any()
+
+
+@pytest.mark.parametrize("bad", [
+    dict(k=0), dict(k=33), dict(nh=0), dict(size_log2=0),
+    dict(size_log2=33), dict(p=0), dict(p=32)])
+def test_wrappers_reject_out_of_range(bad):
+    """Both wrappers raise outside the kernels' range, on the CPU too (the
+    range is checked before the shapes)."""
+    kw = dict(k=21, nh=2, size_log2=8, seed=1337, p=10)
+    kw.update(bad)
+    p = kw.pop("p")
+    tile = torch.full((2, 40), ord("A"), dtype=torch.uint8)
+    counts = torch.zeros((2, 1 << 8), dtype=torch.int32)
+    regs = torch.zeros(1 << 10, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        countmin.ascii_cm_admit(tile, counts, regs, min_count=2, p=p, **kw)
+    if "p" not in bad:
+        with pytest.raises(ValueError):
+            countmin.ascii_cm_add(tile, counts, **kw)
+    assert not counts.any() and not regs.any()
+
+
+def test_cpu_filter_keeps_the_pair_route(filtered_files, monkeypatch):
+    """On the CPU a filter the kernels would take still runs the pair
+    generator (hashes cached between the passes, `_cm_query` and the
+    register fold called through the pipeline module) and launches
+    nothing."""
+    path = filtered_files["fastq"][0]
+    seen = []
+    real = pipeline._cm_query
+    monkeypatch.setattr(pipeline, "_cm_query",
+                        lambda *a: seen.append(1) or real(*a))
+    before = countmin.add_launches, countmin.admit_launches
+    params = pipeline.SketchParams(k=31, use_counting_filter=True,
+                                   min_count=3)
+    got = pipeline.sketch_file_hll(path, params, 12, CPU)
+    np.testing.assert_array_equal(got, filtered_files["fastq"][1])
+    assert seen and (countmin.add_launches,
+                     countmin.admit_launches) == before
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -316,9 +487,9 @@ def test_cm_ops_cuda_equal_cpu(cuda, nh, size_log2, seed):
     h = torch.from_numpy(_hashes(rng, 256 * 8192).view(np.int64))
     h[::3] = h[1::3][:h[::3].numel()]                    # repeats
     valid = torch.from_numpy(rng.random(h.numel()) > 0.1)
-    idx = pipeline._cm_indices(h, nh, size_log2, seed)
+    idx = countmin.indices(h, nh, size_log2, seed)
     np.testing.assert_array_equal(
-        pipeline._cm_indices(h.to(cuda), nh, size_log2, seed).cpu().numpy(),
+        countmin.indices(h.to(cuda), nh, size_log2, seed).cpu().numpy(),
         idx.numpy())
     if size_log2 > 28:
         return

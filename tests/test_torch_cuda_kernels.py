@@ -19,7 +19,11 @@ card against the CPU (the int64 scatter-min at p = 15 and 26, the
 bottom-k merge); the wide HLL's K1 registers through K4, K3 and K5 as
 the HLL's, and a wide `-J` pair against its CPU run; raw k-mers at k =
 32, HeavyKeeper-filtered registers, a weighted wide HLL pair through K4,
-K3 and K5, and gf64_mul/clhash against the CPU.  Marked `cuda`: they
+K3 and K5, and gf64_mul/clhash against the CPU; the count-min kernels'
+table and registers bitwise their plain versions' at k = 1, 21, 31 and
+32, 1, 4 and 5 rows, tables of 2 to 2^28 counters a row (the read-set
+cell's tile), ragged and narrow tiles, row-offset views, every card, and
+their launches in a filtered sketch.  Marked `cuda`: they
 skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
@@ -497,6 +501,189 @@ def test_ascii_route_takes_the_minimizer_kernel(rng, cuda, params, launched):
     pipeline.tile_to_registers(tile, want, p=14, **kw)
     assert int((want > 0).sum()) > 0
     assert torch.equal(got.cpu(), want)
+
+
+# The count-min kernels (csrc/countmin.cu): FASTQ-like tiles, 100-base
+# reads of a 3,000-base genome (k-mers repeat, so counters reach 2 and
+# more) joined by k - 1 zero bytes, half lowercase, with N and bytes
+# >= 0x80
+CM_LUT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _cm_reads(rng, rows, C, k, genome=3000):
+    g = rng.integers(0, 4, genome)
+    reads, n = [], 0
+    while n < rows * C + k - 1:      # the join drops the last separator
+        s = int(rng.integers(0, genome - 100))
+        r = CM_LUT[g[s:s + 100]].tobytes()
+        reads.append(r.lower() if rng.random() < 0.5 else r)
+        n += 100 + k - 1
+    flat = np.frombuffer((b"\x00" * (k - 1)).join(reads), np.uint8)
+    tile = flat[:rows * C].copy().reshape(rows, C)
+    tile[rng.random(tile.shape) < 2e-3] = ord("N")
+    tile[rng.random(tile.shape) < 1e-3] = 0xC1
+    return tile
+
+
+def _cm_both(tiles, nh, size_log2, p, min_count, dev, regs0=None, **kw):
+    """Both passes over `tiles` (on `dev`) by the kernels and by the plain
+    versions on the same card: (kernel counts, plain counts, kernel
+    registers, plain registers), checking one launch a tile a pass."""
+    from dashing_tpu_torch.ops import countmin as cm
+    shape = (nh, 1 << size_log2)
+    got_c = torch.zeros(shape, dtype=torch.int32, device=dev)
+    want_c = torch.zeros_like(got_c)
+    kw = dict(kw, nh=nh, size_log2=size_log2)
+    adds, admits = cm.add_launches, cm.admit_launches
+    for t in tiles:
+        cm.ascii_cm_add(t, got_c, **kw)
+        cm.ascii_cm_add_plain(t, want_c, **kw)
+    got_r = (torch.zeros(1 << p, dtype=torch.int32, device=dev)
+             if regs0 is None else regs0.clone())
+    want_r = got_r.clone()
+    for t in tiles:
+        cm.ascii_cm_admit(t, got_c, got_r, min_count=min_count, p=p, **kw)
+        cm.ascii_cm_admit_plain(t, want_c, want_r, min_count=min_count, p=p,
+                                **kw)
+    torch.cuda.synchronize(dev)
+    assert cm.add_launches == adds + len(tiles)
+    assert cm.admit_launches == admits + len(tiles)
+    return got_c, want_c, got_r, want_r
+
+
+@pytest.mark.parametrize("size_log2,min_count", [(1, 3), (12, 2)])
+@pytest.mark.parametrize("nh", [1, 4, 5])
+@pytest.mark.parametrize("canon", [True, False])
+@pytest.mark.parametrize("k", [1, 21, 31, 32])
+def test_countmin_kernels_match_plain(rng, cuda, k, canon, nh, size_log2,
+                                      min_count):
+    """The whole table after pass 1 and the registers after pass 2 bitwise
+    the plain versions', over three tiles; at size_log2 = 1 every counter
+    collides."""
+    tiles = [torch.from_numpy(_cm_reads(rng, 7, 3001, k)).to(cuda)
+             for _ in range(3)]
+    p = 14
+    got_c, want_c, got_r, want_r = _cm_both(
+        tiles, nh, size_log2, p, min_count, cuda, k=k, canon=canon,
+        seed=1337 if nh != 5 else -1)
+    assert torch.equal(got_c, want_c)
+    assert int(want_c.max()) >= min_count
+    assert torch.equal(got_r, want_r)
+    assert int((want_r > 0).sum()) > 0
+
+
+def test_countmin_kernels_cell_shape(rng, cuda):
+    """The read-set cell's tile and table: two 256 x 8,222 tiles of the
+    same reads, k31, 4 x 2^28 counters, p = 16, from zero registers and
+    from registers that already hold ranks."""
+    tile = torch.from_numpy(_cm_reads(rng, 256, 8222, 31, genome=500_000))
+    tiles = [tile.to(cuda), tile.to(cuda)]
+    regs0 = torch.randint(0, 6, (1 << 16,), dtype=torch.int32, device=cuda)
+    got_c, want_c, got_r, want_r = _cm_both(
+        tiles, 4, 28, 16, 2, cuda, regs0=regs0, k=31, canon=True, seed=1337)
+    assert torch.equal(got_c, want_c)
+    del got_c, want_c
+    assert torch.equal(got_r, want_r) and not torch.equal(want_r, regs0)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("rows,C,k", [
+    (3, 20, 21),                   # narrower than k: no window
+    (3, 21, 21),                   # one window a row
+    (70000, 60, 12),               # more rows than one grid dimension
+    (2, 16400, 31),                # eight segments a row
+] + [(5, 2000 + r, 31) for r in range(16)])   # every C mod 16
+def test_countmin_kernels_shapes(rng, cuda, rows, C, k):
+    tiles = [torch.from_numpy(_cm_reads(rng, rows, C, k)).to(cuda)]
+    got_c, want_c, got_r, want_r = _cm_both(
+        tiles * 2, 3, 10, 12, 2, cuda, k=k, canon=True, seed=7)
+    assert torch.equal(got_c, want_c) and torch.equal(got_r, want_r)
+    assert bool(want_c.any()) == (C >= k)
+
+
+def test_countmin_kernels_on_a_row_offset_view(rng, cuda):
+    """A tile taken as rows 5.. of a larger tensor: its data pointer is
+    not 16-byte aligned."""
+    t = torch.from_numpy(_cm_reads(rng, 40, 3003, 31)).to(cuda)[5:33]
+    assert t.data_ptr() % 16
+    got_c, want_c, got_r, want_r = _cm_both(
+        [t, t], 4, 12, 14, 2, cuda, k=31, canon=True, seed=1337)
+    assert torch.equal(got_c, want_c) and torch.equal(got_r, want_r)
+    assert int((want_r > 0).sum()) > 0
+
+
+def test_countmin_kernels_on_every_card(rng, cuda):
+    """Each card of the host runs both kernels on its own tensors (a
+    launch on the card the tensors lie on, whichever is current)."""
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        tiles = [torch.from_numpy(_cm_reads(rng, 6, 3001, 31)).to(dev)] * 2
+        got_c, want_c, got_r, want_r = _cm_both(
+            tiles, 4, 14, 14, 2, dev, k=31, canon=True, seed=1337)
+        assert torch.equal(got_c, want_c) and torch.equal(got_r, want_r)
+
+
+def test_countmin_wrappers_reject(cuda):
+    """On the card the wrappers raise on tensors of two devices and
+    outside the kernels' range, and launch nothing."""
+    from dashing_tpu_torch.ops import countmin as cm
+    t = torch.full((2, 100), ord("A"), dtype=torch.uint8, device=cuda)
+    counts = torch.zeros((2, 256), dtype=torch.int32, device=cuda)
+    regs = torch.zeros(1 << 10, dtype=torch.int32, device=cuda)
+    kw = dict(k=21, nh=2, size_log2=8, seed=1)
+    before = cm.add_launches, cm.admit_launches
+    with pytest.raises(ValueError):
+        cm.ascii_cm_add(t, counts.cpu(), **kw)
+    with pytest.raises(ValueError):
+        cm.ascii_cm_add(t.cpu(), counts, **kw)
+    with pytest.raises(ValueError):
+        cm.ascii_cm_admit(t, counts, regs.cpu(), min_count=2, p=10, **kw)
+    for bad in (dict(k=33), dict(nh=0), dict(size_log2=33)):
+        with pytest.raises(ValueError):
+            cm.ascii_cm_add(t, counts, **dict(kw, **bad))
+    with pytest.raises(ValueError):
+        cm.ascii_cm_admit(t, counts, regs, min_count=2, p=32, **kw)
+    assert (cm.add_launches, cm.admit_launches) == before
+
+
+@pytest.mark.parametrize("params,kernels", [
+    (dict(k=31), True),
+    (dict(k=21, canon=False, cm_nhashes=5, cm_seed=-1), True),
+    (dict(k=31, spacing="1x4"), False),
+    (dict(k=31, w=50), False),
+])
+def test_filtered_sketch_launches(rng, cuda, tmp_path, monkeypatch, params,
+                                  kernels):
+    """A filtered `sketch_file_hll` on the card launches each kernel once
+    a tile (`cm_tiles` tiles, every one hashed again in pass 2) where
+    `countmin.takes` its arguments, and neither elsewhere; its registers
+    equal the CPU run's."""
+    from dashing_tpu_torch.ops import countmin as cm
+    path = tmp_path / "r.fq"
+    reads = _cm_reads(rng, 1, 60000 * 100, 1).reshape(-1, 100)
+    reads = reads[(np.isin(reads & 0xDF, CM_LUT)).all(axis=1)]
+    path.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(),
+                                                       b"I" * 100)
+                              for i, r in enumerate(reads)))
+    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
+    monkeypatch.setattr(pipeline, "MAX_ROWS", 64)
+    params = pipeline.SketchParams(use_counting_filter=True, min_count=2,
+                                   cm_size_log2=20, **params)
+    tiles0, rehashed0 = pipeline.cm_tiles, pipeline.cm_rehashed_tiles
+    adds, admits = cm.add_launches, cm.admit_launches
+    got = pipeline.sketch_file_hll(str(path), params, 14, cuda)
+    tiles = pipeline.cm_tiles - tiles0
+    assert tiles >= 3
+    if kernels:
+        assert cm.add_launches - adds == tiles
+        assert cm.admit_launches - admits == tiles
+        assert pipeline.cm_rehashed_tiles - rehashed0 == tiles
+    else:
+        assert (cm.add_launches, cm.admit_launches) == (adds, admits)
+    want = pipeline.sketch_file_hll(str(path), params, 14,
+                                    torch.device("cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
 
 
 @pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,

@@ -207,7 +207,7 @@ def test_every_kernel_launch_goes_through_build_launch():
         "dtt_encode_hash_regs", "dtt_ascii_hash_keys", "dtt_ascii_hash_regs",
         "dtt_encode_hash_banks", "dtt_ascii_hash_banks", "dtt_union_triples",
         "dtt_estimate_rows", "dtt_joint_mle", "dtt_joint_pair_stats",
-        "dtt_cum_union", "dtt_minimizer_regs"}
+        "dtt_cum_union", "dtt_minimizer_regs", "dtt_cm_add", "dtt_cm_admit"}
     build = open(os.path.join(ops, "_build.py")).read()
     body = build[build.index("def launch("):build.index("def check(")]
     assert "with torch.cuda.device(device):" in body
