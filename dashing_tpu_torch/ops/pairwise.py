@@ -331,14 +331,15 @@ def all_pairs_condensed(sketches, result_type: int, k: int, estim: int,
     def put(key, block):
         i0, j0 = key
         bi, bj = block.shape
-        gi = (i0 + np.arange(bi, dtype=np.int64))[:, None]
-        gj = (j0 + np.arange(bj, dtype=np.int64))[None, :]
-        idx = (gi * (2 * n - gi - 1)) // 2 + gj - gi - 1
-        if j0 >= i0 + bi:
-            out[idx.reshape(-1)] = block.reshape(-1)
-        else:
-            sel = gj > gi
-            out[idx[sel]] = block[sel]
+        with metrics.span("compare.put"):
+            gi = (i0 + np.arange(bi, dtype=np.int64))[:, None]
+            gj = (j0 + np.arange(bj, dtype=np.int64))[None, :]
+            idx = (gi * (2 * n - gi - 1)) // 2 + gj - gi - 1
+            if j0 >= i0 + bi:
+                out[idx.reshape(-1)] = block.reshape(-1)
+            else:
+                sel = gj > gi
+                out[idx[sel]] = block[sel]
 
     def one(banks, i0, j0):
         (b,) = banks

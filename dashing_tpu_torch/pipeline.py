@@ -37,8 +37,9 @@ every other encoding yields each tile's 64-bit hashes and admission mask
 (`_count_filtered_tiles`), and under DASHING_TPU_USE_HK=1 a HeavyKeeper
 on the host counts instead (`_hk_filtered_tiles`).
 Many small files fold in one launch into a (B, 2^p) register bank
-(`sketch_small_batch_async`: the banked K1, or the PyTorch encoders and a
-banked scatter-max), and so do a batch of sequence records
+(`sketch_small_batch_async`: the banked K1 over each file's rows packed
+from its joined bytes, or the PyTorch encoders and a banked scatter-max
+over its tiles), and so do a batch of sequence records
 (`sketch_records_hll`: the banked K2).  `sketch_file_hll_multik` sketches
 one file at several k from one upload a chunk (mkdist).  The b-bit
 MinHash and bottom-k sketches take the ASCII tiles too
@@ -99,6 +100,8 @@ joined_packs = 0
 # again (a streamed file is also parsed again), since the last reset
 cm_tiles = 0
 cm_rehashed_tiles = 0
+# small-file batches folded (sketch_small_batch_async), since the last reset
+small_batches = 0
 
 
 def _upload(*arrays: np.ndarray, device: torch.device):
@@ -613,26 +616,46 @@ def small_batch_size(p: int) -> int:
     return (b // 8) * 8
 
 
-def sketch_small_batch_async(chunks: Sequence[np.ndarray],
-                             params: SketchParams, p: int,
+def _tile_shape(chunk) -> Tuple[int, int]:
+    """(rows, width) of an ASCII tile or of its (codes, bits) pair's codes."""
+    return (chunk[0] if isinstance(chunk, tuple) else chunk).shape
+
+
+def _join_rows(arrays: Sequence[np.ndarray]) -> np.ndarray:
+    return np.concatenate(arrays) if len(arrays) > 1 else arrays[0]
+
+
+def sketch_small_batch_async(chunks: Sequence, params: SketchParams, p: int,
                              device: torch.device, packed: bool
                              ) -> torch.Tensor:
     """The single-chunk tiles of B files, (R_i, C) uint8 of one width C,
     -> (B, 2^p) int32 register banks on `device`, not synchronised: one
-    upload and one launch (the banked K1 where `packed`).  Row counts may
+    upload and one launch (the banked K1 where `packed`), counted in
+    `small_batches`.  Where `packed`, a chunk may also come as its
+    (codes, validity bits) pair (_pack_joined_host).  Row counts may
     differ (the JAX package stacks equal shapes and pads a partial group
     with all-N chunks to bound its jit variants; the bank vector makes
     both unnecessary here)."""
+    global small_batches
+    small_batches += 1
     sp = check_supported(params)
     B = len(chunks)
-    flat = np.concatenate(chunks) if B > 1 else chunks[0]
-    bank = np.repeat(np.arange(B, dtype=np.int32),
-                     [c.shape[0] for c in chunks])
+    # the batch's host staging: its rows joined, their bank vector and,
+    # on the packed route, the 2-bit pack of any tile that came unpacked
+    with metrics.span("sketch.batch_stage"):
+        bank = np.repeat(np.arange(B, dtype=np.int32),
+                         [_tile_shape(c)[0] for c in chunks])
+        if packed:
+            pairs = [c if isinstance(c, tuple) else _pack_tile_host(c)
+                     for c in chunks]
+            codes = _join_rows([c for c, _ in pairs])
+            vbits = _join_rows([v for _, v in pairs])
+        else:
+            flat = _join_rows(chunks)
     regs = torch.zeros((B, 1 << p), dtype=torch.int32, device=device)
     if packed:
-        packed, vbits = _pack_tile_host(flat)
-        with metrics.accum("sketch.dispatch", items=flat.nbytes):
-            pk, vb, bk = _upload(packed, vbits, bank, device=device)
+        with metrics.accum("sketch.dispatch", items=codes.size * 4):
+            pk, vb, bk = _upload(codes, vbits, bank, device=device)
             packed_to_banks(pk, vb, bk, regs, k=sp.k, p=p,
                             canon=params.canon, bank_sorted=True)
     else:
@@ -964,7 +987,8 @@ def sketch_hll_files(indexed_paths: Sequence[Tuple[int, str]],
     uint8 registers) as each file lands.  The files whose index is in
     `filtered` are count-min filtered at params' threshold (none at 1 or
     less).  Up to small_batch_size(p) consecutive single-chunk files of
-    one tile width fold in one launch, the batches round-robin over the
+    one tile width fold in one launch (on the packed route each file's
+    rows packed from its joined bytes), the batches round-robin over the
     mesh's cards; an empty file lands zero registers without closing the
     batch (the JAX package also closes one on a change of row count).
     Jobs stay queued on the device until more than window_cap files,
@@ -1017,8 +1041,13 @@ def sketch_hll_files(indexed_paths: Sequence[Tuple[int, str]],
         if route == "empty":
             push((f.index,), None)
         elif route == "batch":
-            tile, = f.tiles()
-            if chunks and chunks[0].shape[1] != tile.shape[1]:
+            if packed:
+                # packed from its joined bytes, as a multi-chunk file is
+                tile = _pack_joined_host(f.joined, sp.halo, 0,
+                                         joined_rows(f.joined.size))
+            else:
+                tile, = f.tiles()
+            if chunks and _tile_shape(chunks[0])[1] != _tile_shape(tile)[1]:
                 flush()
             ids.append(f.index)
             chunks.append(tile)

@@ -15,7 +15,7 @@ from dashing_tpu_torch.cli import main as tmain
 
 # the spans of dist's dispatching thread, and the buckets with no range
 SPANS = ("sketch.parse_wait", "host.tile", "host.pack2bit", "host.parse",
-         "cli.emit")
+         "cli.emit", "sketch.batch_stage", "compare.put")
 ACCUMS = ("sketch.dispatch", "sketch.pull", "compare.dispatch", "cli.sizes")
 
 
@@ -118,24 +118,63 @@ def _dist(tmp_path, monkeypatch, extra=()):
 
 @pytest.mark.parametrize("streamed", [False, True])
 def test_dist_spans_on_dispatching_thread(fresh, tmp_path, streamed):
-    """Whole files: the worker parses, the dispatching thread waits on
-    its future, tiles, packs and emits.  Streamed files: it waits on the
+    """Whole files of one chunk: the worker parses, the dispatching thread
+    waits on its future, packs each file from its joined bytes (no tile is
+    cut), stages the batch and emits.  Streamed files: it waits on the
     read-ahead queue, whose thread parses and tiles."""
     fresh.setattr(metrics, "_ENABLED", True)
     if streamed:
         fresh.setattr(pipeline, "STREAM_THRESHOLD", 0)
     prof = _dist(tmp_path, fresh)
     names = _names(prof)
-    on_thread = {"sketch.parse_wait", "host.pack2bit", "cli.emit"}
+    on_thread = {"sketch.parse_wait", "host.pack2bit", "cli.emit",
+                 "compare.put"}
     if not streamed:
-        on_thread.add("host.tile")
+        on_thread.add("sketch.batch_stage")
     assert on_thread <= names
+    assert "host.tile" not in names
     # the regions that launch or copy are buckets with no range
     assert not set(ACCUMS) & names
-    for bucket in ("host.parse", "host.tile", "host.pack2bit",
-                   "all-pairs compare", "sketch.parse_wait", "cli.sizes",
-                   "cli.emit", "sketch.pull"):
+    for bucket in ("host.parse", "host.pack2bit", "all-pairs compare",
+                   "sketch.parse_wait", "cli.sizes", "cli.emit",
+                   "sketch.pull") + (("host.tile",) if streamed else ()):
         assert metrics._totals.get(bucket, 0.0) > 0, bucket
+    assert ("host.tile" in metrics._totals) == streamed
+
+
+def test_small_file_dist_batch_stage_and_put(fresh, tmp_path):
+    """Files of one chunk: each is packed from its joined bytes (one
+    `host.pack2bit` a file); the batch's host staging (its rows joined and
+    the bank vector) opens `sketch.batch_stage` on the dispatching thread;
+    each compare tile's scatter into the condensed output opens
+    `compare.put`; `small_batches` counts the one batch."""
+    fresh.setattr(metrics, "_ENABLED", True)
+    before = pipeline.small_batches
+    prof = _dist(tmp_path, fresh)
+    assert pipeline.small_batches - before == 1
+    assert {"sketch.batch_stage", "compare.put"} <= _names(prof)
+    assert len([e for e in _cpu_events(prof)
+                if e.name == "host.pack2bit"]) == 3
+    for bucket in ("sketch.batch_stage", "compare.put"):
+        assert metrics._totals[bucket] > 0, bucket
+
+
+def test_joined_dist_opens_no_batch_stage(fresh, tmp_path):
+    """Whole files of several chunks (rows of 1,024 bases, 2 rows a
+    chunk) take the joined route: no batch, so no `sketch.batch_stage`
+    and no count in `small_batches`; the compare still opens
+    `compare.put`."""
+    fresh.setattr(metrics, "_ENABLED", True)
+    fresh.setattr(pipeline, "CONTENT", 1024)
+    fresh.setattr(pipeline, "MAX_ROWS", 2)
+    before = pipeline.small_batches, pipeline.joined_packs
+    prof = _dist(tmp_path, fresh)
+    names = _names(prof)
+    assert pipeline.small_batches == before[0]
+    assert pipeline.joined_packs - before[1] == 3 * 3
+    assert "sketch.batch_stage" not in names
+    assert "sketch.batch_stage" not in metrics._totals
+    assert "compare.put" in names
 
 
 def test_dist_metrics_off_leaves_no_trace(fresh, tmp_path):
