@@ -500,7 +500,8 @@ class InputFile:
 
     def tiles(self) -> Iterator[np.ndarray]:
         """Its (rows, CONTENT + halo, padded to %8) uint8 tiles, cut anew
-        at each call (a filtered file's second pass re-tiles the join); a
+        at each call (a filtered file's second pass calls it again only
+        where its first pass's tiles did not all stay on the card); a
         file above STREAM_THRESHOLD streams, parsed ahead in a producer
         thread (same tiles either way)."""
         halo = self.sp.halo
@@ -866,17 +867,35 @@ def _hk_filtered_tiles(tiles: Callable[[], Iterable[np.ndarray]],
         yield h, torch.from_numpy(admitted).to(device)
 
 
+# Bytes of pass-1 tiles a CPU tensor's "card" keeps for pass 2 on the
+# kernels' route (that route runs on CPU tensors only in tests); a CUDA
+# card keeps up to half of its free memory (_cm_keep_budgets).
+_CM_KEEP_BYTES = 256 << 20
+
+
+def _cm_keep_budgets(devs: Sequence[torch.device]) -> List[int]:
+    """Bytes of uploaded pass-1 tiles each card may keep for pass 2: half
+    of its free memory on a CUDA card (wj_device_fits' reckoning), else
+    _CM_KEEP_BYTES."""
+    return [torch.cuda.mem_get_info(d)[0] // 2 if d.type == "cuda"
+            else _CM_KEEP_BYTES for d in map(torch.device, devs)]
+
+
 def _count_filtered_kernels(tiles: Callable[[], Iterable[np.ndarray]],
                             params: SketchParams, sp: Spacer, p: int,
                             devs: Sequence[torch.device]) -> torch.Tensor:
     """The two passes of the count-min filter on the hand-written kernels
     (ops/countmin.py), for the tiles `tiles()` yields on CUDA cards:
-    pass 1 uploads each tile (`_upload`) and counts it with one
-    `cm_add_kernel` launch; pass 2 uploads it again and admits its windows
-    straight into its card's registers with one `cm_admit_kernel` launch.
-    No hash is kept between the passes, so every pass-2 tile counts in
-    `cm_rehashed_tiles`.  The mesh round-robin and the counts summed
-    between the passes are _count_filtered_tiles'."""
+    pass 1 uploads each tile (`_upload`), counts it with one
+    `cm_add_kernel` launch and keeps the upload on its card while the
+    card's budget (_cm_keep_budgets, taken once a file after the count
+    tables) allows; pass 2 admits each tile's windows straight into its
+    card's registers with one `cm_admit_kernel` launch, and frees a kept
+    tile once it is admitted.  Where every tile was kept, pass 2 reads
+    nothing from the host; else it calls `tiles()` again and uploads only
+    the tiles not kept, each counted in `cm_rehashed_tiles`.  The mesh
+    round-robin and the counts summed between the passes are
+    _count_filtered_tiles'."""
     global cm_tiles
     nh, size = params.cm_nhashes, params.cm_size_log2
     _check_cm_size(size)
@@ -884,24 +903,42 @@ def _count_filtered_kernels(tiles: Callable[[], Iterable[np.ndarray]],
               seed=params.cm_seed)
     counts = [torch.zeros((nh, 1 << size), dtype=torch.int32, device=d)
               for d in devs]
+    budgets = _cm_keep_budgets(devs)
+    kept: List[Optional[torch.Tensor]] = []     # tile i's upload, or None
     with metrics.accum("sketch.cm_count"):
         for i, tile in enumerate(tiles()):
             d = i % len(devs)
             up, = _upload(tile, device=devs[d])
             countmin.ascii_cm_add(up, counts[d], **cm)
             cm_tiles += 1
+            if budgets[d] >= tile.nbytes:
+                budgets[d] -= tile.nbytes
+                kept.append(up)
+            else:
+                kept.append(None)
         counts = _summed_counts(counts, devs)
+
+    def units():
+        """Pass 2's tiles in order: each kept upload, taken out of `kept`
+        so that it is freed once admitted, or the host tile again."""
+        again = (iter(()) if all(u is not None for u in kept)
+                 else iter(tiles()))
+        for i in range(len(kept)):
+            up, kept[i] = kept[i], None
+            tile = next(again, None)
+            yield tile if up is None else up
 
     def admit(unit, card, regs):
         global cm_rehashed_tiles
-        tile, card_counts = unit
-        up, = _upload(tile, device=card)
+        up, card_counts = unit
+        if isinstance(up, np.ndarray):
+            up, = _upload(up, device=card)
+            cm_rehashed_tiles += 1
         countmin.ascii_cm_admit(up, card_counts, regs,
                                 min_count=params.min_count, p=p, **cm)
-        cm_rehashed_tiles += 1
 
     with metrics.accum("sketch.cm_admit"):
-        return _fold_over_cards(zip(tiles(), itertools.cycle(counts)), devs,
+        return _fold_over_cards(zip(units(), itertools.cycle(counts)), devs,
                                 p, admit)
 
 

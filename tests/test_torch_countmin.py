@@ -6,7 +6,8 @@ streamed, with every tile's hashes cached between the passes, none, or
 some.  The count-min kernels' side on the CPU: their routing rule
 (`countmin.takes`), their plain versions over whole tiles against the
 JAX chain, their range checks, and their route's glue
-(`_count_filtered_kernels`) on CPU tensors, one card or three.  Also the
+(`_count_filtered_kernels`) on CPU tensors, one card or three, with
+pass 1's tiles kept for pass 2 or not.  Also the
 streamed files' read-ahead thread and no CPU fallback
 (test_torch_heavykeeper.py holds the HeavyKeeper swap).  The card-only
 checks (the filtered path on `cuda` against `cpu`, tables of 2^28
@@ -207,27 +208,48 @@ def test_filtered_registers_equal_jax(filtered_files, monkeypatch, fmt,
 
 @pytest.mark.parametrize("fmt", sorted(FILTERED))
 @pytest.mark.parametrize("cards", [1, 3])
-def test_kernel_route_equal_jax(filtered_files, monkeypatch, fmt, cards):
+@pytest.mark.parametrize("budget", ["none", "some", "all"])
+def test_kernel_route_equal_jax(filtered_files, monkeypatch, fmt, cards,
+                                budget):
     """The count-min kernels' route (`_count_filtered_kernels`) on CPU
     tensors, where each pass runs the wrappers' plain versions, gives JAX
-    `sketch_file_hll`'s registers, streamed in 4-row tiles, on one card
-    or round-robin over three; each tile is uploaded once a pass and
-    counted as hashed again in pass 2."""
+    `sketch_file_hll`'s registers, streamed in 4-row tiles on one card
+    or in 1-row tiles round-robin over three (so that two tiles a card
+    keep some but not all), with each card's keep budget at 0, two
+    tiles' bytes, or unbounded.  Pass 1 uploads each tile once; pass 2
+    uploads only the tiles not kept (`cm_rehashed_tiles`), and calls
+    `tiles()` again only where some tile was not kept."""
     path, want, _ = filtered_files[fmt]
     kw, p = FILTERED[fmt]
     monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
-    monkeypatch.setattr(pipeline, "MAX_ROWS", 4)
+    monkeypatch.setattr(pipeline, "MAX_ROWS", 4 if cards == 1 else 1)
     params = pipeline.SketchParams(**kw)
     sp = pipeline.check_supported(params)
     assert countmin.takes(p, **pipeline._encode_kw(params, sp))
+    src = pipeline.InputFile(0, path, sp)
+    tiles = list(src.tiles())
+    assert len(tiles) >= 3 * cards and tiles[-1].nbytes <= tiles[0].nbytes
+    cost = {"none": 0, "some": 2 * tiles[0].nbytes, "all": 1 << 62}
+    monkeypatch.setattr(pipeline, "_CM_KEEP_BYTES", cost[budget])
+    kept = {"none": 0, "all": len(tiles),
+            "some": sum(min(2, len(tiles[c::cards])) for c in range(cards))
+            }[budget]
+    calls = []
+
+    def counted():
+        calls.append(1)
+        return src.tiles()
+
     t0, r0 = pipeline.cm_tiles, pipeline.cm_rehashed_tiles
     u0 = pipeline.chunk_uploads
-    regs = pipeline._count_filtered_kernels(
-        pipeline.InputFile(0, path, sp).tiles, params, sp, p, (CPU,) * cards)
+    regs = pipeline._count_filtered_kernels(counted, params, sp, p,
+                                            (CPU,) * cards)
     np.testing.assert_array_equal(pipeline.registers_to_numpy(regs), want)
-    tiles = pipeline.cm_tiles - t0
-    assert tiles >= 3 and pipeline.cm_rehashed_tiles - r0 == tiles
-    assert pipeline.chunk_uploads - u0 == 2 * tiles
+    assert pipeline.cm_tiles - t0 == len(tiles)
+    assert 0 < kept < len(tiles) or budget != "some"
+    assert pipeline.cm_rehashed_tiles - r0 == len(tiles) - kept
+    assert pipeline.chunk_uploads - u0 == len(tiles) + len(tiles) - kept
+    assert len(calls) == (1 if kept == len(tiles) else 2)
 
 
 def test_filter_threshold_one_is_plain(filtered_files):

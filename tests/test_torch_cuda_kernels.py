@@ -22,8 +22,9 @@ the HLL's, and a wide `-J` pair against its CPU run; raw k-mers at k =
 K3 and K5, and gf64_mul/clhash against the CPU; the count-min kernels'
 table and registers bitwise their plain versions' at k = 1, 21, 31 and
 32, 1, 4 and 5 rows, tables of 2 to 2^28 counters a row (the read-set
-cell's tile), ragged and narrow tiles, row-offset views, every card, and
-their launches in a filtered sketch.  Marked `cuda`: they
+cell's tile), ragged and narrow tiles, row-offset views, every card,
+their launches in a filtered sketch, and pass 1's tiles kept on the card
+for pass 2 within its budget, then freed.  Marked `cuda`: they
 skip without a card.  Run them on one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
@@ -646,6 +647,16 @@ def test_countmin_wrappers_reject(cuda):
     assert (cm.add_launches, cm.admit_launches) == before
 
 
+def _cm_fastq(rng, path, reads):
+    """A FASTQ of `reads` 100-base reads of _cm_reads' genome, less those
+    with an N or a high byte."""
+    reads = _cm_reads(rng, 1, reads * 100, 1).reshape(-1, 100)
+    reads = reads[(np.isin(reads & 0xDF, CM_LUT)).all(axis=1)]
+    path.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(),
+                                                       b"I" * 100)
+                              for i, r in enumerate(reads)))
+
+
 @pytest.mark.parametrize("params,kernels", [
     (dict(k=31), True),
     (dict(k=21, canon=False, cm_nhashes=5, cm_seed=-1), True),
@@ -655,16 +666,12 @@ def test_countmin_wrappers_reject(cuda):
 def test_filtered_sketch_launches(rng, cuda, tmp_path, monkeypatch, params,
                                   kernels):
     """A filtered `sketch_file_hll` on the card launches each kernel once
-    a tile (`cm_tiles` tiles, every one hashed again in pass 2) where
-    `countmin.takes` its arguments, and neither elsewhere; its registers
-    equal the CPU run's."""
+    a tile (`cm_tiles` tiles, every one kept on the card for pass 2, so
+    none hashed again) where `countmin.takes` its arguments, and neither
+    elsewhere; its registers equal the CPU run's."""
     from dashing_tpu_torch.ops import countmin as cm
     path = tmp_path / "r.fq"
-    reads = _cm_reads(rng, 1, 60000 * 100, 1).reshape(-1, 100)
-    reads = reads[(np.isin(reads & 0xDF, CM_LUT)).all(axis=1)]
-    path.write_bytes(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, r.tobytes(),
-                                                       b"I" * 100)
-                              for i, r in enumerate(reads)))
+    _cm_fastq(rng, path, 60000)
     monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
     monkeypatch.setattr(pipeline, "MAX_ROWS", 64)
     params = pipeline.SketchParams(use_counting_filter=True, min_count=2,
@@ -677,13 +684,51 @@ def test_filtered_sketch_launches(rng, cuda, tmp_path, monkeypatch, params,
     if kernels:
         assert cm.add_launches - adds == tiles
         assert cm.admit_launches - admits == tiles
-        assert pipeline.cm_rehashed_tiles - rehashed0 == tiles
+        assert pipeline.cm_rehashed_tiles - rehashed0 == 0
     else:
         assert (cm.add_launches, cm.admit_launches) == (adds, admits)
     want = pipeline.sketch_file_hll(str(path), params, 14,
                                     torch.device("cpu"))
     np.testing.assert_array_equal(got, want)
     assert got.any()
+
+
+@pytest.mark.parametrize("budget", ["all", "two", "none"])
+def test_countmin_kept_tiles(rng, cuda, tmp_path, monkeypatch, budget):
+    """Pass 1's uploads stay on the card for pass 2 as far as half of the
+    free memory that `torch.cuda.mem_get_info` reports allows: all of a
+    streamed FASTQ's tiles (full tiles and a tail), two tiles' bytes
+    (two kept), or none.  The registers are bitwise the CPU run's, the
+    tiles not kept are uploaded again (`cm_rehashed_tiles`), and the kept
+    tiles are freed: after the call the card holds the registers and
+    nothing more than before it."""
+    path = tmp_path / "r.fq"
+    _cm_fastq(rng, path, 6000)
+    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 0)
+    monkeypatch.setattr(pipeline, "MAX_ROWS", 16)
+    params = pipeline.SketchParams(use_counting_filter=True, min_count=2,
+                                   cm_size_log2=20)
+    src = pipeline.InputFile(0, str(path), params.spacer())
+    tiles = list(src.tiles())
+    assert len(tiles) >= 4 and tiles[-1].shape[0] < tiles[0].shape[0]
+    want = pipeline.sketch_file_hll(str(path), params, 14,
+                                    torch.device("cpu"))
+    total = torch.cuda.mem_get_info(cuda)[1]
+    free = {"two": 2 * 2 * tiles[0].nbytes, "none": 0}.get(budget)
+    if free is not None:
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda device=None: (free, total))
+    kept = {"all": len(tiles), "two": 2, "none": 0}[budget]
+    torch.cuda.synchronize(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    t0, r0 = pipeline.cm_tiles, pipeline.cm_rehashed_tiles
+    regs = pipeline.sketch_hll_async(src.tiles, params, 14, cuda)
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.memory_allocated(cuda) == before + regs.nbytes
+    assert pipeline.cm_tiles - t0 == len(tiles)
+    assert pipeline.cm_rehashed_tiles - r0 == len(tiles) - kept
+    np.testing.assert_array_equal(pipeline.registers_to_numpy(regs), want)
+    assert want.any()
 
 
 @pytest.mark.parametrize("method", [est.ORIGINAL, est.ERTL_IMPROVED,
